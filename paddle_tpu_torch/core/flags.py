@@ -1,6 +1,6 @@
-"""Serving flag registry (counterpart: paddle_tpu/core/flags.py).
+"""Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Four flags work here; five
+The names and defaults are paddle_tpu's.  Four flags work here; seven
 more keep their default only, because the code they switch on is not
 ported yet — setting one of those to anything else raises
 NotImplementedError naming the slice that brings it.
@@ -26,6 +26,10 @@ _LATER = {
     "ragged_step": (False, "unified ragged step"),
     "spec_decode_k": (0, "speculative decoding"),
     "serve_mesh": ("", "tensor-parallel serving"),
+    # "auto": kernels K3/K4 run for every call flash_attention_fwd sends
+    # them; the TPU's sequence thresholds and forced modes do not carry over
+    "use_pallas_attention": ("auto", "attention kernel policy"),
+    "use_pallas_layernorm": (False, "LayerNorm kernel (K5)"),
 }
 
 _REGISTRY: Dict[str, Any] = dict(_PORTED)

@@ -14,7 +14,7 @@
   `ops.paged_attention.paged_attention` once per layer.
 
 The step functions are plain functions over the params dict and the
-page pools, as in the JAX package.  Where JAX donates the pools to a
+page pools, as in the JAX package, and record no autograd graph.  Where JAX donates the pools to a
 jitted step and gets new ones back, the port writes into the pool
 tensors in place.  The containment ladder, journal, telemetry plane,
 schedulers other than FIFO, the legacy one-shot prefill, the ragged
@@ -307,6 +307,7 @@ def _block_tail(x, blk, attn, eps):
     return x + (y @ blk["fc2_w"] + blk["fc2_b"]).reshape(shape)
 
 
+@torch.no_grad()
 def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
                      tokens, active, generator, *, num_heads, head_dim, eps,
                      sampling):
@@ -343,6 +344,7 @@ def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
     return torch.where(active, nxt, torch.zeros_like(nxt))
 
 
+@torch.no_grad()
 def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
                     tokens, write_caps, sample_idx, sample_mask, generator,
                     *, num_heads, head_dim, eps, sampling):
@@ -415,7 +417,7 @@ class DecodeEngine:
         self._params = _tree_to(model.params(), self.device)
         self._num_heads = cfg.num_heads
         self._head_dim = cfg.hidden_size // cfg.num_heads
-        self._eps = float(model.ln_f.eps)
+        self._eps = float(model.ln_f._epsilon)
         self._num_layers = cfg.num_layers
         self._slots = int(max_batch_size)
         self._max_seq_len = int(max_seq_len or cfg.max_seq_len)

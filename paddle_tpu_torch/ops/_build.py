@@ -46,25 +46,31 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names: List[str] = None) -> Dict[str, Path]:
     """Compile every named kernel source (default: all of ``csrc``) that
-    has no up-to-date library yet.  Returns ``{name: library path}``;
-    raises on any failure."""
+    has no up-to-date library yet, one ``nvcc`` per source, all started
+    together.  Returns ``{name: library path}``; raises on any failure."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {n: _lib_path(n) for n in names}
+    running = {}
     for n, lib in libs.items():
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True,
-                              check=False)
+        running[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True))
+    failures = []
+    for n, (tmp, proc) in running.items():
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {n}.cu (nvcc exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        # atomic: a concurrent loader sees whole files only
-        os.replace(tmp, lib)
+            failures.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            # atomic: a concurrent loader sees whole files only
+            os.replace(tmp, libs[n])
+    if failures:
+        raise RuntimeError("kernel build failed: " + "\n".join(failures))
     return libs
 
 

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from pathlib import Path
 
@@ -28,10 +27,10 @@ import torch
 from ..inference.serving import DecodeEngine
 from ..models.gpt import GPT, GPTConfig
 from ..device import default_device
+from ._device_time import breakdown, card_line
 
 SEED = 0
 NEW_TOKENS = 64
-_TOP = 12
 
 
 def make_prompts(vocab: int, n: int, seed: int, shared_len: int = 128):
@@ -84,14 +83,6 @@ def _serve(new_engine, prompts):
     return time.perf_counter() - t0, eng.decode_stats()
 
 
-def _self_device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/serve_profile.json")
@@ -103,42 +94,17 @@ def main(argv=None) -> dict:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         wall_prof, _ = _serve(new_engine, prompts)
-    avgs = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = sorted((e for e in avgs if e.device_type == cuda),
-                     key=_self_device_us, reverse=True)
-    ops = sorted((e for e in avgs if e.device_type != cuda
-                  and e.key.startswith("aten::")),
-                 key=_self_device_us, reverse=True)
-    busy_us = sum(_self_device_us(e) for e in kernels)
-
-    def rows(evts):
-        return [dict(name=e.key[:120], calls=int(e.count),
-                     device_ms=_self_device_us(e) / 1e3,
-                     share_of_busy=(_self_device_us(e) / busy_us
-                                    if busy_us else None))
-                for e in evts[:_TOP] if _self_device_us(e) > 0]
 
     decode_steps = st["steps"] - st["mixed_steps"]
     result = dict(
-        device=torch.cuda.get_device_name(0),
-        card=subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0],
+        device=torch.cuda.get_device_name(0), card=card_line(),
         requests=len(prompts), new_tokens=st["tokens"],
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         wall_s=wall_plain, tokens_per_s=st["tokens"] / wall_plain,
         mean_mixed_step_ms=st["mixed_step_s"] / max(st["mixed_steps"], 1)
         * 1e3,
         mean_decode_step_ms=st["decode_step_s"] / max(decode_steps, 1) * 1e3,
-        profiled_wall_s=wall_prof,
-        device_busy_s=busy_us / 1e6 if busy_us else None,
-        device_idle_share=(1 - busy_us / 1e6 / wall_prof) if busy_us
-        else None,
-        top_kernels=rows(kernels), top_ops=rows(ops))
-    if not busy_us:
-        result["note"] = "the profiler recorded no device time: not measured"
+        profiled_wall_s=wall_prof, **breakdown(prof, wall_prof))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
