@@ -10,10 +10,11 @@ Phases, in order; any failure exits non-zero:
    gives them;
 2. build  — compile every kernel under paddle_tpu_torch/ops/csrc with
    nvcc for sm_90a;
-3. kernel — hold kernel K1 (ragged paged attention) against its plain
-   PyTorch version on the card, f32 and bf16, at the serving path's
-   decode and mixed-step shapes and at a GQA shape, and time the
-   kernel, the plain version and one PyTorch library call;
+3. kernel — hold kernels K1 (ragged paged attention) and K2 (the same
+   over int8 pages, made by `paged_quant_write` from random f32 K/V)
+   against their plain PyTorch version on the card, f32 and bf16, at
+   the serving path's decode and mixed-step shapes and at a GQA shape,
+   and time each kernel, the plain version and one PyTorch library call;
 4. serve  — serve GPT-2-small at full width (random weights from a
    seed) through `DecodeEngine` at default flags: 16 requests, prompts
    of 64-512 tokens, half sharing a 128-token prefix, 64 new tokens
@@ -21,13 +22,19 @@ Phases, in order; any failure exits non-zero:
    attention went through K1; then hold a recorded mixed step's and
    decode step's attention outputs against the plain version, and one
    short request's greedy tokens against the CPU engine;
-5. flash  — hold kernels K3 (flash-attention forward) and K4 (its
+5. quant  — the same serve with ``kv_quant="int8", serve_weights="int8"``:
+   the checks of 4, int8 pages, reset page scales, 48 folded weight
+   matrices, every step's attention through K2 and none through K1; the
+   recorded steps against the plain version; then the int8 pools of one
+   short request on the card against the CPU engine's (scales and
+   payloads within `POOL_TOL`) and the greedy tokens (printed);
+6. flash  — hold kernels K3 (flash-attention forward) and K4 (its
    backward: dkv and dq) against their plain versions on the card at
    the train path's shape (B=16, H=12, S=1024, D=64, causal; f32 and
    bf16), non-causal, at a ragged S=1000, and at B=2, H=16, S=2048,
    D=128 (bf16), and time each kernel, the plain versions and
    PyTorch's ``scaled_dot_product_attention`` forward and backward;
-6. train  — train GPT-2-small at full width with ``bench.py``'s bf16
+7. train  — train GPT-2-small at full width with ``bench.py``'s bf16
    AdamW `jit.TrainStep` (batch 16 x 1024): 2 warm-up and 10 timed
    steps; check finite, falling losses that start near ln(vocab) and
    that every step's attention went through K3 and K4; hold one layer's
@@ -35,7 +42,13 @@ Phases, in order; any failure exits non-zero:
    versions; then train a small GPT (D=64) 3 steps on the card and on
    the CPU from the same weights, in f32 and under bf16 AMP, and hold
    losses and parameters against each other;
-7. report — one JSON line of kernels, the card line, and the last line
+8. ln     — hold kernel K5 (row LayerNorm forward) against its plain
+   version at [16384, 768] and [4096, 4096], f32 and bf16, timed with
+   the plain version and ``torch.nn.functional.layer_norm``;
+9. ln train — the train of 7 with ``FLAGS_use_pallas_layernorm`` on: 2
+   warm-up and 3 timed steps; K5 launched once per LayerNorm module (25)
+   per step, K3/K4 12 times; the first loss against 7's;
+10. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -65,6 +78,33 @@ PEAK_FLOPS = {"float32": 67e12,    # H100 SXM, f32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 K1_SOURCE = "paddle_tpu_torch/ops/csrc/paged_attention.cu"
 K1_REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:339"
+# K2 (int8 pages) holds to K1's tolerances: it dequantizes K and V exactly
+# as the plain version does (int8 -> f32, times the page's scale, rounded
+# through q's dtype), so both attend over bit-identical operands and only
+# K1's differences remain
+K2_REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:403"
+# card against CPU, quantized pools after one short request: layer 0's
+# K/V come from identical inputs up to the matmul's summation order, so
+# its scales (absmax / 127) agree within 1e-6 relative.  A later layer
+# also reads the earlier layers' 1-LSB rounding flips (each moves a
+# dequantized K/V element by a whole int8 step) through attention, and
+# the difference compounds with depth; its scales may differ by less
+# than one int8 step, 1/127 relative, under which every row still
+# quantizes within 1 LSB.  Payloads everywhere within 1 LSB.
+POOL_TOL = dict(scale_rel_layer0=1e-6, scale_rel=1.0 / 127,
+                payload_lsb=1)
+# K5 against its plain version: f32 1e-5 (the same f32 statistics summed
+# in another order); bf16 one output ulp, |d| <= 2**-7 |ref| + 1e-6
+LN_TOL = {"float32": dict(abs=1e-5, rel=0.0),
+          "bfloat16": dict(abs=1e-6, rel=2.0 ** -7)}
+LN_SOURCE = "paddle_tpu_torch/ops/csrc/layer_norm.cu"
+LN_REPLACES = "paddle_tpu/ops/pallas/layer_norm.py:30"
+# the flag-on train's first loss against the flag-off train's on the same
+# weights and batch: only LayerNorm's summation order differs (~1e-7 of
+# its outputs), which can flip a bf16 rounding of a matmul input; the
+# loss is a mean over 16k tokens, so ~1e-4 is expected and 1e-3 allowed
+LN_TRAIN_LOSS_TOL = 1e-3
+LN_TRAIN_STEPS = 3
 # stated tolerances of K3/K4 against the plain versions, by dtype and
 # output: f32 as K1's (q scaled before the product against the product
 # scaled, sums in another order); bf16 outputs and gradients 2e-2 as K1's
@@ -99,15 +139,44 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # phase 3: the kernel against its plain version
 # ---------------------------------------------------------------------------
-def kernel_inputs(torch, case, dtype, gen):
+def quant_pages(torch, hkv, npages, page, d, gen):
+    """int8 pages and their scales as the serving path makes them:
+    `paged_quant_write` of random f32 K or V rows filling every page, each
+    page at its own magnitude, 0.25 to 1 times K1's unit-normal K/V (so
+    K1's bf16 tolerance, stated for those, holds: larger K makes larger
+    logits, whose bf16 rounding in the plain version grows with them)."""
+    from paddle_tpu_torch.ops.paged_attention import paged_quant_write
+
+    dev = "cuda"
+    rows = npages * page
+    vals = torch.randn(rows, hkv, d, generator=gen, device=dev)
+    vals *= (0.25 + 0.75 * torch.rand(npages, generator=gen, device=dev)
+             ).repeat_interleave(page)[:, None, None]
+    pages = torch.zeros(hkv, npages, page, d, dtype=torch.int8, device=dev)
+    scales = torch.zeros(hkv, npages, device=dev)
+    paged_quant_write(pages, scales, (
+        torch.arange(rows, device=dev),
+        torch.arange(npages, device=dev).repeat_interleave(page),
+        torch.arange(page, device=dev).repeat(npages),
+        torch.arange(npages, device=dev)), vals)
+    return pages, scales
+
+
+def kernel_inputs(torch, case, dtype, gen, quant=False):
     b, qn, hq, d = case["B"], case["Q"], case["Hq"], case["D"]
     hkv, page, pages_max = case["Hkv"], case["page"], case["pages_max"]
     npages = b * pages_max + 3
     dev = "cuda"
-    k_pages = torch.randn(hkv, npages, page, d, generator=gen,
-                          device=dev).to(dtype)
-    v_pages = torch.randn(hkv, npages, page, d, generator=gen,
-                          device=dev).to(dtype)
+    scales = {}
+    if quant:
+        k_pages, ks = quant_pages(torch, hkv, npages, page, d, gen)
+        v_pages, vs = quant_pages(torch, hkv, npages, page, d, gen)
+        scales = dict(k_scales=ks, v_scales=vs)
+    else:
+        k_pages = torch.randn(hkv, npages, page, d, generator=gen,
+                              device=dev).to(dtype)
+        v_pages = torch.randn(hkv, npages, page, d, generator=gen,
+                              device=dev).to(dtype)
     # a shuffled block table: the indirection must really be exercised
     bt = torch.randperm(npages, generator=gen, device=dev)[:b * pages_max]
     bt = bt.reshape(b, pages_max).to(torch.int32).contiguous()
@@ -115,19 +184,23 @@ def kernel_inputs(torch, case, dtype, gen):
     seq_lens = torch.tensor(case["seq_lens"], dtype=torch.int32, device=dev)
     q_offsets = torch.tensor(case["q_offsets"], dtype=torch.int32,
                              device=dev)
-    return q, k_pages, v_pages, bt, seq_lens, q_offsets
+    return (q, k_pages, v_pages, bt, seq_lens, q_offsets), scales
 
 
-def work_of(torch, case, dtype):
-    """Bytes the function must move (live K/V, q, out, indices once) and
-    the flops these inputs need (4 * D per visible (row, kv) pair)."""
+def work_of(torch, case, dtype, quant=False):
+    """Bytes the function must move (live K/V — int8 with quant, with one
+    f32 scale per live page and head — q, out, indices once) and the
+    flops these inputs need (4 * D per visible (row, kv) pair)."""
     item = torch.empty((), dtype=dtype).element_size()
     b, qn, hq, d = case["B"], case["Q"], case["Hq"], case["D"]
-    hkv = case["Hkv"]
-    horizon = case["page"] * case["pages_max"]
+    hkv, page = case["Hkv"], case["page"]
+    horizon = page * case["pages_max"]
     live = sum(min(s, horizon) for s in case["seq_lens"])
-    nbytes = (2 * live * hkv * d * item + 2 * b * qn * hq * d * item
-              + 4 * (b * case["pages_max"] + 2 * b))
+    kv_item = 1 if quant else item
+    live_pages = sum(-(-min(s, horizon) // page) for s in case["seq_lens"])
+    nbytes = (2 * live * hkv * d * kv_item + 2 * b * qn * hq * d * item
+              + 4 * (b * case["pages_max"] + 2 * b)
+              + (2 * 4 * live_pages * hkv if quant else 0))
     pairs = sum(max(min(s, o + i + 1, horizon), 0)
                 for s, o in zip(case["seq_lens"], case["q_offsets"])
                 for i in range(qn))
@@ -159,29 +232,36 @@ def time_ms(torch, fn, reps=30, warm=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def _wrappers():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import layer_norm as ln
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return dict(paged_attention=pa.paged_attention_cuda,
+                paged_attention_q=pa.paged_attention_cuda_q,
+                fwd=fa.flash_attention_cuda_fwd,
+                dkv=fa.flash_attention_cuda_dkv,
+                dq=fa.flash_attention_cuda_dq,
+                layer_norm=ln.layer_norm_cuda)
+
+
 def reset_counts():
     """Set every kernel's launch count to 0."""
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import paged_attention as pa
-    for w in (pa.paged_attention_cuda, fa.flash_attention_cuda_fwd,
-              fa.flash_attention_cuda_dkv, fa.flash_attention_cuda_dq):
+    for w in _wrappers().values():
         w.launches = 0
 
 
 def read_counts():
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import paged_attention as pa
-    return dict(paged_attention=pa.paged_attention_cuda.launches,
-                fwd=fa.flash_attention_cuda_fwd.launches,
-                dkv=fa.flash_attention_cuda_dkv.launches,
-                dq=fa.flash_attention_cuda_dq.launches)
+    return {k: w.launches for k, w in _wrappers().items()}
 
 
-def kernel_phase(torch):
+def kernel_phase(torch, quant=False):
+    """K1 (or, with ``quant``, K2 over int8 pages) against the plain
+    version at the serving path's shapes, f32 and bf16, timed."""
     from paddle_tpu_torch.nn.functional.attention import \
         multi_query_causal_mask
     from paddle_tpu_torch.ops.paged_attention import (
-        paged_attention_cuda, paged_attention_reference)
+        paged_attention_cuda, paged_attention_cuda_q,
+        paged_attention_reference)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     decode_lens = [0, 1, 63, 64, 65, 517, 1000, 1024]
@@ -201,30 +281,41 @@ def kernel_phase(torch):
         dict(base, name="gqa_mixed", Q=64, Hq=32, Hkv=8, D=128,
              seq_lens=mixed_lens, q_offsets=mixed_offs),
     ]
+    kname = "K2" if quant else "K1"
+    kernel = paged_attention_cuda_q if quant else paged_attention_cuda
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            q, kp, vp, bt, sl, qo = kernel_inputs(torch, case, dtype, gen)
-            out = paged_attention_cuda(q, kp, vp, bt, sl, qo)
-            ref = paged_attention_reference(q, kp, vp, bt, sl, q_offsets=qo)
+            (q, kp, vp, bt, sl, qo), sc = kernel_inputs(torch, case, dtype,
+                                                        gen, quant)
+            out = kernel(q, kp, vp, bt, sl, qo, **sc)
+            ref = paged_attention_reference(q, kp, vp, bt, sl, q_offsets=qo,
+                                            **sc)
             torch.cuda.synchronize()
             if not torch.isfinite(out.float()).all():
-                fail(f"K1 {case['name']} {dname}: non-finite output")
+                fail(f"{kname} {case['name']} {dname}: non-finite output")
             err = (out.float() - ref.float()).abs().max().item()
             zero_rows = [i for i, s in enumerate(case["seq_lens"]) if s == 0]
             if zero_rows and out[zero_rows].abs().max().item() != 0.0:
-                fail(f"K1 {case['name']} {dname}: seq_len 0 not exact zeros")
-            ms = time_ms(torch, lambda: paged_attention_cuda(
-                q, kp, vp, bt, sl, qo))
+                fail(f"{kname} {case['name']} {dname}: seq_len 0 not exact "
+                     f"zeros")
+            ms = time_ms(torch, lambda: kernel(q, kp, vp, bt, sl, qo, **sc))
             plain_ms = time_ms(torch, lambda: paged_attention_reference(
-                q, kp, vp, bt, sl, q_offsets=qo))
-            # library yardstick: SDPA over K/V gathered to dense
-            # [B, Hq, S, D] AHEAD of the timing (gather excluded)
+                q, kp, vp, bt, sl, q_offsets=qo, **sc))
+            # library yardstick: SDPA over K/V (dequantized and) gathered
+            # to dense [B, Hq, S, D] AHEAD of the timing (excluded)
             g = case["Hq"] // case["Hkv"]
-            kd = kp[:, bt.long()].movedim(1, 0).flatten(2, 3)
-            vd = vp[:, bt.long()].movedim(1, 0).flatten(2, 3)
+            kd = kp[:, bt.long()]
+            vd = vp[:, bt.long()]
+            if quant:
+                kd = (kd.float() * sc["k_scales"][:, bt.long()][
+                    ..., None, None]).to(dtype)
+                vd = (vd.float() * sc["v_scales"][:, bt.long()][
+                    ..., None, None]).to(dtype)
+            kd = kd.movedim(1, 0).flatten(2, 3)
+            vd = vd.movedim(1, 0).flatten(2, 3)
             kd = kd.repeat_interleave(g, dim=1).contiguous()
             vd = vd.repeat_interleave(g, dim=1).contiguous()
             qd = q.transpose(1, 2).contiguous()
@@ -232,7 +323,7 @@ def kernel_phase(torch):
                                            kd.shape[2])[:, None]
             library_ms = time_ms(torch, lambda: sdpa(qd, kd, vd,
                                                      attn_mask=mask))
-            bound_ms, bound_by = work_of(torch, case, dtype)
+            bound_ms, bound_by = work_of(torch, case, dtype, quant)
             ok = err <= TOL[dname]
             results.append(dict(case=case["name"], dtype=dname,
                                 shape=dict(B=case["B"], Q=case["Q"],
@@ -242,12 +333,12 @@ def kernel_phase(torch):
                                 max_abs_err=err, tol=TOL[dname], ok=ok,
                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, library_ms=library_ms))
-            print(f"kernel K1 {case['name']:>10} {dname:>8}: max_abs_err "
+            print(f"kernel {kname} {case['name']:>10} {dname:>8}: max_abs_err "
                   f"{err:.3g} (tol {TOL[dname]}) ms {ms:.4f} plain_ms "
                   f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
                   f"{bound_ms:.4f} ({bound_by})", flush=True)
             if not ok:
-                fail(f"K1 {case['name']} {dname}: max_abs_err {err} > "
+                fail(f"{kname} {case['name']} {dname}: max_abs_err {err} > "
                      f"{TOL[dname]}")
     return results
 
@@ -266,16 +357,21 @@ class AttentionRecorder:
         self.calls = {}
 
     def __call__(self, q, k_pages, v_pages, block_tables, seq_lens,
-                 scale=None, q_offsets=None):
+                 scale=None, q_offsets=None, k_scales=None, v_scales=None):
         out = self.inner(q, k_pages, v_pages, block_tables, seq_lens,
-                         scale=scale, q_offsets=q_offsets)
+                         scale=scale, q_offsets=q_offsets, k_scales=k_scales,
+                         v_scales=v_scales)
         kind = "mixed" if q.dim() == 4 else "decode"
         if kind not in self.calls:
             self.calls[kind] = dict(
                 args=[t.clone() for t in (q, k_pages, v_pages,
                                           block_tables, seq_lens)],
-                q_offsets=None if q_offsets is None else q_offsets.clone(),
+                kw=dict(q_offsets=q_offsets, k_scales=k_scales,
+                        v_scales=v_scales),
                 out=out.clone())
+            self.calls[kind]["kw"] = {
+                k: None if t is None else t.clone()
+                for k, t in self.calls[kind]["kw"].items()}
         return out
 
     def __enter__(self):
@@ -286,17 +382,12 @@ class AttentionRecorder:
         self.module.paged_attention = self.inner
 
 
-def serve_phase(torch):
-    from paddle_tpu_torch.inference.serving import DecodeEngine
-    from paddle_tpu_torch.models.gpt import GPT
-    from paddle_tpu_torch.ops import paged_attention as pa
+def drive_serve(torch, new_engine, prompts, cfg, label):
+    """Serve ``prompts`` on a fresh engine with every count set to 0 just
+    before; check that every request finished by length with tokens in
+    the vocabulary, that the pool drained and that the prefix cache hit.
+    Returns ``(engine, stats, counts, summary)``."""
     from paddle_tpu_torch.tools import serve_profile
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # GPT-2-small at full width, its prompts and its engine, warmed up
-    model, prompts, new_engine = serve_profile.gpt2_small_serve("cuda")
-    cfg = model.cfg
 
     eng = new_engine()
     torch.cuda.reset_peak_memory_stats()
@@ -308,7 +399,6 @@ def serve_phase(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    launches = counts["paged_attention"]
     peak = torch.cuda.max_memory_allocated()
     st = eng.decode_stats()
 
@@ -316,20 +406,17 @@ def serve_phase(torch):
         toks = r.generated_ids
         if (r.finish_reason != "length"
                 or len(toks) != serve_profile.NEW_TOKENS):
-            fail(f"request {r.request_id}: {r.finish_reason} after "
+            fail(f"{label} request {r.request_id}: {r.finish_reason} after "
                  f"{len(toks)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"request {r.request_id}: token outside the vocab")
+            fail(f"{label} request {r.request_id}: token outside the vocab")
     if eng.pool.available_count != eng.pool.num_pages:
-        fail(f"pool did not drain: {eng.pool.available_count} of "
+        fail(f"{label}: pool did not drain: {eng.pool.available_count} of "
              f"{eng.pool.num_pages} pages available")
     if st["prefix_hits"] <= 0:
-        fail("no prefix-cache hit")
-    if launches <= 0 or launches != cfg.num_layers * st["steps"]:
-        fail(f"K1 launches {launches} != num_layers x steps "
-             f"({cfg.num_layers} x {st['steps']})")
+        fail(f"{label}: no prefix-cache hit")
     decode_steps = st["steps"] - st["mixed_steps"]
-    serve = dict(
+    summary = dict(
         requests=len(reqs), prompt_tokens=sum(len(p) for p in prompts),
         new_tokens=st["tokens"], wall_s=wall,
         tokens_per_s=st["tokens"] / wall, steps=st["steps"],
@@ -339,27 +426,54 @@ def serve_phase(torch):
                              if decode_steps else None),
         prefix_hits=st["prefix_hits"], launches=counts,
         peak_memory_bytes=peak)
-    print("serve: " + json.dumps(serve), flush=True)
+    return eng, st, counts, summary
 
-    # the attention outputs of one real mixed step and one real decode
-    # step, recorded on the path, against the plain version on the
-    # same inputs (a check, not a route the engine can take)
+
+def check_recorded_steps(torch, model, prompts, label, **engine_kw):
+    """The attention outputs of one real mixed step and one real decode
+    step, recorded on the path, against the plain version on the same
+    inputs (a check, not a route the engine can take)."""
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.ops import paged_attention as pa
+
     with AttentionRecorder(pa) as rec:
-        DecodeEngine(model, max_batch_size=2, page_size=64).generate(
+        DecodeEngine(model, max_batch_size=2, page_size=64,
+                     **engine_kw).generate(
             [prompts[0][:100], prompts[2][:150]], max_new_tokens=3)
     checks = {}
     for kind in ("mixed", "decode"):
         if kind not in rec.calls:
-            fail(f"no {kind} step recorded")
+            fail(f"{label}: no {kind} step recorded")
         call = rec.calls[kind]
-        ref = pa.paged_attention_reference(*call["args"],
-                                           q_offsets=call["q_offsets"])
+        ref = pa.paged_attention_reference(*call["args"], **call["kw"])
         err = (call["out"] - ref).abs().max().item()
         checks[kind] = err
-        print(f"serve {kind} step attention vs plain: max_abs_err "
+        print(f"{label} {kind} step attention vs plain: max_abs_err "
               f"{err:.3g} (tol {TOL['float32']})", flush=True)
         if not err <= TOL["float32"]:
-            fail(f"{kind} step attention disagrees with the plain version")
+            fail(f"{label} {kind} step attention disagrees with the plain "
+                 f"version")
+    return checks
+
+
+def serve_phase(torch):
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import serve_profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # GPT-2-small at full width, its prompts and its engine, warmed up
+    model, prompts, new_engine = serve_profile.gpt2_small_serve("cuda")
+    cfg = model.cfg
+    _, st, counts, serve = drive_serve(torch, new_engine, prompts, cfg,
+                                       "serve")
+    launches = counts["paged_attention"]
+    if launches <= 0 or launches != cfg.num_layers * st["steps"]:
+        fail(f"K1 launches {launches} != num_layers x steps "
+             f"({cfg.num_layers} x {st['steps']})")
+    print("serve: " + json.dumps(serve), flush=True)
+    checks = check_recorded_steps(torch, model, prompts, "serve")
 
     # end to end on a small input: greedy tokens of the card's engine
     # (K1) against the CPU engine (the plain version) on the same weights
@@ -378,6 +492,113 @@ def serve_phase(torch):
     serve["step_attention_max_abs_err"] = checks
     serve["greedy_tokens_match_cpu"] = True
     return serve, launches
+
+
+def serve_quant_phase(torch, f32_serve):
+    """The serve of `serve_phase` with int8 KV pages (kernel K2) and int8
+    weights, then the quantized pools of the card against the CPU's."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import serve_profile
+
+    model, prompts, new_engine = serve_profile.gpt2_small_serve(
+        "cuda", kv_quant="int8", serve_weights="int8")
+    cfg = model.cfg
+    eng, st, counts, serve = drive_serve(torch, new_engine, prompts, cfg,
+                                         "quantized serve")
+    launches = counts["paged_attention_q"]
+    if launches <= 0 or launches != cfg.num_layers * st["steps"]:
+        fail(f"K2 launches {launches} != num_layers x steps "
+             f"({cfg.num_layers} x {st['steps']})")
+    if counts["paged_attention"] != 0:
+        fail(f"K1 launched {counts['paged_attention']} times in the "
+             f"quantized serve")
+    if eng._k_pages.dtype != torch.int8 or eng._v_pages.dtype != torch.int8:
+        fail(f"quantized serve pages are {eng._k_pages.dtype}")
+    if st["kv_quant_pages"] <= 0:
+        fail("quantized serve reset no page scale")
+    # qkv, out, fc1 and fc2 of each block; the head is tied to wte
+    if st["weight_quant_mats"] != 4 * cfg.num_layers:
+        fail(f"weight_quant_mats {st['weight_quant_mats']} != 4 x "
+             f"{cfg.num_layers}")
+    serve.update({k: st[k] for k in ("kv_quant_pages", "kv_quant_refolds",
+                                     "weight_quant_mats",
+                                     "weight_quant_bytes_saved")})
+    serve["kv_bytes_per_token"] = eng._kv_byte_occupancy()["bytes_per_token"]
+    serve["vs_f32"] = {k: serve[k] / f32_serve[k] for k in (
+        "tokens_per_s", "mean_mixed_step_ms", "mean_decode_step_ms",
+        "peak_memory_bytes") if serve[k] and f32_serve[k]}
+    print("quantized serve: " + json.dumps(serve), flush=True)
+    serve["step_attention_max_abs_err"] = check_recorded_steps(
+        torch, model, prompts, "quantized serve", kv_quant="int8",
+        serve_weights="int8")
+    cpu_model = GPT.random(cfg, seed=serve_profile.SEED, device="cpu")
+    serve["card_vs_cpu"] = quant_pools_card_vs_cpu(
+        torch, model, cpu_model, prompts[1][:64])
+    return serve, launches
+
+
+def quant_pools_card_vs_cpu(torch, model, cpu_model, prompt, new=8):
+    """One short request on a quantized engine on the card and on the CPU,
+    same weights; the two int8 pools after it, over the positions written
+    from the same tokens, against `POOL_TOL`; the greedy tokens, with the
+    first step where they part (printed, not failed: a 1-LSB flip may
+    move a token)."""
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+
+    runs = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        eng = DecodeEngine(m, max_batch_size=1, max_seq_len=128,
+                           page_size=64, kv_quant="int8",
+                           serve_weights="int8", device=dev)
+        req = eng.add_request(prompt, new)
+        pages = []
+        while req.state != "done":
+            eng.step()
+            pages = list(req.pages) or pages
+        runs[dev] = (req.generated_ids, pages,
+                     [t.cpu() for t in (eng._k_pages, eng._v_pages,
+                                        eng._k_scales, eng._v_scales)])
+    (gt, gpages, gpool), (ct, cpages, cpool) = runs["cuda"], runs["cpu"]
+    same = next((i for i, (a, b) in enumerate(zip(gt, ct)) if a != b),
+                len(gt))
+    if gpages != cpages:
+        fail(f"card vs CPU quantized pools: page ids {gpages} / {cpages}")
+    # position p holds the K/V of prompt token p or of generated token
+    # p - len(prompt); the last generated token's K/V is never written
+    n_pos = len(prompt) + min(same, new - 1)
+    page = gpool[0].shape[3]
+    # a page's scale is comparable when every row written to it is
+    n_full = -(-n_pos // page) if same >= new - 1 else n_pos // page
+    full = gpages[:n_full]
+    res = dict(tokens_card=gt, tokens_cpu=ct,
+               first_diverging_step=None if same == len(gt) else same,
+               positions_compared=n_pos, pages_compared_scales=len(full))
+    diff_bytes = total_bytes = 0
+    max_lsb = 0
+    for name, g, c in (("k", gpool[0], cpool[0]), ("v", gpool[1], cpool[1])):
+        for p in range(n_pos):
+            pid, slot = gpages[p // page], p % page
+            d = (g[:, :, pid, slot].int() - c[:, :, pid, slot].int()).abs()
+            max_lsb = max(max_lsb, int(d.max()))
+            diff_bytes += int((d > 0).sum())
+            total_bytes += d.numel()
+    scale_rel = []
+    for g, c in ((gpool[2], cpool[2]), (gpool[3], cpool[3])):
+        gs, cs = g[:, :, full], c[:, :, full]
+        rel = (gs - cs).abs() / cs.abs().clamp(min=1e-30)
+        scale_rel.append(rel.amax(dim=(1, 2)))
+    per_layer = torch.stack(scale_rel).amax(dim=0).tolist()
+    res.update(payload_max_lsb=max_lsb,
+               payload_bytes_differing=diff_bytes,
+               payload_bytes_compared=total_bytes,
+               payload_share_differing=diff_bytes / total_bytes,
+               scale_max_rel_err_by_layer=per_layer, tol=POOL_TOL)
+    print(f"quantized pools, card vs CPU: {json.dumps(res)}", flush=True)
+    if (max_lsb > POOL_TOL["payload_lsb"]
+            or per_layer[0] > POOL_TOL["scale_rel_layer0"]
+            or max(per_layer) > POOL_TOL["scale_rel"]):
+        fail("quantized pools of the card and the CPU beyond their bound")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -652,6 +873,130 @@ def _leaves(tree):
     return flat
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: K5 against its plain version, and the train with K5
+# ---------------------------------------------------------------------------
+def ln_phase(torch):
+    """K5 against `layer_norm` at the train path's shape ([16 * 1024,
+    768], f32 and bf16) and one wider row (d = 4096), timed with the plain
+    version and ``torch.nn.functional.layer_norm``."""
+    from paddle_tpu_torch.ops.layer_norm import layer_norm, layer_norm_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    eps = 1e-5
+    results = []
+    for name, rows, d in (("train", 16 * 1024, 768), ("wide", 4096, 4096)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x = (torch.randn(rows, d, generator=gen, device="cuda") * 2
+                 + 0.5).to(dtype)
+            w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+            out = layer_norm_cuda(x, w, b, eps)
+            ref = layer_norm(x, w, b, eps)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out.float()).all():
+                fail(f"K5 {name} {dname}: non-finite output")
+            diff = (out.float() - ref.float()).abs()
+            tol = LN_TOL[dname]
+            excess = (diff - tol["abs"] - tol["rel"] * ref.float().abs())
+            err = diff.max().item()
+            ok = excess.max().item() <= 0
+            ms = time_ms(torch, lambda: layer_norm_cuda(x, w, b, eps))
+            plain_ms = time_ms(torch, lambda: layer_norm(x, w, b, eps))
+            wl, bl = w.to(dtype), b.to(dtype)
+            library_ms = time_ms(torch, lambda: torch.nn.functional.layer_norm(
+                x, (d,), wl, bl, eps))
+            # one read of x, one write of y, w and b once; ~8 flops an
+            # element at the f32 rate
+            nbytes = 2 * x.numel() * x.element_size() + 2 * d * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = 8 * x.numel() / PEAK_FLOPS["float32"]
+            row = dict(case=name, dtype=dname, shape=[rows, d],
+                       max_abs_err=err, tol=tol, ok=ok, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations")
+            results.append(row)
+            print(f"kernel K5 {name:>5} {dname:>8} [{rows}, {d}]: "
+                  f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
+                  f"{row['bound_ms']:.4f}", flush=True)
+            if not ok:
+                fail(f"K5 {name} {dname}: beyond tolerance {tol} "
+                     f"(max_abs_err {err})")
+    return results
+
+
+def ln_train_phase(torch, train):
+    """The train of `train_phase` with ``FLAGS_use_pallas_layernorm`` on:
+    every LayerNorm forward runs K5, which launches once per LayerNorm
+    module per step; K3/K4 as before; the first loss against the flag-off
+    train's on the same weights and batch."""
+    import math
+
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.nn.layer import LayerNorm
+    from paddle_tpu_torch.ops import layer_norm as ln
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    seen = []
+    inner = ln.layer_norm_cuda
+
+    def record(x2d, w, b, eps):  # what the path hands K5, warm-up steps
+        seen.append((tuple(x2d.shape), str(x2d.dtype).split(".")[-1]))
+        return inner(x2d, w, b, eps)
+
+    flags.set_flags({"use_pallas_layernorm": True})
+    ln.layer_norm_cuda = record
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model, step, tokens, labels, warm = tp.gpt2_small_train("cuda")
+        ln.layer_norm_cuda = inner
+        cfg = model.cfg
+        n_ln = sum(isinstance(m, LayerNorm) for m in model.modules())
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = [step(tokens, labels) for _ in range(LN_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        ln.layer_norm_cuda = inner
+        flags.set_flags({"use_pallas_layernorm": False})
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + [float(x) for x in losses]
+    ntok = tokens.numel() * LN_TRAIN_STEPS
+    res = dict(batch=list(tokens.shape), warmup_steps=len(warm),
+               steps=LN_TRAIN_STEPS, wall_s=wall, tokens_per_s=ntok / wall,
+               mean_step_ms=wall / LN_TRAIN_STEPS * 1e3, losses=losses,
+               layer_norm_modules=n_ln, k5_inputs=sorted(set(seen)),
+               launches=counts, peak_memory_bytes=peak,
+               first_loss_vs_flag_off=abs(losses[0] - train["losses"][0]),
+               first_loss_tol=LN_TRAIN_LOSS_TOL)
+    res["vs_flag_off"] = {k: res[k] / train[k] for k in (
+        "tokens_per_s", "mean_step_ms", "peak_memory_bytes")}
+    print("train with K5: " + json.dumps(res), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite K5 train loss: {losses}")
+    # ln1 and ln2 of every block and ln_f
+    if n_ln != 2 * cfg.num_layers + 1:
+        fail(f"{n_ln} LayerNorm modules, not 2 x {cfg.num_layers} + 1")
+    if len(seen) != n_ln * len(warm):
+        fail(f"K5 called {len(seen)} times in {len(warm)} warm-up steps")
+    if counts["layer_norm"] != n_ln * LN_TRAIN_STEPS:
+        fail(f"K5 launches {counts['layer_norm']} != {n_ln} x "
+             f"{LN_TRAIN_STEPS}")
+    want = cfg.num_layers * LN_TRAIN_STEPS
+    if any(counts[k] != want for k in FLASH_KERNELS):
+        fail(f"K3/K4 launches {counts} != num_layers x steps = {want}")
+    if not res["first_loss_vs_flag_off"] <= LN_TRAIN_LOSS_TOL:
+        fail(f"first loss with K5 {losses[0]} vs {train['losses'][0]} "
+             f"without")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -677,32 +1022,49 @@ def main() -> int:
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
           f" in {build_s:.1f} s", flush=True)
 
-    # 3. K1 against its plain version
+    # 3. K1 and K2 against their plain version
     cases = kernel_phase(torch)
+    q_cases = kernel_phase(torch, quant=True)
 
     # 4. serve
     serve, launches = serve_phase(torch)
 
-    # 5. K3/K4 against their plain versions
+    # 5. quantized serve
+    serve_q, launches_q = serve_quant_phase(torch, serve)
+
+    # 6. K3/K4 against their plain versions
     flash_cases = flash_phase(torch)
 
-    # 6. train
+    # 7. train
     train = train_phase(torch)
 
-    # 7. report
-    main_cases = [c for c in cases if c["dtype"] == "float32"
-                  and c["case"] in ("decode", "mixed")]
-    head = next(c for c in main_cases if c["case"] == "decode")
-    kernels = [dict(
-        name="paged_attention", route="cuda", source=K1_SOURCE,
-        replaces=K1_REPLACES, launches=launches,
-        max_abs_err=max(c["max_abs_err"] for c in main_cases),
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
-        timed_case="decode float32 B=8 Q=1 Hq=Hkv=12 D=64 page=64",
-        library_call="scaled_dot_product_attention on K/V gathered ahead "
-                     "of time (gather excluded)",
-        cases=cases)]
+    # 8. K5 against its plain version
+    ln_cases = ln_phase(torch)
+
+    # 9. train with K5
+    train_ln = ln_train_phase(torch, train)
+
+    # 10. report
+    kernels = []
+    for name, replaces, kcases, n, library in (
+            ("paged_attention", K1_REPLACES, cases, launches,
+             "scaled_dot_product_attention on K/V gathered ahead of time "
+             "(gather excluded)"),
+            ("paged_attention_q", K2_REPLACES, q_cases, launches_q,
+             "scaled_dot_product_attention on K/V dequantized and gathered "
+             "ahead of time (excluded)")):
+        main_cases = [c for c in kcases if c["dtype"] == "float32"
+                      and c["case"] in ("decode", "mixed")]
+        head = next(c for c in main_cases if c["case"] == "decode")
+        kernels.append(dict(
+            name=name, route="cuda", source=K1_SOURCE, replaces=replaces,
+            launches=n,
+            max_abs_err=max(c["max_abs_err"] for c in main_cases),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"],
+            timed_case="decode float32 B=8 Q=1 Hq=Hkv=12 D=64 page=64",
+            library_call=library, cases=kcases))
     # K3/K4 at the train path's own shape and dtype (bf16 under AMP)
     train_case = next(c for c in flash_cases if c["case"] == "train"
                       and c["dtype"] == "bfloat16")
@@ -722,12 +1084,28 @@ def main() -> int:
                           if kern == "fwd" else
                           "scaled_dot_product_attention backward (dq, dk "
                           "and dv together): forward+backward - forward")))
+    # K5 at the train path's shape, in the dtype the path fed it
+    path_dtype = train_ln["k5_inputs"][0][1]
+    ln_head = next(c for c in ln_cases if c["case"] == "train"
+                   and c["dtype"] == path_dtype)
+    kernels.append(dict(
+        name="layer_norm", route="cuda", source=LN_SOURCE,
+        replaces=LN_REPLACES, launches=train_ln["launches"]["layer_norm"],
+        **{k: ln_head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+        timed_case=f"train {path_dtype} [16384, 768]",
+        plain_call="ops.layer_norm.layer_norm",
+        library_call="torch.nn.functional.layer_norm", cases=ln_cases))
     result = dict(card=card, build_s=build_s, kernels=kernels, serve=serve,
-                  train=train)
+                  serve_quant=serve_q, train=train, train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # the per-case rows stay in chip_smoke.json: the line keeps one row a
+    # kernel, short enough for the end of the output
+    print(json.dumps({"kernels": [{k: v for k, v in row.items()
+                                   if k != "cases"} for row in kernels]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Four flags work here; seven
+The names and defaults are paddle_tpu's.  Seven flags work here; four
 more keep their default only, because the code they switch on is not
 ported yet — setting one of those to anything else raises
-NotImplementedError naming the slice that brings it.
+NotImplementedError naming the slice that brings it.  As in paddle_tpu,
+a flag's value is checked where it is read: `DecodeEngine` raises
+ValueError on a ``kv_quant`` or ``serve_weights`` mode other than "off"
+and "int8".
 """
 from __future__ import annotations
 
@@ -17,19 +20,22 @@ _PORTED = {
     "prefill_chunk_tokens": 64,
     "prefix_cache": True,
     "cache_generated_pages": False,
+    # "int8": int8 KV pages with per-page, per-head scales (kernel K2)
+    "kv_quant": "off",
+    # "int8": per-out-channel int8 matmul weights in the serve steps
+    "serve_weights": "off",
+    # True: LayerNorm's forward runs kernel K5 on CUDA tensors
+    "use_pallas_layernorm": False,
 }
 
 # flag -> (default, the later slice that ports what it switches on)
 _LATER = {
-    "kv_quant": ("off", "quantized serving (int8 KV pages, kernel K2)"),
-    "serve_weights": ("off", "quantized serving (int8 weights)"),
     "ragged_step": (False, "unified ragged step"),
     "spec_decode_k": (0, "speculative decoding"),
     "serve_mesh": ("", "tensor-parallel serving"),
     # "auto": kernels K3/K4 run for every call flash_attention_fwd sends
     # them; the TPU's sequence thresholds and forced modes do not carry over
     "use_pallas_attention": ("auto", "attention kernel policy"),
-    "use_pallas_layernorm": (False, "LayerNorm kernel (K5)"),
 }
 
 _REGISTRY: Dict[str, Any] = dict(_PORTED)

@@ -13,12 +13,21 @@
   one-row decode step otherwise.  Both steps call
   `ops.paged_attention.paged_attention` once per layer.
 
+Quantized serving: ``kv_quant="int8"`` keeps the KV pages as int8 with
+per-page, per-head f32 scales (`ops.paged_attention.paged_quant_write`
+writes them, kernel K2 reads them), and ``serve_weights="int8"`` folds
+every matmul weight to per-out-channel int8 with f32 scales
+(`_quantize_gpt_params`), widened back to the activation dtype at each
+product (`_wmm`).  The int8 product is a PyTorch matmul over the widened
+weight, as JAX leaves its ``dot_general`` to XLA: no kernel computes it,
+and it reads the int8 weight and writes an f32 copy on every call.
+
 The step functions are plain functions over the params dict and the
 page pools, as in the JAX package, and record no autograd graph.  Where JAX donates the pools to a
 jitted step and gets new ones back, the port writes into the pool
 tensors in place.  The containment ladder, journal, telemetry plane,
 schedulers other than FIFO, the legacy one-shot prefill, the ragged
-step, speculation and quantized serving are later slices.
+step and speculation are later slices.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from ..device import resolve_device
 from ..nn.decode import sample_logits
 from ..ops import paged_attention as pa
 from ..ops.layer_norm import layer_norm
+from ..quantization.int8 import Q_MAX, quantize_weight
 from .errors import PoolExhausted
 
 __all__ = ["KVBlockPool", "Request", "DecodeEngine", "sample_logits",
@@ -271,16 +281,74 @@ class Request:
 # ---------------------------------------------------------------------------
 # Functional GPT steps
 # ---------------------------------------------------------------------------
+# Weight leaves `_quantize_gpt_params` folds to int8: every [in, out]
+# matmul weight of the steps.  Embeddings (wte is gathered, and the tied
+# head needs its f32 transpose), position tables, LayerNorm parameters
+# and biases stay f32.
+_QUANT_WEIGHT_KEYS = ("qkv_w", "out_w", "fc1_w", "fc2_w")
+
+
+def _quantize_gpt_params(params):
+    """The params tree with every matmul weight leaf ``name`` (and an
+    untied ``head_w``) REPLACED by an int8 ``name + "_q"`` leaf
+    (per-out-channel symmetric, `quantize_weight` with quant_axis=1) and
+    an f32 ``name + "_s"`` leaf holding ``absmax / Q_MAX``, the
+    multiplier `_wmm` applies after the product.  Returns ``(params,
+    mats, bytes_saved)``: the new tree, the matrices folded, and the
+    device bytes the fold reclaims net of the scale leaves."""
+    def fold(d):
+        mats = saved = 0
+        out = dict(d)
+        for name in _QUANT_WEIGHT_KEYS + ("head_w",):
+            w = out.get(name)
+            if w is None:
+                continue
+            q, scale = quantize_weight(w, quant_axis=1)
+            s = (scale / Q_MAX).float()
+            del out[name]
+            out[name + "_q"] = q
+            out[name + "_s"] = s
+            mats += 1
+            saved += w.numel() * w.element_size() - q.numel() \
+                - s.numel() * s.element_size()
+        return out, mats, saved
+
+    top, mats, saved = fold({k: v for k, v in params.items()
+                             if k != "blocks"})
+    top["blocks"] = []
+    for blk in params["blocks"]:
+        b, m, n = fold(blk)
+        top["blocks"].append(b)
+        mats += m
+        saved += n
+    return top, mats, saved
+
+
+def _wmm(x, container, name):
+    """Weight matmul of every step: ``x @ container[name]`` with the f32
+    leaf present (serve_weights off: the product the steps always ran),
+    else ``(x @ q.to(x.dtype)) * s`` over the int8 pair — JAX's
+    ``dot_general(f32, s8, preferred f32) * s``; the per-out-channel scale
+    commutes past the contraction."""
+    w = container.get(name)
+    if w is not None:
+        return x @ w
+    return (x @ container[name + "_q"].to(x.dtype)) * container[name + "_s"]
+
+
 def _ln(x2d, w, b, eps):
+    # the plain form, as serving's `_ln` is in the JAX package, whatever
+    # FLAGS_use_pallas_layernorm says
     return layer_norm(x2d, w, b, eps)
 
 
 def _logits_of(params, h):
-    if "head_w" in params:
-        out = h @ params["head_w"]
+    if "head_w" in params or "head_w_q" in params:
+        out = _wmm(h, params, "head_w")
         if params.get("head_b") is not None:
             out = out + params["head_b"]
         return out
+    # the tied head: wte stays f32 in every serve_weights mode
     return h @ params["wte"].T
 
 
@@ -301,21 +369,45 @@ def _block_tail(x, blk, attn, eps):
     """Everything of a block after attention: out projection, residual,
     LN2, tanh-GELU MLP, residual.  x, attn: [..., h]."""
     shape = x.shape
-    x = x + attn @ blk["out_w"] + blk["out_b"]
+    x = x + _wmm(attn, blk, "out_w") + blk["out_b"]
     y = _ln(x.reshape(-1, shape[-1]), blk["ln2_w"], blk["ln2_b"], eps)
-    y = F.gelu(y @ blk["fc1_w"] + blk["fc1_b"], approximate="tanh")
-    return x + (y @ blk["fc2_w"] + blk["fc2_b"]).reshape(shape)
+    y = F.gelu(_wmm(y, blk, "fc1_w") + blk["fc1_b"], approximate="tanh")
+    return x + (_wmm(y, blk, "fc2_w") + blk["fc2_b"]).reshape(shape)
+
+
+def _write_kv(k_pages, v_pages, k_scales, v_scales, li, rows, k, v):
+    """Write one layer's new K and V rows in place: unquantized pages
+    take the rows as they are, int8 pages (``k_scales`` given) through
+    `paged_quant_write`.  Returns ``(refolds or None, the scale arguments
+    of that layer's paged attention)``."""
+    if k_scales is None:
+        pa.paged_write(k_pages[li], rows, k)
+        pa.paged_write(v_pages[li], rows, v)
+        return None, {}
+    refolds = pa.paged_quant_write(k_pages[li], k_scales[li], rows, k) + \
+        pa.paged_quant_write(v_pages[li], v_scales[li], rows, v)
+    return refolds, dict(k_scales=k_scales[li], v_scales=v_scales[li])
+
+
+def _pack(tokens, refolds):
+    """The step's output: the tokens, and after them the refold count when
+    the pages are int8 (JAX's ``[B+1]`` form), so one fetch brings both."""
+    if refolds is None:
+        return tokens
+    return torch.cat([tokens, refolds.reshape(1).to(tokens.dtype)])
 
 
 @torch.no_grad()
 def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
                      tokens, active, generator, *, num_heads, head_dim, eps,
-                     sampling):
+                     sampling, k_scales=None, v_scales=None):
     """One batched decode step over every slot: write the incoming
     token's K/V into its page (in place), paged attention over the pool,
     sample the next token.  Inactive slots write nowhere and read length
     0.  block_tables: [B, pages_max] int32; seq_lens, tokens: [B] int32;
-    active: [B] bool.  Returns [B] int32 (0 for inactive slots)."""
+    active: [B] bool; k_scales/v_scales: [L, Hkv, P] f32 with int8 pages
+    (`_gpt_decode_step_q` of the JAX package).  Returns [B] int32 (0 for
+    inactive slots), and with int8 pages [B+1]: the refold count last."""
     b = tokens.shape[0]
     h = num_heads * head_dim
     num_pages_total, page = k_pages.shape[2], k_pages.shape[3]
@@ -327,27 +419,32 @@ def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
     page_idx = torch.where(
         active, block_tables.long()[torch.arange(b, device=pos.device),
                                     bt_col], num_pages_total)
+    # one row per sequence: the rows' pages are the refold set
     rows = pa.paged_write_rows(page_idx, pos % page, num_pages_total)
     lens_now = seq_lens + active.to(seq_lens.dtype)
+    refolds = None
 
     for li, blk in enumerate(params["blocks"]):
         y = _ln(x, blk["ln1_w"], blk["ln1_b"], eps)
-        qkv = (y @ blk["qkv_w"] + blk["qkv_b"]).reshape(b, 3, num_heads,
-                                                        head_dim)
-        pa.paged_write(k_pages[li], rows, qkv[:, 1])
-        pa.paged_write(v_pages[li], rows, qkv[:, 2])
+        qkv = (_wmm(y, blk, "qkv_w") + blk["qkv_b"]).reshape(
+            b, 3, num_heads, head_dim)
+        r, scales = _write_kv(k_pages, v_pages, k_scales, v_scales, li, rows,
+                              qkv[:, 1], qkv[:, 2])
+        refolds = r if refolds is None else refolds + r
         attn = pa.paged_attention(qkv[:, 0].contiguous(), k_pages[li],
-                                  v_pages[li], block_tables, lens_now)
+                                  v_pages[li], block_tables, lens_now,
+                                  **scales)
         x = _block_tail(x, blk, attn.reshape(b, h), eps)
 
     nxt = _sample(params, x, eps, generator, sampling)
-    return torch.where(active, nxt, torch.zeros_like(nxt))
+    return _pack(torch.where(active, nxt, torch.zeros_like(nxt)), refolds)
 
 
 @torch.no_grad()
 def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
                     tokens, write_caps, sample_idx, sample_mask, generator,
-                    *, num_heads, head_dim, eps, sampling):
+                    *, num_heads, head_dim, eps, sampling, k_scales=None,
+                    v_scales=None):
     """One mixed prefill+decode step over every slot: a prefilling slot
     contributes a prompt chunk (rows 0..cap-1 of its ``tokens`` row), a
     decoding slot its last sampled token (cap 1), an idle slot nothing
@@ -357,7 +454,10 @@ def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
     ``sample_idx``; ``sample_mask`` zeroes slots still mid-prefill.
 
     tokens: [B, Q_max] int32; write_caps, sample_idx: [B] int32;
-    sample_mask: [B] bool.  Returns [B] int32."""
+    sample_mask: [B] bool; k_scales/v_scales: [L, Hkv, P] f32 with int8
+    pages (`_gpt_mixed_step_q` of the JAX package: each page a write
+    touches refolds once, `paged_write_spans`).  Returns [B] int32, and
+    with int8 pages [B+1]: the refold count last."""
     b, qn = tokens.shape
     h = num_heads * head_dim
     num_pages_total, page = k_pages.shape[2], k_pages.shape[3]
@@ -367,33 +467,44 @@ def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
     x = params["wte"][tokens.long()] + wpe[pos.clamp(max=wpe.shape[0] - 1)]
     page_idx, slot = pa.paged_write_indices(
         block_tables, seq_lens, write_caps, qn, num_pages_total, page)
-    rows = pa.paged_write_rows(page_idx, slot, num_pages_total)
+    if k_scales is None:
+        rows = pa.paged_write_rows(page_idx, slot, num_pages_total)
+    else:
+        rows = pa.paged_quant_write_rows(
+            page_idx, slot, pa.paged_write_spans(
+                block_tables, seq_lens, write_caps, qn, num_pages_total,
+                page), num_pages_total)
     lens_now = seq_lens + write_caps
+    refolds = None
 
     for li, blk in enumerate(params["blocks"]):
         y = _ln(x.reshape(b * qn, h), blk["ln1_w"], blk["ln1_b"], eps)
-        qkv = (y @ blk["qkv_w"] + blk["qkv_b"]).reshape(b, qn, 3, num_heads,
-                                                        head_dim)
-        pa.paged_write(k_pages[li], rows,
-                       qkv[:, :, 1].reshape(b * qn, num_heads, head_dim))
-        pa.paged_write(v_pages[li], rows,
-                       qkv[:, :, 2].reshape(b * qn, num_heads, head_dim))
+        qkv = (_wmm(y, blk, "qkv_w") + blk["qkv_b"]).reshape(
+            b, qn, 3, num_heads, head_dim)
+        r, scales = _write_kv(
+            k_pages, v_pages, k_scales, v_scales, li, rows,
+            qkv[:, :, 1].reshape(b * qn, num_heads, head_dim),
+            qkv[:, :, 2].reshape(b * qn, num_heads, head_dim))
+        refolds = r if refolds is None else refolds + r
         attn = pa.paged_attention(qkv[:, :, 0].contiguous(), k_pages[li],
                                   v_pages[li], block_tables, lens_now,
-                                  q_offsets=seq_lens)
+                                  q_offsets=seq_lens, **scales)
         x = _block_tail(x, blk, attn.reshape(b, qn, h), eps)
 
     # sample ONE row per slot: the head matmul runs over [B, h]
     sel = x[torch.arange(b, device=x.device), sample_idx.long()]
     nxt = _sample(params, sel, eps, generator, sampling)
-    return torch.where(sample_mask, nxt, torch.zeros_like(nxt))
+    return _pack(torch.where(sample_mask, nxt, torch.zeros_like(nxt)),
+                 refolds)
 
 
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
 _STAT_KEYS = ("steps", "tokens", "mixed_steps", "prefill_chunks",
-              "prefix_hits", "prefix_misses", "prefix_cached_tokens")
+              "prefix_hits", "prefix_misses", "prefix_cached_tokens",
+              "kv_quant_pages", "kv_quant_refolds", "weight_quant_mats",
+              "weight_quant_bytes_saved")
 
 
 class DecodeEngine:
@@ -403,18 +514,37 @@ class DecodeEngine:
     order into ``max_batch_size`` slots and leave the step they finish.
     ``device=None`` runs on the CUDA card and raises without one; pass
     ``device="cpu"`` for the plain PyTorch path.  The KV pages take the
-    weights' dtype, which K1 needs of q and pages alike.  The flags of
-    `core.flags` fill every argument left None."""
+    weights' dtype, which K1 needs of q and pages alike, or int8 with
+    ``kv_quant="int8"`` (kernel K2); ``serve_weights="int8"`` folds the
+    matmul weights to int8.  The flags of `core.flags` fill every
+    argument left None."""
 
     def __init__(self, model, max_batch_size=4, max_seq_len=None,
                  page_size=None, num_pages=None, sampler="greedy",
                  temperature=1.0, top_k=0, top_p=1.0, seed=0,
                  eos_token_id=None, chunked_prefill=None,
                  prefill_chunk_tokens=None, prefix_cache=None,
-                 cache_generated_pages=None, device=None):
+                 cache_generated_pages=None, kv_quant=None,
+                 serve_weights=None, device=None):
         self.device = resolve_device(device)
         cfg = model.cfg
         self._params = _tree_to(model.params(), self.device)
+        if kv_quant is None:
+            kv_quant = str(_flags.flag("kv_quant"))
+        if kv_quant not in ("off", "int8"):
+            raise ValueError(
+                f"kv_quant must be 'off' or 'int8', got {kv_quant!r}")
+        self._kv_quant = kv_quant == "int8"
+        if serve_weights is None:
+            serve_weights = str(_flags.flag("serve_weights"))
+        if serve_weights not in ("off", "int8"):
+            raise ValueError(
+                f"serve_weights must be 'off' or 'int8', got "
+                f"{serve_weights!r}")
+        # the fingerprint's qkv rows, sampled before a weight fold renames
+        # the leaf: the prefix-cache root is the same in every mode
+        self._fp_wrows = [blk["qkv_w"][0].float().cpu().numpy().tobytes()
+                          for blk in self._params["blocks"]]
         self._num_heads = cfg.num_heads
         self._head_dim = cfg.hidden_size // cfg.num_heads
         self._eps = float(model.ln_f._epsilon)
@@ -439,8 +569,21 @@ class DecodeEngine:
         self.pool = KVBlockPool(n_pages)
         shape = (self._num_layers, self._num_heads, n_pages, self._page,
                  self._head_dim)
+        if self._kv_quant:
+            kv_dtype = torch.int8
         self._k_pages = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         self._v_pages = torch.zeros(shape, dtype=kv_dtype, device=self.device)
+        # per-page, per-head dequant scales of int8 pages
+        self._k_scales = self._v_scales = None
+        # pages handed out since the last step: their scales zero before
+        # any quantized write folds into them (`_flush_fresh_scales`)
+        self._fresh_pages: List[int] = []
+        if self._kv_quant:
+            sshape = (self._num_layers, self._num_heads, n_pages)
+            self._k_scales = torch.zeros(sshape, dtype=torch.float32,
+                                         device=self.device)
+            self._v_scales = torch.zeros(sshape, dtype=torch.float32,
+                                         device=self.device)
 
         self._bt = np.zeros((self._slots, self._pages_per_seq), np.int32)
         self._lens = np.zeros(self._slots, np.int32)
@@ -461,6 +604,10 @@ class DecodeEngine:
         self._queue: "deque[Request]" = deque()
         self._stats = dict.fromkeys(_STAT_KEYS, 0)
         self._stats.update(mixed_step_s=0.0, decode_step_s=0.0)
+        if serve_weights == "int8":
+            self._params, mats, saved = _quantize_gpt_params(self._params)
+            self._stats.update(weight_quant_mats=mats,
+                               weight_quant_bytes_saved=saved)
 
         if chunked_prefill is None:
             chunked_prefill = bool(_flags.flag("chunked_prefill"))
@@ -494,8 +641,8 @@ class DecodeEngine:
         h = hashlib.blake2b(digest_size=16)
         p = self._params
         h.update(p["wte"][0].float().cpu().numpy().tobytes())
-        for blk in p["blocks"]:
-            h.update(blk["qkv_w"][0].float().cpu().numpy().tobytes())
+        for row in self._fp_wrows:
+            h.update(row)
         h.update(str((tuple(p["wte"].shape), len(p["blocks"]),
                       self._num_heads, self._head_dim,
                       self._page)).encode())
@@ -503,10 +650,28 @@ class DecodeEngine:
 
     def decode_stats(self) -> dict:
         """This engine's counters: steps, tokens, mixed_steps,
-        prefill_chunks, prefix_hits, prefix_misses, prefix_cached_tokens,
-        and the host wall seconds spent in mixed and in decode steps
-        (each step ends in the token fetch, which waits for the device)."""
+        prefill_chunks, prefix_hits, prefix_misses, prefix_cached_tokens;
+        kv_quant_pages (pages whose scales were reset when handed out)
+        and kv_quant_refolds (page-head scales that grew over written
+        rows) with int8 pages; weight_quant_mats and
+        weight_quant_bytes_saved with int8 weights; and the host wall
+        seconds spent in mixed and in decode steps (each step ends in the
+        token fetch, which waits for the device)."""
         return dict(self._stats)
+
+    def _kv_byte_occupancy(self) -> dict:
+        """Device bytes the KV pool holds in pages that are not free
+        (payload and quant scales), and the storage cost per token."""
+        per_page_payload = 2 * self._num_layers * self._num_heads * \
+            self._page * self._head_dim * self._k_pages.element_size()
+        per_page_scales = 2 * self._num_layers * self._num_heads * 4 \
+            if self._kv_quant else 0
+        used = self.pool.num_pages - self.pool.free_count
+        return {"dtype": str(self._k_pages.dtype).replace("torch.", ""),
+                "payload_bytes": used * per_page_payload,
+                "scale_bytes": used * per_page_scales,
+                "bytes_per_token": (per_page_payload + per_page_scales)
+                / self._page}
 
     # -- admission ------------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens=32,
@@ -610,7 +775,7 @@ class DecodeEngine:
         req.cached_page_count = len(req.pages)
         req.cached_prefix_len = len(req.pages) * self._page
         for _ in range(len(req.pages), self._pages_for(len(req.prompt_ids))):
-            req.pages.append(self.pool.alloc_page())
+            req.pages.append(self._alloc_page())
         self.pool.reserved += total_pages - len(req.pages)
         row = np.zeros(self._pages_per_seq, np.int32)
         row[:len(req.pages)] = req.pages
@@ -734,17 +899,52 @@ class DecodeEngine:
                 continue
             pidx = (int(self._lens[slot]) + w - 1) // self._page
             while pidx >= len(req.pages):
-                req.pages.append(self.pool.alloc_page())
+                req.pages.append(self._alloc_page())
                 self.pool.reserved -= 1
                 self._bt[slot, len(req.pages) - 1] = req.pages[-1]
+
+    def _alloc_page(self) -> int:
+        """Every page the engine claims comes through here, so that with
+        int8 pages its scale entries zero (`_flush_fresh_scales`) before
+        any quantized write folds into them: a recycled page's stale
+        scale must not change its next owner's quantization."""
+        p = self.pool.alloc_page()
+        if self._kv_quant:
+            self._fresh_pages.append(p)
+        return p
 
     # -- steps ----------------------------------------------------------------
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _step_kwargs(self):
-        return dict(num_heads=self._num_heads, head_dim=self._head_dim,
-                    eps=self._eps, sampling=self._sampling)
+        kw = dict(num_heads=self._num_heads, head_dim=self._head_dim,
+                  eps=self._eps, sampling=self._sampling)
+        if self._kv_quant:
+            kw.update(k_scales=self._k_scales, v_scales=self._v_scales)
+        return kw
+
+    def _flush_fresh_scales(self):
+        """Zero the scale entries of the pages handed out since the last
+        step; runs before each step, and only with int8 pages."""
+        if not self._fresh_pages:
+            return
+        # an id can repeat (alloc, unwind, alloc): the reset is idempotent
+        ids = self._dev(np.asarray(list(dict.fromkeys(self._fresh_pages)),
+                                   np.int64))
+        self._fresh_pages = []
+        self._k_scales[:, :, ids] = 0.0
+        self._v_scales[:, :, ids] = 0.0
+        self._stats["kv_quant_pages"] += int(ids.numel())
+
+    def _run_step(self, fn, *args) -> list:
+        """Run one step function and fetch its tokens; with int8 pages
+        the packed refold count comes in the same fetch and is counted."""
+        out = fn(self._params, self._k_pages, self._v_pages, *args,
+                 self._generator, **self._step_kwargs()).tolist()
+        if self._kv_quant:
+            self._stats["kv_quant_refolds"] += out.pop()
+        return out
 
     def _mixed_step(self) -> bool:
         """One fused prefill+decode step over the fixed ``[slots,
@@ -784,13 +984,13 @@ class DecodeEngine:
                 sample_idx[s] = 0
                 sample_mask[s] = True
         self._grow_block_tables(writes=caps)
+        self._flush_fresh_scales()
 
         t0 = time.perf_counter()
-        toks = _gpt_mixed_step(
-            self._params, self._k_pages, self._v_pages, self._dev(self._bt),
-            self._dev(self._lens), self._dev(tokens), self._dev(caps),
-            self._dev(sample_idx), self._dev(sample_mask), self._generator,
-            **self._step_kwargs()).tolist()
+        toks = self._run_step(
+            _gpt_mixed_step, self._dev(self._bt), self._dev(self._lens),
+            self._dev(tokens), self._dev(caps), self._dev(sample_idx),
+            self._dev(sample_mask))
         self._stats["mixed_step_s"] += time.perf_counter() - t0
         self._stats["steps"] += 1
         self._stats["mixed_steps"] += 1
@@ -831,12 +1031,11 @@ class DecodeEngine:
 
     def _decode_step(self) -> bool:
         self._grow_block_tables()
+        self._flush_fresh_scales()
         t0 = time.perf_counter()
-        toks = _gpt_decode_step(
-            self._params, self._k_pages, self._v_pages, self._dev(self._bt),
-            self._dev(self._lens), self._dev(self._last),
-            self._dev(self._active), self._generator,
-            **self._step_kwargs()).tolist()
+        toks = self._run_step(
+            _gpt_decode_step, self._dev(self._bt), self._dev(self._lens),
+            self._dev(self._last), self._dev(self._active))
         self._stats["decode_step_s"] += time.perf_counter() - t0
         self._stats["steps"] += 1
         emitted = 0

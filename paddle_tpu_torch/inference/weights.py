@@ -28,16 +28,19 @@ def _map_tree(tree: dict, leaf) -> dict:
 def params_from_numpy(tree: dict, device=None, dtype=None,
                       requires_grad=False) -> dict:
     """Copy a numpy weight tree onto ``device`` (default: the CUDA card)
-    as tensors of ``dtype`` (default: each array's own), leaves that
-    require grad when ``requires_grad``.  ``None`` leaves (an untied head
-    without bias) stay ``None``."""
+    as tensors, the floating leaves of ``dtype`` (default: each array's
+    own) and the others (the int8 payloads of a quantized tree) of their
+    own dtype; floating leaves require grad when ``requires_grad``.
+    ``None`` leaves (an untied head without bias) stay ``None``."""
     device = resolve_device(device)
 
     def leaf(a):
         if a is None:
             return None
-        t = torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
-        return t.requires_grad_(requires_grad)
+        t = torch.from_numpy(np.array(a))
+        if not t.is_floating_point():
+            return t.to(device=device)
+        return t.to(device=device, dtype=dtype).requires_grad_(requires_grad)
 
     return _map_tree(tree, leaf)
 

@@ -1,6 +1,7 @@
-// Ragged paged attention over a paged KV cache — kernel K1 of the port.
+// Ragged paged attention over a paged KV cache — kernels K1 and K2 of the
+// port.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/paged_attention.py
+// K1 replaces the TPU kernel paddle_tpu/ops/pallas/paged_attention.py
 // `_decode_kernel` (launched by `_pallas_paged_attention`).  It computes
 // the same function, not a block-by-block copy: for every sequence b,
 // KV head h and query row r = (query token i, GQA group member g), row r
@@ -31,14 +32,28 @@
 // the card has SMs, so long sequences run on few SMs), and three of the
 // four warps idle during the math when a tile has a single query row.
 //
-// Interface: a plain C function, built with nvcc for sm_90a and loaded
-// with ctypes (paddle_tpu_torch/ops/_build.py).  Launches on the given
-// stream, allocates nothing, returns cudaGetLastError().
+// K2 replaces `_decode_kernel_q` of the same file: K1's function over
+// int8 pages (FLAGS_kv_quant=int8) with per-page, per-head f32 scales
+// [Hkv, num_pages].  It is the same kernel instantiated for int8 storage:
+// each K/V element widens to f32, multiplies by the scale of ITS page
+// (scales[h, block_tables[b, p / page]], looked up per position, since a
+// 32-position tile spans several pages when the page is smaller than 32)
+// and rounds through the query dtype and back (a no-op in f32; in bf16 it
+// is the reference's `.to(q.dtype)`), so the dequantized operands are
+// bit-identical to the plain version's; the math after the load is K1's.
+// An int8 row moves a quarter of an f32 row's bytes, so K2's bound is a
+// quarter of K1's; like K1 it is far from it (the loads do not overlap
+// the math, and the dot products run on the CUDA cores).
+//
+// Interface: plain C functions, built with nvcc for sm_90a and loaded
+// with ctypes (paddle_tpu_torch/ops/_build.py).  Each launches on the
+// given stream, allocates nothing, returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -49,7 +64,7 @@ constexpr int kRowTile = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKvTile = 32;                      // KV positions per tile
 constexpr float kMaskValue = -1e30f;             // paddle_tpu's mask value
 
-// 16-byte vector loads: 4 f32 or 8 bf16 per thread
+// 16-byte vector loads: 4 f32, 8 bf16 or 16 int8 per thread
 template <typename T>
 struct Vec;
 template <>
@@ -61,6 +76,11 @@ template <>
 struct Vec<__nv_bfloat16> {
   using type = uint4;
   static constexpr int n = 8;
+};
+template <>
+struct Vec<int8_t> {
+  using type = int4;
+  static constexpr int n = 16;
 };
 
 __device__ __forceinline__ void unpack(const float4& v, float* o) {
@@ -96,6 +116,30 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// One 16-byte vector of K or V pages as f32.  Pages of the query dtype
+// load as they are (K1); int8 pages (K2) dequantize by their page's
+// scale and round through the query dtype T, as the plain version does.
+template <typename T, typename KV>
+struct KvLoad {
+  static constexpr int n = Vec<T>::n;
+  __device__ __forceinline__ static void load(const KV* src, float,
+                                              float* o) {
+    unpack(*reinterpret_cast<const typename Vec<T>::type*>(src), o);
+  }
+};
+template <typename T>
+struct KvLoad<T, int8_t> {
+  static constexpr int n = Vec<int8_t>::n;
+  __device__ __forceinline__ static void load(const int8_t* src,
+                                              float scale, float* o) {
+    const int4 v = *reinterpret_cast<const int4*>(src);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int e = 0; e < n; ++e)
+      o[e] = to_f32(from_f32<T>(static_cast<float>(c[e]) * scale));
+  }
+};
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -109,17 +153,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// q, out: [B, Q, Hq, D]; k_pages, v_pages: [Hkv, num_pages, page, D];
-// block_tables: [B, pages_max]; seq_lens, q_offsets: [B].  All dense.
-template <typename T, int D>
+// q, out: [B, Q, Hq, D]; k_pages, v_pages: [Hkv, num_pages, page, D] of
+// KV (T for K1, int8 for K2); k_scales, v_scales: [Hkv, num_pages] (K2
+// only, else null); block_tables: [B, pages_max]; seq_lens, q_offsets:
+// [B].  All dense.
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const T* __restrict__ q, const KV* __restrict__ k_pages,
+    const KV* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, const int* __restrict__ q_offsets,
     T* __restrict__ out, int q_len, int hq, int group, int num_pages,
     int page, int pages_max, float scale) {
-  using VecT = typename Vec<T>::type;
-  constexpr int kVec = Vec<T>::n;
+  using Load = KvLoad<T, KV>;
+  constexpr bool kQuant = !std::is_same<T, KV>::value;
+  constexpr int kVec = Load::n;
   constexpr int kPerLane = D / 32;  // accumulator columns per lane
 
   __shared__ float q_s[kRowTile][D];
@@ -177,11 +225,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const int p = t0 + n;
       float kf[kVec], vf[kVec];
       if (p < kv_end) {
-        const size_t off =
-            ((static_cast<size_t>(h) * num_pages + bt[p / page]) * page +
-             p % page) * D + c;
-        unpack(*reinterpret_cast<const VecT*>(k_pages + off), kf);
-        unpack(*reinterpret_cast<const VecT*>(v_pages + off), vf);
+        const size_t hp = static_cast<size_t>(h) * num_pages + bt[p / page];
+        const size_t off = (hp * page + p % page) * D + c;
+        Load::load(k_pages + off, kQuant ? k_scales[hp] : 1.f, kf);
+        Load::load(v_pages + off, kQuant ? v_scales[hp] : 1.f, vf);
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) kf[e] = vf[e] = 0.f;
@@ -236,50 +283,79 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 void launch(const void* q, const void* k_pages, const void* v_pages,
+            const void* k_scales, const void* v_scales,
             const void* block_tables, const void* seq_lens,
             const void* q_offsets, void* out, int batch, int q_len, int hq,
             int hkv, int num_pages, int page, int pages_max, float scale,
             cudaStream_t stream) {
   const int group = hq / hkv;
   const dim3 grid((q_len * group + kRowTile - 1) / kRowTile, hkv, batch);
-  paged_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(block_tables),
+  paged_attention_kernel<T, KV, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_pages),
+      static_cast<const KV*>(v_pages), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales),
+      static_cast<const int*>(block_tables),
       static_cast<const int*>(seq_lens), static_cast<const int*>(q_offsets),
       static_cast<T*>(out), q_len, hq, group, num_pages, page, pages_max,
       scale);
 }
 
+// KV = T: K1; KV = int8_t: K2.  dtype: 0 = float32, 1 = bfloat16 (of q and
+// out; of the pages too for K1).  head_dim: 64 or 128.
+template <bool kQuant>
+int dispatch(const void* q, const void* k_pages, const void* v_pages,
+             const void* k_scales, const void* v_scales,
+             const void* block_tables, const void* seq_lens,
+             const void* q_offsets, void* out, int batch, int q_len, int hq,
+             int hkv, int head_dim, int num_pages, int page, int pages_max,
+             float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PA_LAUNCH(T, D)                                                    \
+  launch<T, std::conditional_t<kQuant, int8_t, T>, D>(                    \
+      q, k_pages, v_pages, k_scales, v_scales, block_tables, seq_lens,     \
+      q_offsets, out, batch, q_len, hq, hkv, num_pages, page, pages_max,   \
+      scale, s)
+  if (dtype == 0 && head_dim == 64) {
+    PA_LAUNCH(float, 64);
+  } else if (dtype == 0 && head_dim == 128) {
+    PA_LAUNCH(float, 128);
+  } else if (dtype == 1 && head_dim == 64) {
+    PA_LAUNCH(__nv_bfloat16, 64);
+  } else if (dtype == 1 && head_dim == 128) {
+    PA_LAUNCH(__nv_bfloat16, 128);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PA_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.
+// K1: pages of q's dtype.
 extern "C" int paged_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* seq_lens, const void* q_offsets,
     void* out, int batch, int q_len, int hq, int hkv, int head_dim,
     int num_pages, int page, int pages_max, float scale, int dtype,
     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) {
-    launch<float, 64>(q, k_pages, v_pages, block_tables, seq_lens,
-                      q_offsets, out, batch, q_len, hq, hkv, num_pages, page,
-                      pages_max, scale, s);
-  } else if (dtype == 0 && head_dim == 128) {
-    launch<float, 128>(q, k_pages, v_pages, block_tables, seq_lens,
-                       q_offsets, out, batch, q_len, hq, hkv, num_pages,
-                       page, pages_max, scale, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    launch<__nv_bfloat16, 64>(q, k_pages, v_pages, block_tables, seq_lens,
-                              q_offsets, out, batch, q_len, hq, hkv,
-                              num_pages, page, pages_max, scale, s);
-  } else if (dtype == 1 && head_dim == 128) {
-    launch<__nv_bfloat16, 128>(q, k_pages, v_pages, block_tables, seq_lens,
-                               q_offsets, out, batch, q_len, hq, hkv,
-                               num_pages, page, pages_max, scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k_pages, v_pages, nullptr, nullptr,
+                         block_tables, seq_lens, q_offsets, out, batch,
+                         q_len, hq, hkv, head_dim, num_pages, page,
+                         pages_max, scale, dtype, stream);
+}
+
+// K2: int8 pages with f32 scales [Hkv, num_pages].
+extern "C" int paged_attention_q_fwd(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* block_tables,
+    const void* seq_lens, const void* q_offsets, void* out, int batch,
+    int q_len, int hq, int hkv, int head_dim, int num_pages, int page,
+    int pages_max, float scale, int dtype, void* stream) {
+  return dispatch<true>(q, k_pages, v_pages, k_scales, v_scales,
+                        block_tables, seq_lens, q_offsets, out, batch, q_len,
+                        hq, hkv, head_dim, num_pages, page, pages_max, scale,
+                        dtype, stream);
 }

@@ -7,15 +7,18 @@ may outnumber KV heads (GQA), and ``q`` may carry several query tokens
 per sequence with a per-sequence causal offset (chunked prefill).
 
 `paged_attention` is the entry point.  A CUDA tensor goes to kernel K1
-(`csrc/paged_attention.cu`) through `paged_attention_cuda`; a CPU tensor
-goes to `paged_attention_reference`, the plain PyTorch version, which is
-also what the kernel is checked against on the card.  There is no other
-route: a CUDA input the kernel does not take raises.
+(`csrc/paged_attention.cu`) through `paged_attention_cuda`, or, over
+int8 pages (``FLAGS_kv_quant=int8``), to kernel K2 in the same source
+through `paged_attention_cuda_q`; a CPU tensor goes to
+`paged_attention_reference`, the plain PyTorch version, which is also
+what both kernels are checked against on the card.  There is no other
+route: a CUDA input a kernel does not take raises.
 
-Page-size selection and the write coordinates of the serving steps live
-here too.  Unlike JAX, PyTorch raises on an out-of-bounds scatter index
-instead of dropping the row, so `paged_write_rows` masks dropped rows
-out explicitly.
+Page-size selection, the write coordinates of the serving steps and the
+quantized write (`paged_quant_write`) live here too.  Unlike JAX,
+PyTorch raises on an out-of-bounds scatter index instead of dropping the
+row, so `paged_write_rows` and `paged_quant_write_rows` filter dropped
+rows (and dropped span pages) out explicitly, once per step.
 """
 from __future__ import annotations
 
@@ -25,11 +28,14 @@ import math
 import torch
 
 from ..nn.functional.attention import multi_query_causal_mask
+from ..quantization.int8 import Q_MAX
 from . import _build
 
 __all__ = ["pick_page_size", "default_page_size", "paged_write_indices",
-           "paged_write_rows", "paged_write", "paged_attention_reference",
-           "paged_attention", "paged_attention_cuda"]
+           "paged_write_rows", "paged_write", "paged_write_spans",
+           "paged_quant_write_rows", "paged_quant_write",
+           "paged_attention_reference", "paged_attention",
+           "paged_attention_cuda", "paged_attention_cuda_q"]
 
 _MIN_PAGE_SIZE = 16
 _DEFAULT_PAGE_SIZE = 64
@@ -99,17 +105,119 @@ def paged_write(pages, write_rows, vals) -> None:
     pages[:, page_idx, slot] = vals[rows].transpose(0, 1).to(pages.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Quantized KV pages (FLAGS_kv_quant=int8): symmetric per-page, per-head
+# int8 with the quantization.int8 convention (scale = absmax / Q_MAX,
+# dequant = q * scale)
+# ---------------------------------------------------------------------------
+def paged_write_spans(block_tables, seq_lens, write_caps, qn: int,
+                      num_pages_total: int, page: int):
+    """The distinct pages a write of up to ``qn`` rows per sequence (rows
+    ``i < write_caps[b]`` at positions ``seq_lens[b] + i``) touches: the
+    refold set of `paged_quant_write`, one entry per (sequence, page)
+    instead of one per row.  Returns [B * n_span] int64 page ids, with
+    ``num_pages_total`` (the drop marker) for inactive sequences and span
+    slots past the write's last page; ``n_span = (qn + page - 2) // page
+    + 1`` is the worst case (an unaligned ``qn``-row run)."""
+    b, pages_max = block_tables.shape
+    dev = block_tables.device
+    n_span = (qn + page - 2) // page + 1
+    j = torch.arange(n_span, dtype=torch.int64, device=dev)
+    caps = write_caps.long()
+    first = seq_lens.long() // page
+    last = (seq_lens.long() + torch.clamp(caps, min=1) - 1) // page
+    want = first[:, None] + j[None, :]
+    valid = (caps[:, None] > 0) & (want <= last[:, None])
+    bt_idx = torch.clamp(want, max=pages_max - 1)
+    rows = torch.arange(b, device=dev)[:, None]
+    span = torch.where(valid, block_tables.long()[rows, bt_idx],
+                       num_pages_total)
+    return span.reshape(-1)
+
+
+def _kept(mask, n: int):
+    """Positions of the ``n`` True entries of ``mask``, ascending, without
+    a device sync (``n`` is known)."""
+    order = torch.argsort(mask.to(torch.uint8), descending=True, stable=True)
+    return order[:n]
+
+
+def paged_quant_write_rows(page_idx, slot, span_idx, num_pages_total: int):
+    """`paged_write_rows` with the span pages of a multi-row write: keeps
+    the rows and the span entries a JAX scatter would not drop.  Both
+    counts come back in one device-to-host fetch, so a step pays the one
+    sync the unquantized path pays.  Returns ``(rows, page_idx, slot,
+    spans)``."""
+    page_idx = page_idx.reshape(-1)
+    span_idx = span_idx.reshape(-1)
+    keep_rows = page_idx < num_pages_total
+    keep_spans = span_idx < num_pages_total
+    n_rows, n_spans = torch.stack([keep_rows.sum(),
+                                   keep_spans.sum()]).tolist()
+    rows = _kept(keep_rows, n_rows)
+    return (rows, page_idx[rows], slot.reshape(-1)[rows],
+            span_idx[_kept(keep_spans, n_spans)])
+
+
+def paged_quant_write(pages, scales, write_rows, vals):
+    """Quantized write of new K or V rows into one layer's int8 pages, IN
+    PLACE (counterpart: `paged_quant_write` of the JAX package, which
+    returns new pools): fold the rows' per-head absmax into the running
+    page scales and re-quantize a written page's existing rows when its
+    scale grows (the refold), so a page stays consistent under one scale
+    however incrementally it was filled.
+
+    pages: [Hkv, P, page, D] int8; scales: [Hkv, P] f32 running scales
+    (absmax / Q_MAX; 0 = not written since the page was handed out, the
+    engine zeroes a page's entry then); write_rows: `paged_write_rows`'
+    ``(rows, page_idx, slot)`` — the refold then runs per row, which is
+    the distinct page set of a one-row-per-sequence decode write — or
+    `paged_quant_write_rows`' ``(rows, page_idx, slot, spans)``; vals:
+    [R, Hkv, D] float, R the flat row count before the filter.
+
+    The fold is a scatter-max (order-free under duplicate rows); the
+    refold multiplies by ``s_old / s_new``: 1.0 where nothing grew (a
+    bit no-op), 0 for a fresh page (its stale bytes become zeros);
+    duplicate span ids write identical bytes.  Returns the number of
+    (page, head) scale entries that grew past an established value, a
+    0-d int32 tensor."""
+    rows, page_idx, slot = write_rows[:3]
+    spans = write_rows[3] if len(write_rows) > 3 else page_idx
+    h = pages.shape[0]
+    v = vals[rows].float()                                # [R, H, D]
+    s_old = scales.clone()                                # [H, P]
+    s_new = scales
+    s_new.scatter_reduce_(1, page_idx[None].expand(h, -1),
+                          v.abs().amax(dim=-1).T / Q_MAX, "amax")
+    # refold the written pages' existing rows at the grown scale
+    so_g, sn_g = s_old[:, spans], s_new[:, spans]         # [H, S]
+    ratio = torch.where(so_g > 0,
+                        so_g / torch.where(sn_g > 0, sn_g, 1.0), 0.0)
+    old = pages[:, spans].float()                         # [H, S, page, D]
+    pages[:, spans] = torch.round(old * ratio[..., None, None]).to(
+        torch.int8)
+    # the new rows at their page's (possibly grown) scale
+    sn_rows = s_new[:, page_idx].T[..., None]             # [R, H, 1]
+    q = torch.clamp(torch.round(v / torch.clamp(sn_rows, min=1e-30)),
+                    -Q_MAX, Q_MAX).to(torch.int8)
+    pages[:, page_idx, slot] = q.transpose(0, 1)
+    return ((s_new > s_old) & (s_old > 0)).sum().to(torch.int32)
+
+
 def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
-                              scale=None, q_offsets=None):
+                              scale=None, q_offsets=None, k_scales=None,
+                              v_scales=None):
     """Plain PyTorch paged attention: `_xla_paged_attention` of the JAX
-    package without its int8 branch, with its cast discipline — the
-    q.k product scaled in the input dtype, masked and softmaxed in f32,
-    probabilities cast back — and fully masked rows zeroed after the
-    softmax, so a seq_len 0 slot gives exact zeros.
+    package, with its cast discipline — the q.k product scaled in the
+    input dtype, masked and softmaxed in f32, probabilities cast back —
+    and fully masked rows zeroed after the softmax, so a seq_len 0 slot
+    gives exact zeros.  Over int8 pages the gathered pages dequantize
+    first, ``(q8 * scale)`` in f32 cast to q's dtype, as in JAX.
 
     q: [B, Hq, D] or [B, Q, Hq, D]; k_pages/v_pages: [Hkv, num_pages,
     page, D]; block_tables: [B, pages_max]; seq_lens, q_offsets: [B]
-    (q_offsets defaults to ``seq_lens - Q``).  Returns q's shape."""
+    (q_offsets defaults to ``seq_lens - Q``); k_scales/v_scales: [Hkv,
+    num_pages] f32, with int8 pages only.  Returns q's shape."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
@@ -122,8 +230,12 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
         1.0 / torch.sqrt(torch.tensor(float(d), dtype=q.dtype))
     bt = block_tables.long()
     # gather each sequence's pages: [Hkv, B, pages_max, page, D]
-    k = k_pages[:, bt].movedim(1, 0).reshape(b, hkv, -1, d)
-    v = v_pages[:, bt].movedim(1, 0).reshape(b, hkv, -1, d)
+    k, v = k_pages[:, bt], v_pages[:, bt]
+    if k_scales is not None:
+        k = (k.float() * k_scales[:, bt][..., None, None]).to(q.dtype)
+        v = (v.float() * v_scales[:, bt][..., None, None]).to(q.dtype)
+    k = k.movedim(1, 0).reshape(b, hkv, -1, d)
+    v = v.movedim(1, 0).reshape(b, hkv, -1, d)
     qg = q.reshape(b, qn, hkv, g, d)
     logits = (torch.einsum("bqhgd,bhsd->bqhgs", qg, k) * s).float()
     valid = multi_query_causal_mask(q_offsets, qn, seq_lens,
@@ -136,31 +248,35 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
 
 
 class _PagedAttentionCuda:
-    """ctypes wrapper of kernel K1.  ``launches`` counts the kernel
-    launches this process made; it grows by one per launch and nowhere
-    else."""
+    """ctypes wrapper of kernel K1 (``quant=False``: f32/bf16 pages) or K2
+    (``quant=True``: int8 pages with per-page, per-head f32 scales).
+    ``launches`` counts the kernel launches this process made; it grows
+    by one per launch and nowhere else."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
     _HEAD_DIMS = (64, 128)
 
-    def __init__(self):
+    def __init__(self, symbol: str, quant: bool):
         self.launches = 0
+        self._symbol = symbol
+        self._quant = quant
         self._fn = None
 
     def _kernel(self):
         if self._fn is None:
-            fn = _build.load("paged_attention").paged_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            fn = getattr(_build.load("paged_attention"), self._symbol)
+            fn.argtypes = ([ctypes.c_void_p] * (9 if self._quant else 7)
+                           + [ctypes.c_int] * 8
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
     def __call__(self, q, k_pages, v_pages, block_tables, seq_lens,
-                 q_offsets, scale=None):
+                 q_offsets, scale=None, k_scales=None, v_scales=None):
         """q: [B, Q, Hq, D]; the other arguments as for
-        `paged_attention`, with ``q_offsets`` given.  Raises on any
-        input the kernel does not take."""
+        `paged_attention`, with ``q_offsets`` given, and the scales with
+        K2 only.  Raises on any input the kernel does not take."""
         if q.dim() != 4:
             raise ValueError(f"kernel takes q as [B, Q, Hq, D], got rank "
                              f"{q.dim()}")
@@ -173,18 +289,28 @@ class _PagedAttentionCuda:
         if d not in self._HEAD_DIMS:
             raise ValueError(f"kernel takes head_dim in {self._HEAD_DIMS}, "
                              f"got {d}")
+        kv_dtype = torch.int8 if self._quant else q.dtype
         for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-            if t.dtype != q.dtype or tuple(t.shape) != (hkv, num_pages,
-                                                        page, d):
-                raise ValueError(f"{name} must be {q.dtype} "
+            if t.dtype != kv_dtype or tuple(t.shape) != (hkv, num_pages,
+                                                         page, d):
+                raise ValueError(f"{name} must be {kv_dtype} "
                                  f"[{hkv}, {num_pages}, {page}, {d}]")
-        for name, t, shape in (("block_tables", block_tables,
-                                (b, pages_max)),
-                               ("seq_lens", seq_lens, (b,)),
-                               ("q_offsets", q_offsets, (b,))):
-            if t.dtype != torch.int32 or tuple(t.shape) != shape:
-                raise ValueError(f"{name} must be int32 {list(shape)}")
-        tensors = (q, k_pages, v_pages, block_tables, seq_lens, q_offsets)
+        checks = [("block_tables", block_tables, torch.int32, (b, pages_max)),
+                  ("seq_lens", seq_lens, torch.int32, (b,)),
+                  ("q_offsets", q_offsets, torch.int32, (b,))]
+        scales = ()
+        if self._quant:
+            scales = (k_scales, v_scales)
+            checks += [(n, t, torch.float32, (hkv, num_pages))
+                       for n, t in (("k_scales", k_scales),
+                                    ("v_scales", v_scales))]
+        elif k_scales is not None or v_scales is not None:
+            raise ValueError("K1 takes no scales")
+        for name, t, dtype, shape in checks:
+            if t is None or t.dtype != dtype or tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {dtype} {list(shape)}")
+        tensors = (q, k_pages, v_pages, block_tables, seq_lens, q_offsets,
+                   *scales)
         for t in tensors:
             if t.device != q.device or t.device.type != "cuda":
                 raise ValueError("kernel inputs must all lie on one CUDA "
@@ -202,22 +328,25 @@ class _PagedAttentionCuda:
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = self._kernel()(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                *(t.data_ptr() for t in scales),
                 block_tables.data_ptr(), seq_lens.data_ptr(),
                 q_offsets.data_ptr(), out.data_ptr(), b, qn, hq, hkv, d,
                 num_pages, page, pages_max, float(s),
                 self._DTYPES[q.dtype], stream)
         if err != 0:
-            raise RuntimeError(f"paged_attention kernel launch failed: "
+            raise RuntimeError(f"{self._symbol} kernel launch failed: "
                                f"cudaError {err}")
         self.launches += 1
         return out
 
 
-paged_attention_cuda = _PagedAttentionCuda()
+paged_attention_cuda = _PagedAttentionCuda("paged_attention_fwd", False)
+paged_attention_cuda_q = _PagedAttentionCuda("paged_attention_q_fwd", True)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
-                    scale=None, q_offsets=None):
+                    scale=None, q_offsets=None, k_scales=None,
+                    v_scales=None):
     """Attention of each sequence's queries over its paged KV cache.
 
     q: [B, Hq, D] (one query token per sequence) or [B, Q, Hq, D]
@@ -225,8 +354,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
     ``q_offsets[b] + i``); k_pages/v_pages: [Hkv, num_pages, page, D];
     block_tables: [B, pages_max] page ids in position order; seq_lens:
     [B] valid KV tokens per sequence (0 = inactive slot -> zeros);
-    q_offsets: [B] (default ``seq_lens - Q``).  Hq must be a multiple
-    of Hkv.  CUDA tensors run kernel K1, CPU tensors the plain version.
+    q_offsets: [B] (default ``seq_lens - Q``); k_scales/v_scales: [Hkv,
+    num_pages] f32 per-page, per-head dequant scales, required with int8
+    pages and refused otherwise.  Hq must be a multiple of Hkv.  CUDA
+    tensors run kernel K1, or K2 over int8 pages; CPU tensors the plain
+    version.
     """
     hkv, num_pages, page, d = k_pages.shape
     if q.dim() not in (3, 4):
@@ -238,17 +370,34 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
             f"query heads {hq} not a multiple of kv heads {hkv}")
     if dq != d:
         raise ValueError(f"head_dim mismatch: q {dq} vs pages {d}")
-    if k_pages.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV pages (kernel K2) are not ported yet: they land with "
-            "the quantized-serving slice of paddle_tpu_torch")
+    quant = k_pages.dtype == torch.int8
+    if quant:
+        if k_scales is None or v_scales is None:
+            raise ValueError(
+                "int8 KV pages need k_scales/v_scales ([Hkv, num_pages]"
+                " f32 per-page dequant scales)")
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if tuple(t.shape) != (hkv, num_pages):
+                raise ValueError(
+                    f"{name} shape {tuple(t.shape)} != (Hkv, num_pages) = "
+                    f"{(hkv, num_pages)}")
+    elif k_scales is not None or v_scales is not None:
+        raise ValueError(
+            "k_scales/v_scales passed for non-int8 KV pages "
+            f"(dtype {k_pages.dtype})")
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
-                                         seq_lens, scale, q_offsets)
+                                         seq_lens, scale, q_offsets,
+                                         k_scales, v_scales)
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q
     if q_offsets is None:
         q_offsets = seq_lens - q4.shape[1]
-    out = paged_attention_cuda(q4, k_pages, v_pages, block_tables,
-                               seq_lens, q_offsets, scale)
+    if quant:
+        out = paged_attention_cuda_q(q4, k_pages, v_pages, block_tables,
+                                     seq_lens, q_offsets, scale, k_scales,
+                                     v_scales)
+    else:
+        out = paged_attention_cuda(q4, k_pages, v_pages, block_tables,
+                                   seq_lens, q_offsets, scale)
     return out[:, 0] if squeeze else out

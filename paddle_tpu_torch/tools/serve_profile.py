@@ -1,12 +1,14 @@
 """Where a GPT-2-small serve spends its time on the card.
 
     python -m paddle_tpu_torch.tools.serve_profile
+        [--kv-quant int8] [--serve-weights int8]
         [--out chiprun_out/serve_profile.json]
 
 Serves the workload of ``chip_smoke.py``'s serve phase (`gpt2_small_serve`:
 GPT-2-small at full width, random weights from seed 0, 8 slots, 64-token
 pages, 16 prompts of 64-512 tokens, half sharing a 128-token prefix, 64
-new tokens each) twice: once plain, for the wall time, and once under
+new tokens each; int8 KV pages and int8 weights with the switches, default
+off) twice: once plain, for the wall time, and once under
 ``torch.profiler`` for the breakdown.  Prints, and writes to ``--out``:
 the wall time of each run; the device's busy time (the sum of every
 kernel's and copy's time, one stream so nothing overlaps) and idle share
@@ -50,15 +52,16 @@ def make_prompts(vocab: int, n: int, seed: int, shared_len: int = 128):
     return prompts
 
 
-def gpt2_small_serve(device):
+def gpt2_small_serve(device, kv_quant="off", serve_weights="off"):
     """The GPT-2-small serve of ``chip_smoke.py`` and of this profile.
 
     Returns ``(model, prompts, new_engine)``: GPT-2-small at full width
     (the ``bench.py`` config) with random f32 weights from `SEED`, its 16
     prompts, and a factory of fresh ``DecodeEngine(max_batch_size=8,
-    page_size=64)`` engines at default flags.  One engine has already
-    served two prompts at those shapes, so cuBLAS's handles and the
-    first load of each kernel the steps launch stay out of any timing."""
+    page_size=64, kv_quant=..., serve_weights=...)`` engines, the other
+    flags at their defaults.  One engine has already served two prompts
+    at those shapes, so cuBLAS's handles and the first load of each
+    kernel the steps launch stay out of any timing."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
                     num_heads=12, max_seq_len=1024)
@@ -67,6 +70,7 @@ def gpt2_small_serve(device):
 
     def new_engine():
         return DecodeEngine(model, max_batch_size=8, page_size=64,
+                            kv_quant=kv_quant, serve_weights=serve_weights,
                             device=device)
 
     new_engine().generate(prompts[:2], max_new_tokens=4)
@@ -85,10 +89,14 @@ def _serve(new_engine, prompts):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kv-quant", choices=("off", "int8"), default="off")
+    ap.add_argument("--serve-weights", choices=("off", "int8"),
+                    default="off")
     ap.add_argument("--out", default="chiprun_out/serve_profile.json")
     args = ap.parse_args(argv)
 
-    _, prompts, new_engine = gpt2_small_serve(default_device())
+    _, prompts, new_engine = gpt2_small_serve(
+        default_device(), args.kv_quant, args.serve_weights)
     wall_plain, st = _serve(new_engine, prompts)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -98,6 +106,7 @@ def main(argv=None) -> dict:
     decode_steps = st["steps"] - st["mixed_steps"]
     result = dict(
         device=torch.cuda.get_device_name(0), card=card_line(),
+        kv_quant=args.kv_quant, serve_weights=args.serve_weights,
         requests=len(prompts), new_tokens=st["tokens"],
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         wall_s=wall_plain, tokens_per_s=st["tokens"] / wall_plain,

@@ -1,13 +1,15 @@
 """Where a GPT-2-small train step spends its time on the card.
 
-    python -m paddle_tpu_torch.tools.train_profile
+    python -m paddle_tpu_torch.tools.train_profile [--pallas-layernorm]
         [--out chiprun_out/train_profile.json]
 
 Trains the workload of ``chip_smoke.py``'s train phase
 (`gpt2_small_train`: ``bench.py``'s configuration — GPT-2-small at full
 width, random weights from seed 0, batch 16 x 1024 random tokens,
 AdamW(1e-4, weight decay 0.01), the forward under bf16 `amp.auto_cast`
-and the cross entropy outside it — through `jit.TrainStep`) for
+and the cross entropy outside it — through `jit.TrainStep`; with
+``--pallas-layernorm``, ``FLAGS_use_pallas_layernorm`` on, so every
+LayerNorm forward runs kernel K5) for
 `STEPS` steps plain, for the wall time, and `PROFILED_STEPS` more under
 ``torch.profiler`` for the breakdown.  Prints, and writes to ``--out``:
 tokens/s and the mean step time of the plain run, the device's busy time
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import amp
+from ..core import flags
 from ..device import default_device
 from ..jit import train_step
 from ..models.gpt import GPT, GPTConfig
@@ -83,9 +86,11 @@ def _train(step, tokens, labels, n):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--pallas-layernorm", action="store_true")
     ap.add_argument("--out", default="chiprun_out/train_profile.json")
     args = ap.parse_args(argv)
 
+    flags.set_flags({"use_pallas_layernorm": args.pallas_layernorm})
     _, step, tokens, labels, _ = gpt2_small_train(default_device())
     wall, loss = _train(step, tokens, labels, STEPS)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -94,7 +99,7 @@ def main(argv=None) -> dict:
         wall_prof, _ = _train(step, tokens, labels, PROFILED_STEPS)
     result = dict(
         device=torch.cuda.get_device_name(0), card=card_line(),
-        batch=BATCH, seq=SEQ, steps=STEPS, wall_s=wall,
+        pallas_layernorm=args.pallas_layernorm, batch=BATCH, seq=SEQ, steps=STEPS, wall_s=wall,
         tokens_per_s=BATCH * SEQ * STEPS / wall,
         mean_step_ms=wall / STEPS * 1e3, last_loss=loss,
         profiled_steps=PROFILED_STEPS, profiled_wall_s=wall_prof,

@@ -182,6 +182,32 @@ def test_flag_defaults_match_jax(name):
     ("kv_quant", "int8"), ("serve_weights", "int8"), ("ragged_step", True),
     ("spec_decode_k", 4), ("serve_mesh", "mp=2")])
 def test_unported_flags_raise(name, value):
+    """ragged_step, spec_decode_k and serve_mesh refuse a non-default,
+    naming the slice that brings it.  kv_quant and serve_weights are
+    ported (quantized serving): the value is set, and an engine that
+    takes it from the flag alone serves with it."""
+    if name in ("kv_quant", "serve_weights"):
+        from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+        tm = GPT.random(GPTConfig(vocab_size=64, hidden_size=32,
+                                  num_layers=2, num_heads=4,
+                                  max_seq_len=64), seed=0, device="cpu")
+        TF.set_flags({name: value})
+        try:
+            assert TF.flag(name) == value
+            eng = TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
+                                  max_seq_len=32, page_size=16)
+            out = eng.generate([[1, 2, 3, 4, 5]], 4)
+        finally:
+            TF.set_flags({name: JF.flag(name)})
+        assert len(out[0]) == 4
+        st = eng.decode_stats()
+        if name == "kv_quant":
+            assert eng._k_pages.dtype == torch.int8
+            assert st["kv_quant_pages"] > 0
+        else:
+            assert st["weight_quant_mats"] == 8
+            assert "qkv_w_q" in eng._params["blocks"][0]
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         TF.set_flags({name: value})
     assert TF.flag(name) == JF.flag(name)  # nothing was set

@@ -138,9 +138,17 @@ def test_public_entry_validates_like_jax():
         TPA.paged_attention(tq[..., :16], tkp, tvp, tbt, tlens)
     with pytest.raises(ValueError, match="rank"):
         TPA.paged_attention(tq[0], tkp, tvp, tbt, tlens)
-    with pytest.raises(NotImplementedError, match="K2"):
-        TPA.paged_attention(tq, tkp.to(torch.int8), tvp.to(torch.int8),
-                            tbt, tlens)
+    # int8 pages need their scales, of the pool's [Hkv, num_pages]
+    k8, v8 = tkp.to(torch.int8), tvp.to(torch.int8)
+    with pytest.raises(ValueError, match="k_scales/v_scales"):
+        TPA.paged_attention(tq, k8, v8, tbt, tlens)
+    ok = torch.ones(k8.shape[:2])
+    with pytest.raises(ValueError, match="v_scales shape"):
+        TPA.paged_attention(tq, k8, v8, tbt, tlens, k_scales=ok,
+                            v_scales=ok[:, :-1])
+    with pytest.raises(ValueError, match="non-int8"):
+        TPA.paged_attention(tq, tkp, tvp, tbt, tlens, k_scales=ok,
+                            v_scales=ok)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

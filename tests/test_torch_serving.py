@@ -254,9 +254,22 @@ def test_sampled_serving_is_seeded():
                                 dict(chunked_prefill=False)])
 def test_unported_options_raise(kw):
     """The legacy one-shot prefill raises, naming the slice that brings
-    it; the engine takes no argument at all for the other options (their
-    flags refuse non-defaults: test_torch_ops.test_unported_flags_raise)."""
+    it; the engine takes no argument at all for ragged_step, spec_decode_k
+    and serve_mesh (their flags refuse non-defaults:
+    test_torch_ops.test_unported_flags_raise).  kv_quant and
+    serve_weights are ported: the engine takes "int8" and serves, and
+    raises ValueError on any other mode, as the JAX engine does."""
     _, tm = _models("tiny", seed=0)
+    if next(iter(kw)) in ("kv_quant", "serve_weights"):
+        eng = TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
+                              max_seq_len=64, page_size=16, **kw)
+        assert len(eng.generate(_prompts(1, (6,)), 3)[0]) == 3
+        assert eng.pool.available_count == eng.pool.num_pages
+        with pytest.raises(ValueError, match=next(iter(kw))):
+            TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
+                            max_seq_len=64, page_size=16,
+                            **{next(iter(kw)): "int4"})
+        return
     if "chunked_prefill" in kw:
         expected = pytest.raises(NotImplementedError, match="slice")
     else:

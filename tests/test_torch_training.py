@@ -314,7 +314,23 @@ def test_params_round_trip_and_train():
 @pytest.mark.parametrize("name,other", [("use_pallas_attention", "1"),
                                         ("use_pallas_layernorm", True)])
 def test_attention_and_layernorm_flags_default_only(name, other):
+    """use_pallas_attention keeps its default; use_pallas_layernorm is
+    ported (kernel K5): the flag is set, and a `TrainStep` runs with it
+    (on the CPU every LayerNorm takes the plain version)."""
     assert TF.flag(name) == JF.flag(name)
+    if name == "use_pallas_layernorm":
+        TF.set_flags({name: other})
+        try:
+            assert TF.flag(name) is True
+            tm = TGPT.random(TGPTConfig(**TINY), seed=5, device="cpu")
+            step = TJ.train_step(tm, gpt_loss_fn, TO.AdamW(
+                learning_rate=LR, parameters=tm.parameters()))
+            ids = torch.from_numpy(np.random.RandomState(0).randint(
+                0, 256, (2, 8)).astype(np.int32))
+            assert np.isfinite(float(step(ids, ids)))
+        finally:
+            TF.set_flags({name: JF.flag(name)})
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         TF.set_flags({name: other})
     TF.set_flags({name: JF.flag(name)})
