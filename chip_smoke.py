@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them;
 2. build  — compile every kernel under paddle_tpu_torch/ops/csrc with
-   nvcc for sm_90a;
+   nvcc for sm_90a; print each flash kernel's registers, local (stack
+   and spill) bytes and shared memory, as the CUDA runtime reports
+   them, and fail if one at head_dim 64 uses local memory (a spill);
 3. kernel — hold kernels K1 (ragged paged attention) and K2 (the same
    over int8 pages, made by `paged_quant_write` from random f32 K/V)
    against their plain PyTorch version on the card, f32 and bf16, at
@@ -32,8 +34,10 @@ Phases, in order; any failure exits non-zero:
    backward: dkv and dq) against their plain versions on the card at
    the train path's shape (B=16, H=12, S=1024, D=64, causal; f32 and
    bf16), non-causal, at a ragged S=1000, and at B=2, H=16, S=2048,
-   D=128 (bf16), and time each kernel, the plain versions and
-   PyTorch's ``scaled_dot_product_attention`` forward and backward;
+   D=128 (bf16); time each kernel (with its achieved TFLOP/s and share
+   of its bound), the plain versions and PyTorch's
+   ``scaled_dot_product_attention`` forward and backward; check that two
+   backward launches on the train case give bitwise-equal dq, dk and dv;
 7. train  — train GPT-2-small at full width with ``bench.py``'s bf16
    AdamW `jit.TrainStep` (batch 16 x 1024): 2 warm-up and 10 timed
    steps; check finite, falling losses that start near ln(vocab) and
@@ -56,6 +60,7 @@ imports nothing of JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -115,6 +120,11 @@ FLASH_TOL = {"float32": dict(out=1e-4, lse=1e-4, dq=1e-4, dk=1e-4, dv=1e-4),
              "bfloat16": dict(out=2e-2, lse=5e-2, dq=2e-2, dk=2e-2,
                               dv=2e-2)}
 FLASH_SOURCE = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+# bf16 times at the train shape of the SIMT kernels that the tensor-core
+# kernels replaced, measured by an earlier version of this script (one
+# H100 80GB HBM3 at 700 W): printed beside the new times as a yardstick,
+# never reported as this run's
+FLASH_SIMT_MS = {"fwd": 1.0608, "dkv": 2.2296, "dq": 1.7334}
 FLASH_KERNELS = {  # wrapper name -> (TPU kernel replaced, products, outputs)
     "fwd": ("paddle_tpu/ops/pallas/flash_attention.py:69", 2,
             ("out", "lse")),
@@ -604,10 +614,32 @@ def quant_pools_card_vs_cpu(torch, model, cpu_model, prompt, new=8):
 # ---------------------------------------------------------------------------
 # phase 5: K3/K4 against their plain versions
 # ---------------------------------------------------------------------------
+def flash_build_report(_build):
+    """Registers, local (stack and spill) bytes and shared memory of every
+    flash kernel a launch can run, as the CUDA runtime reports them."""
+    query = _build.load("flash_attention").flash_attention_kernel_attrs
+    query.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    rows = []
+    for dtype, dname in enumerate(("float32", "bfloat16")):
+        for d in (64, 128):
+            for which, kern in enumerate(FLASH_KERNELS):
+                attrs = (ctypes.c_int * 4)()
+                err = query(which, d, dtype, attrs)
+                if err:
+                    fail(f"cudaFuncGetAttributes of flash {kern} {dname} "
+                         f"D={d}: CUDA error {err}")
+                rows.append(dict(kernel=kern, dtype=dname, head_dim=d,
+                                 registers=attrs[0], local_bytes=attrs[1],
+                                 static_smem_bytes=attrs[2],
+                                 dynamic_smem_bytes=attrs[3]))
+    return rows
+
+
 def flash_work(torch, case, dtype, kernel):
     """Bound of one K3/K4 kernel: bytes = its inputs read once and its
     outputs written once; flops = 2 * D per visible (query, key) pair for
-    each of its products (forward 2, dkv 4, dq 3)."""
+    each of its products (forward 2, dkv 4, dq 3).  Returns ``(bound_ms,
+    bound_by, flops)``."""
     item = torch.empty((), dtype=dtype).element_size()
     bh, s, d = case["B"] * case["H"], case["S"], case["D"]
     rows = bh * s * d * item  # one [B, H, S, D] tensor
@@ -619,7 +651,17 @@ def flash_work(torch, case, dtype, kernel):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def flash_backward_deterministic(torch, fa, q, k, v, o, lse, do, causal):
+    """Two launches of K4 (dkv and dq) on the same inputs: bitwise-equal
+    dq, dk and dv (every gradient tile has one writer)."""
+    runs = [(fa.flash_attention_cuda_dq(q, k, v, o, lse, do, causal),
+             *fa.flash_attention_cuda_dkv(q, k, v, o, lse, do, causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def flash_errors(torch, fa, q, k, v, do, causal):
@@ -694,26 +736,39 @@ def flash_phase(torch):
             row = dict(case=case["name"], dtype=dname, causal=c,
                        shape=dict(zip("BHSD", shape)), max_abs_err=errs,
                        tol=tol, kernels={})
+            yardstick = case["name"] == "train" and dname == "bfloat16"
             for kern, (_, _, outs) in FLASH_KERNELS.items():
-                bound_ms, bound_by = flash_work(torch, case, dtype, kern)
+                bound_ms, bound_by, flops = flash_work(torch, case, dtype,
+                                                       kern)
                 row["kernels"][kern] = dict(
                     ms=ms[kern], max_abs_err=max(errs[n] for n in outs),
                     plain_ms=plain_fwd if kern == "fwd" else plain_bwd,
                     library_ms=(lib_fwd if kern == "fwd"
                                 else lib_both - lib_fwd),
-                    bound_ms=bound_ms, bound_by=bound_by)
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    tflops=flops / ms[kern] * 1e-9,
+                    bound_share=bound_ms / ms[kern])
+            if case["name"] == "train":
+                row["backward_bitwise_deterministic"] = \
+                    flash_backward_deterministic(torch, fa, q, k, v, o, lse,
+                                                 do, c)
             results.append(row)
             print(f"kernel K3/K4 {case['name']:>6} {dname:>8}: max_abs_err "
                   + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
                   + " | ms " + " ".join(
-                      f"{n} {r['ms']:.4f} (bound {r['bound_ms']:.4f})"
-                      for n, r in row["kernels"].items())
+                      f"{n} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, "
+                      f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.1%}"
+                      + (f", SIMT kernel's earlier time {FLASH_SIMT_MS[n]}"
+                         if yardstick else "")
+                      + ")" for n, r in row["kernels"].items())
                   + f" | plain fwd {plain_fwd:.4f} bwd {plain_bwd:.4f}"
                   f" | library fwd {lib_fwd:.4f} bwd "
                   f"{lib_both - lib_fwd:.4f}", flush=True)
             bad = [n for n, e in errs.items() if not e <= tol[n]]
             if bad:
                 fail(f"K3/K4 {case['name']} {dname}: {bad} beyond {tol}")
+            if row.get("backward_bitwise_deterministic") is False:
+                fail(f"K4 {case['name']} {dname}: two launches differ")
     return results
 
 
@@ -1021,6 +1076,17 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
           f" in {build_s:.1f} s", flush=True)
+    flash_build = flash_build_report(_build)
+    for r in flash_build:
+        print(f"build: flash {r['kernel']:>3} {r['dtype']:>8} "
+              f"D={r['head_dim']:<3}: {r['registers']} registers, "
+              f"{r['local_bytes']} local bytes (stack and spills), shared "
+              f"memory {r['static_smem_bytes']} static + "
+              f"{r['dynamic_smem_bytes']} dynamic bytes", flush=True)
+    spilled = [f"{r['kernel']} {r['dtype']}" for r in flash_build
+               if r["head_dim"] == 64 and r["local_bytes"] > 0]
+    if spilled:
+        fail(f"flash kernels at head_dim 64 use local memory: {spilled}")
 
     # 3. K1 and K2 against their plain version
     cases = kernel_phase(torch)
@@ -1096,7 +1162,8 @@ def main() -> int:
         timed_case=f"train {path_dtype} [16384, 768]",
         plain_call="ops.layer_norm.layer_norm",
         library_call="torch.nn.functional.layer_norm", cases=ln_cases))
-    result = dict(card=card, build_s=build_s, kernels=kernels, serve=serve,
+    result = dict(card=card, build_s=build_s, flash_build=flash_build,
+                  kernels=kernels, serve=serve,
                   serve_quant=serve_q, train=train, train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -5,7 +5,9 @@ shared library with a plain C interface, loaded with ctypes.  Nothing
 here includes PyTorch's headers, so a build takes seconds.  Libraries go
 to ``build/paddle_tpu_torch/`` beside the package, named by a hash of
 their source and flags, so a changed source rebuilds and an unchanged
-one loads as is.  A failed build raises: there is no fallback.
+one loads as is.  ptxas reports each kernel's registers, spills and
+static shared memory (``-v``; the report is shown when a build fails).
+A failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ __all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -30,6 +30,9 @@
 #include <cstddef>
 #include <cstdint>
 
+// Every symbol of the port's kernel sources lives in this namespace, so
+// a profiler's kernel names tell the port's kernels from PyTorch's.
+namespace paddle_tpu_torch {
 namespace {
 
 constexpr int kMaxVecs = 8;  // 16-byte vectors a thread holds
@@ -216,3 +219,5 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                                                       eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+}  // namespace paddle_tpu_torch

@@ -55,6 +55,9 @@
 #include <cstdint>
 #include <type_traits>
 
+// Every symbol of the port's kernel sources lives in this namespace, so
+// a profiler's kernel names tell the port's kernels from PyTorch's.
+namespace paddle_tpu_torch {
 namespace {
 
 constexpr int kWarps = 4;
@@ -359,3 +362,5 @@ extern "C" int paged_attention_q_fwd(
                         hq, hkv, head_dim, num_pages, page, pages_max, scale,
                         dtype, stream);
 }
+
+}  // namespace paddle_tpu_torch

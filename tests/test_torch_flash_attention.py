@@ -17,8 +17,16 @@ against the Pallas backward in interpret mode and against ``jax.vjp`` of
   products while the port's backward works in f32.
 
 The CUDA kernels K3/K4 are checked against the plain versions on the
-card only (`cuda` marker).
+card only (`cuda` marker).  Their bf16 kernels run on the tensor cores,
+which round the probabilities and ds to bf16 where they meet a product;
+`_tensor_core_emulation` rehearses that rounding on the CPU against the
+plain versions under the card's tolerance (``PYTHONPATH=. python
+tests/test_torch_flash_attention.py`` prints it at the card's shapes).
 """
+import importlib.util
+import math
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -288,6 +296,93 @@ def test_cuda_wrappers_validate_shapes(bad):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernels' rounding, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+def _chip_smoke_flash_tol():
+    """chip_smoke.py's stated K3/K4 tolerances (its module level is
+    constants and the standard library's imports)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FLASH_TOL
+
+
+# the bound of the bf16 kernels against the plain versions on the card
+FLASH_TOL_BF16 = _chip_smoke_flash_tol()["bfloat16"]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_emulation(q, k, v, o, lse, do, causal):
+    """What the bf16 tensor-core kernels compute, in f32 on bf16 inputs:
+    the plain versions' formulas with the kernels' rounding points.  The
+    scale multiplies the f32 product ``q k^T``; p is exp(s - max) in f32
+    and meets ``p v`` (forward) rounded to bf16.  In the backward p meets
+    ``p^T dout`` (dv) and ds meets ``ds^T q`` (dk) and ``ds k`` (dq),
+    each split, as the kernels do, into a bf16 high part plus a bf16
+    remainder.  The backward takes ``o``, ``lse`` (the plain forward's,
+    as on the card).  Returns out, lse [B*H, Sq], dq, dk, dv."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+
+    def split(p):
+        hi = _bf16(p)
+        return hi + _bf16(p - hi)
+
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        visible = torch.ones(sq, sk, dtype=torch.bool).tril()
+        s = torch.where(visible, s, TFA._MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", _bf16(p), v.float()) / den
+    out_lse = (m + torch.log(den)).reshape(b * h, sq)
+    dof = do.float()
+    p = torch.exp(s - lse.float().reshape(b, h, sq, 1))
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, v.float()) - delta)
+    dv = torch.einsum("bhqk,bhqd->bhkd", split(p), dof)
+    dk = torch.einsum("bhqk,bhqd->bhkd", split(ds), q.float()) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", split(ds), k.float()) * scale
+    return (out.to(q.dtype), out_lse, dq.to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
+
+
+def _emulation_errors(arrays, causal):
+    """Max abs errors of `_tensor_core_emulation` against the plain
+    versions (the backward on the plain forward's out and lse), bf16."""
+    tq, tk, tv, tdo = _torch(arrays, torch.bfloat16)
+    ref, ref_lse = TFA._composed_attention(tq, tk, tv, None, causal, None,
+                                           want_lse=True)
+    ref_lse = ref_lse.reshape(-1, tq.shape[2])
+    want = TFA.flash_attention_bwd_reference(tq, tk, tv, ref, ref_lse, tdo,
+                                             causal, None)
+    got = _tensor_core_emulation(tq, tk, tv, ref, ref_lse, tdo, causal)
+    return {name: float((g.float() - w.float()).abs().max())
+            for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got,
+                                  (ref, ref_lse) + tuple(want))}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_rounding_holds_the_card_tolerance(d):
+    """The bf16 kernels' rounding points (scale on the f32 product, p
+    rounded in the forward, p and ds split in two bf16 parts in the
+    backward) on unit-normal inputs as chip_smoke.py draws them (B=1,
+    H=2, S=1024, causal) stay within the card's bf16 tolerance of the
+    unchanged plain versions."""
+    rng = np.random.default_rng(d)
+    arrays = [rng.standard_normal((1, 2, 1024, d), dtype=np.float32)
+              for _ in range(4)]
+    errs = _emulation_errors(arrays, causal=True)
+    assert all(errs[n] <= FLASH_TOL_BF16[n] for n in errs), errs
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
@@ -324,3 +419,83 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, tol):
         for got, ref_t in [(out, ref), (lse, ref_lse),
                            *zip((dq, dk, dv), want)]:
             assert float((got.float() - ref_t.float()).abs().max()) <= tol
+
+
+_BF16_CASES = [(s, s, d, causal) for s in (1, 17, 63, 65, 129, 1000)
+               for d in (64, 128) for causal in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d,causal",
+                         _BF16_CASES + [(70, 150, 128, False)])
+def test_cuda_bf16_kernels_match_plain_versions(cuda_device, sq, sk, d,
+                                                causal):
+    """The bf16 tensor-core K3/K4 against the plain versions at ragged
+    lengths (one row up to a tile and a bit), head_dim 64 and 128, causal
+    and not, and a non-causal cross length, under the card's bf16
+    tolerance; every call launches its kernel once."""
+    b, h = 2, 3
+    arrays = _inputs(sq * 7 + d + causal, b=b, h=h, sq=sq, sk=sk, d=d)
+    tq, tk, tv, tdo = [t.to(cuda_device) for t in
+                       _torch(arrays, torch.bfloat16)]
+    n0 = (TFA.flash_attention_cuda_fwd.launches,
+          TFA.flash_attention_cuda_dkv.launches,
+          TFA.flash_attention_cuda_dq.launches)
+    out, lse = TFA.flash_attention_cuda_fwd(tq, tk, tv, causal)
+    ref, ref_lse = TFA._composed_attention(tq, tk, tv, None, causal, None,
+                                           want_lse=True)
+    ref_lse = ref_lse.reshape(b * h, sq)
+    dk, dv = TFA.flash_attention_cuda_dkv(tq, tk, tv, ref, ref_lse, tdo,
+                                          causal)
+    dq = TFA.flash_attention_cuda_dq(tq, tk, tv, ref, ref_lse, tdo, causal)
+    want = TFA.flash_attention_bwd_reference(tq, tk, tv, ref, ref_lse, tdo,
+                                             causal, None)
+    torch.cuda.synchronize()
+    assert (TFA.flash_attention_cuda_fwd.launches,
+            TFA.flash_attention_cuda_dkv.launches,
+            TFA.flash_attention_cuda_dq.launches) == tuple(n + 1 for n in n0)
+    for name, got, ref_t in [("out", out, ref), ("lse", lse, ref_lse),
+                             ("dq", dq, want[0]), ("dk", dk, want[1]),
+                             ("dv", dv, want[2])]:
+        assert torch.isfinite(got.float()).all(), name
+        err = float((got.float() - ref_t.float()).abs().max())
+        assert err <= FLASH_TOL_BF16[name], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_bf16_backward_is_deterministic(cuda_device, d):
+    """Every gradient tile has one writer (no atomics): two launches of
+    the backward on the same inputs give bitwise-equal dq, dk and dv."""
+    arrays = _inputs(40 + d, b=2, h=3, sq=300, d=d)
+    tq, tk, tv, tdo = [t.to(cuda_device) for t in
+                       _torch(arrays, torch.bfloat16)]
+    out, lse = TFA.flash_attention_cuda_fwd(tq, tk, tv, True)
+    runs = [(TFA.flash_attention_cuda_dq(tq, tk, tv, out, lse, tdo, True),
+             *TFA.flash_attention_cuda_dkv(tq, tk, tv, out, lse, tdo, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+if __name__ == "__main__":
+    # The rehearsal at chip_smoke.py's bf16 shapes (a few GB of f32 on the
+    # CPU, minutes): max abs errors of the emulated kernels against the
+    # plain versions, four heads at a time.
+    shapes = {"train": (16, 12, 1024, 64, True),
+              "full": (16, 12, 1024, 64, False),
+              "ragged": (16, 12, 1000, 64, True),
+              "d128": (2, 16, 2048, 128, True)}
+    torch.set_num_threads(8)
+    for name, (b, h, s, d, causal) in shapes.items():
+        rng = np.random.default_rng(0)
+        worst = {}
+        for _ in range(b * h // 4):
+            arrays = [rng.standard_normal((1, 4, s, d), dtype=np.float32)
+                      for _ in range(4)]
+            for n, e in _emulation_errors(arrays, causal).items():
+                worst[n] = max(worst.get(n, 0.0), e)
+        bad = [n for n in worst if worst[n] > FLASH_TOL_BF16[n]]
+        print(f"{name:>6}: " + " ".join(f"{n} {e:.4g}"
+                                        for n, e in worst.items())
+              + (f"  beyond {bad}" if bad else ""), flush=True)
