@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of paddle_tpu_torch on one CUDA card (an H100).
 
-    python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py             # from the repository root
+    python3 chip_smoke.py --kernels   # phases 1-3 of K1/K2 only
 
 Phases, in order; any failure exits non-zero:
 
@@ -9,14 +10,19 @@ Phases, in order; any failure exits non-zero:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them;
 2. build  — compile every kernel under paddle_tpu_torch/ops/csrc with
-   nvcc for sm_90a; print each flash kernel's registers, local (stack
-   and spill) bytes and shared memory, as the CUDA runtime reports
-   them, and fail if one at head_dim 64 uses local memory (a spill);
+   nvcc for sm_90a; print the registers, local (stack and spill) bytes
+   and shared memory of every flash and K1/K2 kernel instantiation, as
+   the CUDA runtime reports them, and fail if one at head_dim 64 uses
+   local memory (a spill);
 3. kernel — hold kernels K1 (ragged paged attention) and K2 (the same
    over int8 pages, made by `paged_quant_write` from random f32 K/V)
    against their plain PyTorch version on the card, f32 and bf16, at
-   the serving path's decode and mixed-step shapes and at a GQA shape,
-   and time each kernel, the plain version and one PyTorch library call;
+   the serving path's decode and mixed-step shapes, at GQA shapes, at
+   the mixed step over 16-position pages and at a decode with every
+   slot near the horizon; check that two launches give bitwise-equal
+   outputs; time each kernel (beside the simple design's earlier time,
+   `PAGED_SIMPLE_MS`), the plain version and one PyTorch library call, and
+   give the bound with the unit it assumes (`paged_unit`) and its share;
 4. serve  — serve GPT-2-small at full width (random weights from a
    seed) through `DecodeEngine` at default flags: 16 requests, prompts
    of 64-512 tokens, half sharing a 128-token prefix, 64 new tokens
@@ -71,7 +77,44 @@ from pathlib import Path
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,    # H100 SXM, f32 outside the tensor cores
-              "bfloat16": 989e12}  # H100 SXM, dense bf16 tensor cores
+              "bfloat16": 989e12,  # H100 SXM, dense bf16 tensor cores
+              # dense TF32 tensor cores, three products per f32 product
+              # (the 3xTF32 split of K1/K2's tensor-core path in f32)
+              "tf32x3": 494.7e12 / 3}
+# K1/K2 run on the tensor cores from q_len * group = 16 rows (f32 as
+# 3xTF32, bf16 as bf16), below it on the CUDA cores in f32
+PAGED_TC_MIN_ROWS = 16
+# K1/K2 times of their first, simple design (one block per 16 query rows, no
+# split-KV, CUDA-core math), measured by this script's kernel phase
+# (``--kernels``, run in a checkout of that design) on one H100 80GB HBM3
+# at 700.00 W: printed beside the new times as a yardstick, never
+# reported as this run's
+PAGED_SIMPLE_MS = {
+    ("K1", "decode", "float32"): 0.1272,
+    ("K1", "decode", "bfloat16"): 0.0891,
+    ("K1", "mixed", "float32"): 0.2339,
+    ("K1", "mixed", "bfloat16"): 0.1939,
+    ("K1", "gqa_decode", "float32"): 0.3299,
+    ("K1", "gqa_decode", "bfloat16"): 0.2686,
+    ("K1", "gqa_mixed", "float32"): 0.5097,
+    ("K1", "gqa_mixed", "bfloat16"): 0.5411,
+    ("K1", "mixed_p16", "float32"): 0.2358,
+    ("K1", "mixed_p16", "bfloat16"): 0.1959,
+    ("K1", "decode_long", "float32"): 0.1344,
+    ("K1", "decode_long", "bfloat16"): 0.091,
+    ("K2", "decode", "float32"): 0.0828,
+    ("K2", "decode", "bfloat16"): 0.089,
+    ("K2", "mixed", "float32"): 0.192,
+    ("K2", "mixed", "bfloat16"): 0.1987,
+    ("K2", "gqa_decode", "float32"): 0.2581,
+    ("K2", "gqa_decode", "bfloat16"): 0.2709,
+    ("K2", "gqa_mixed", "float32"): 0.5841,
+    ("K2", "gqa_mixed", "bfloat16"): 0.59,
+    ("K2", "mixed_p16", "float32"): 0.1925,
+    ("K2", "mixed_p16", "bfloat16"): 0.1995,
+    ("K2", "decode_long", "float32"): 0.0833,
+    ("K2", "decode_long", "bfloat16"): 0.0898,
+}
 # stated tolerances of K1 against the plain version, by dtype:
 # f32 — the kernel scales q before the dot (the Pallas form) where the
 #   plain version scales the product (the XLA form), and sums in another
@@ -132,6 +175,9 @@ FLASH_KERNELS = {  # wrapper name -> (TPU kernel replaced, products, outputs)
     "dq": ("paddle_tpu/ops/pallas/flash_attention.py:359", 3, ("dq",)),
 }
 TRAIN_STEPS = 10
+# the device sleep before each timed launch (`time_ms`): ~0.2 ms at the
+# H100's ~1.98 GHz boost clock
+SLEEP_CYCLES = 400_000
 
 
 def fail(msg: str) -> None:
@@ -197,10 +243,20 @@ def kernel_inputs(torch, case, dtype, gen, quant=False):
     return (q, k_pages, v_pages, bt, seq_lens, q_offsets), scales
 
 
-def work_of(torch, case, dtype, quant=False):
+def paged_unit(case, dname):
+    """The unit K1/K2's products run on at ``case``: a key of
+    `PEAK_FLOPS`."""
+    if case["Q"] * case["Hq"] // case["Hkv"] < PAGED_TC_MIN_ROWS:
+        return "float32"  # the SIMT path: f32 on the CUDA cores
+    return "tf32x3" if dname == "float32" else "bfloat16"
+
+
+def work_of(torch, case, dtype, quant=False, unit=None):
     """Bytes the function must move (live K/V — int8 with quant, with one
     f32 scale per live page and head — q, out, indices once) and the
-    flops these inputs need (4 * D per visible (row, kv) pair)."""
+    flops these inputs need (4 * D per visible (row, kv) pair), the flops
+    at the rate of ``unit`` (default: the dtype's).  Returns ``(bound_ms,
+    bound_by)``."""
     item = torch.empty((), dtype=dtype).element_size()
     b, qn, hq, d = case["B"], case["Q"], case["Hq"], case["D"]
     hkv, page = case["Hkv"], case["page"]
@@ -216,7 +272,7 @@ def work_of(torch, case, dtype, quant=False):
                 for i in range(qn))
     flops = 4 * d * hq * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
+    t_ops = flops / PEAK_FLOPS[unit or str(dtype).split(".")[-1]]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -224,7 +280,11 @@ def work_of(torch, case, dtype, quant=False):
 def time_ms(torch, fn, reps=30, warm=3):
     """Median CUDA-event time of ``fn``; a 128 MB write before every
     timed launch evicts the 50 MB L2, as the serving path (which walks
-    every layer's pages in turn) finds it cold."""
+    every layer's pages in turn) finds it cold.  A ~0.2 ms device sleep
+    after the write keeps the card busy while the host enqueues ``fn``,
+    so the events time the device's work and not the host's (a Python
+    wrapper can take longer to enqueue a launch than the write takes to
+    run)."""
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     for _ in range(warm):
@@ -232,6 +292,7 @@ def time_ms(torch, fn, reps=30, warm=3):
     events = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -266,15 +327,15 @@ def read_counts():
 
 def kernel_phase(torch, quant=False):
     """K1 (or, with ``quant``, K2 over int8 pages) against the plain
-    version at the serving path's shapes, f32 and bf16, timed."""
+    version at the serving path's shapes, f32 and bf16, timed; two
+    launches of every case bitwise equal."""
     from paddle_tpu_torch.nn.functional.attention import \
         multi_query_causal_mask
-    from paddle_tpu_torch.ops.paged_attention import (
-        paged_attention_cuda, paged_attention_cuda_q,
-        paged_attention_reference)
+    from paddle_tpu_torch.ops import paged_attention as pa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     decode_lens = [0, 1, 63, 64, 65, 517, 1000, 1024]
+    long_lens = [1000, 1003, 1008, 1011, 1016, 1019, 1022, 1024]
     mixed_offs = [0, 37, 64, 200, 447, 0, 700, 960]
     mixed_caps = [64, 64, 64, 10, 64, 0, 1, 64]
     mixed_lens = [o + c for o, c in zip(mixed_offs, mixed_caps)]
@@ -290,10 +351,19 @@ def kernel_phase(torch, quant=False):
              seq_lens=decode_lens, q_offsets=[s - 1 for s in decode_lens]),
         dict(base, name="gqa_mixed", Q=64, Hq=32, Hkv=8, D=128,
              seq_lens=mixed_lens, q_offsets=mixed_offs),
+        # the mixed step over 16-position pages: a 64-position tile spans
+        # four pages
+        dict(base, name="mixed_p16", Q=64, Hq=12, Hkv=12, D=64, page=16,
+             pages_max=64, seq_lens=mixed_lens, q_offsets=mixed_offs),
+        # decode with every slot near the horizon, where split-KV matters
+        # most
+        dict(base, name="decode_long", Q=1, Hq=12, Hkv=12, D=64,
+             seq_lens=long_lens, q_offsets=[s - 1 for s in long_lens]),
     ]
     kname = "K2" if quant else "K1"
-    kernel = paged_attention_cuda_q if quant else paged_attention_cuda
+    kernel = pa.paged_attention_cuda_q if quant else pa.paged_attention_cuda
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = []
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -301,18 +371,20 @@ def kernel_phase(torch, quant=False):
             (q, kp, vp, bt, sl, qo), sc = kernel_inputs(torch, case, dtype,
                                                         gen, quant)
             out = kernel(q, kp, vp, bt, sl, qo, **sc)
-            ref = paged_attention_reference(q, kp, vp, bt, sl, q_offsets=qo,
-                                            **sc)
+            again = kernel(q, kp, vp, bt, sl, qo, **sc)
+            ref = pa.paged_attention_reference(q, kp, vp, bt, sl,
+                                               q_offsets=qo, **sc)
             torch.cuda.synchronize()
             if not torch.isfinite(out.float()).all():
                 fail(f"{kname} {case['name']} {dname}: non-finite output")
             err = (out.float() - ref.float()).abs().max().item()
+            bitwise = torch.equal(out, again)
             zero_rows = [i for i, s in enumerate(case["seq_lens"]) if s == 0]
             if zero_rows and out[zero_rows].abs().max().item() != 0.0:
                 fail(f"{kname} {case['name']} {dname}: seq_len 0 not exact "
                      f"zeros")
             ms = time_ms(torch, lambda: kernel(q, kp, vp, bt, sl, qo, **sc))
-            plain_ms = time_ms(torch, lambda: paged_attention_reference(
+            plain_ms = time_ms(torch, lambda: pa.paged_attention_reference(
                 q, kp, vp, bt, sl, q_offsets=qo, **sc))
             # library yardstick: SDPA over K/V (dequantized and) gathered
             # to dense [B, Hq, S, D] AHEAD of the timing (excluded)
@@ -333,23 +405,46 @@ def kernel_phase(torch, quant=False):
                                            kd.shape[2])[:, None]
             library_ms = time_ms(torch, lambda: sdpa(qd, kd, vd,
                                                      attn_mask=mask))
-            bound_ms, bound_by = work_of(torch, case, dtype, quant)
-            ok = err <= TOL[dname]
-            results.append(dict(case=case["name"], dtype=dname,
-                                shape=dict(B=case["B"], Q=case["Q"],
-                                           Hq=case["Hq"], Hkv=case["Hkv"],
-                                           D=case["D"], page=case["page"],
-                                           pages_max=case["pages_max"]),
-                                max_abs_err=err, tol=TOL[dname], ok=ok,
-                                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library_ms=library_ms))
-            print(f"kernel {kname} {case['name']:>10} {dname:>8}: max_abs_err "
-                  f"{err:.3g} (tol {TOL[dname]}) ms {ms:.4f} plain_ms "
+            unit = paged_unit(case, dname)
+            bound_ms, bound_by = work_of(torch, case, dtype, quant, unit)
+            row = dict(case=case["name"], dtype=dname,
+                       shape=dict(B=case["B"], Q=case["Q"], Hq=case["Hq"],
+                                  Hkv=case["Hkv"], D=case["D"],
+                                  page=case["page"],
+                                  pages_max=case["pages_max"]),
+                       max_abs_err=err, tol=TOL[dname], ok=err <= TOL[dname],
+                       bitwise_equal_launches=bitwise, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       bound_unit=unit, bound_share=bound_ms / ms,
+                       simple_design_ms=PAGED_SIMPLE_MS.get(
+                           (kname, case["name"], dname)))
+            if hasattr(pa, "split_plan"):
+                row["splits"], row["chunk"] = pa.split_plan(
+                    case["B"], case["Q"] * g, case["Hkv"],
+                    case["page"] * case["pages_max"], sms)
+            extra = ""
+            if unit == "tf32x3":  # the same work at the f32 CUDA-core rate
+                row["bound_ms_f32_cuda_cores"], _ = work_of(
+                    torch, case, dtype, quant, "float32")
+                extra = (f", {row['bound_ms_f32_cuda_cores']:.4f} at the "
+                         f"f32 CUDA-core rate")
+            results.append(row)
+            simple = row["simple_design_ms"]
+            print(f"kernel {kname} {case['name']:>11} {dname:>8}: "
+                  f"max_abs_err {err:.3g} (tol {TOL[dname]}) ms {ms:.4f} "
+                  f"(the simple design's earlier time "
+                  f"{'not measured' if simple is None else simple}) "
+                  f"plain_ms "
                   f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
-                  f"{bound_ms:.4f} ({bound_by})", flush=True)
-            if not ok:
+                  f"{bound_ms:.4f} ({bound_by}, {unit}{extra}; "
+                  f"{bound_ms / ms:.1%} of it) splits "
+                  f"{row.get('splits')} bitwise {bitwise}", flush=True)
+            if not row["ok"]:
                 fail(f"{kname} {case['name']} {dname}: max_abs_err {err} > "
                      f"{TOL[dname]}")
+            if not bitwise:
+                fail(f"{kname} {case['name']} {dname}: two launches differ")
     return results
 
 
@@ -628,10 +723,37 @@ def flash_build_report(_build):
                 if err:
                     fail(f"cudaFuncGetAttributes of flash {kern} {dname} "
                          f"D={d}: CUDA error {err}")
-                rows.append(dict(kernel=kern, dtype=dname, head_dim=d,
+                rows.append(dict(kernel=f"flash {kern}", dtype=dname,
+                                 head_dim=d,
                                  registers=attrs[0], local_bytes=attrs[1],
                                  static_smem_bytes=attrs[2],
                                  dynamic_smem_bytes=attrs[3]))
+    return rows
+
+
+PAGED_PATHS = ("simt_1row", "simt_8rows", "tensor_cores")
+
+
+def paged_build_report(_build):
+    """Registers, local (stack and spill) bytes and shared memory of every
+    K1/K2 kernel instantiation, as the CUDA runtime reports them."""
+    query = _build.load("paged_attention").paged_attention_kernel_attrs
+    query.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    rows = []
+    for quant, kern in ((0, "K1"), (1, "K2")):
+        for dtype, dname in enumerate(("float32", "bfloat16")):
+            for d in (64, 128):
+                for path, pname in enumerate(PAGED_PATHS):
+                    attrs = (ctypes.c_int * 4)()
+                    err = query(path, d, dtype, quant, attrs)
+                    if err:
+                        fail(f"cudaFuncGetAttributes of {kern} {pname} "
+                             f"{dname} D={d}: CUDA error {err}")
+                    rows.append(dict(kernel=f"{kern} {pname}", dtype=dname,
+                                     head_dim=d, registers=attrs[0],
+                                     local_bytes=attrs[1],
+                                     static_smem_bytes=attrs[2],
+                                     dynamic_smem_bytes=attrs[3]))
     return rows
 
 
@@ -1052,8 +1174,17 @@ def ln_train_phase(torch, train):
     return res
 
 
-def main() -> int:
+def main(argv) -> int:
+    """No arguments: every phase.  ``--kernels``: the card, the build of
+    K1/K2 and their kernel phase only, into chiprun_out/
+    chip_smoke_kernels.json (a quick way to time K1/K2 of any checkout:
+    copy this script into its root and run it there)."""
     import torch
+
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1072,21 +1203,30 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    libs = _build.build_all(["paged_attention"] if kernels_only else None)
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
           f" in {build_s:.1f} s", flush=True)
-    flash_build = flash_build_report(_build)
-    for r in flash_build:
-        print(f"build: flash {r['kernel']:>3} {r['dtype']:>8} "
+    if kernels_only:
+        res = dict(card=card, K1=kernel_phase(torch),
+                   K2=kernel_phase(torch, quant=True))
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_kernels.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    builds = flash_build_report(_build) + paged_build_report(_build)
+    for r in builds:
+        print(f"build: {r['kernel']:>15} {r['dtype']:>8} "
               f"D={r['head_dim']:<3}: {r['registers']} registers, "
               f"{r['local_bytes']} local bytes (stack and spills), shared "
               f"memory {r['static_smem_bytes']} static + "
               f"{r['dynamic_smem_bytes']} dynamic bytes", flush=True)
-    spilled = [f"{r['kernel']} {r['dtype']}" for r in flash_build
+    spilled = [f"{r['kernel']} {r['dtype']}" for r in builds
                if r["head_dim"] == 64 and r["local_bytes"] > 0]
     if spilled:
-        fail(f"flash kernels at head_dim 64 use local memory: {spilled}")
+        fail(f"kernels at head_dim 64 use local memory: {spilled}")
 
     # 3. K1 and K2 against their plain version
     cases = kernel_phase(torch)
@@ -1122,6 +1262,7 @@ def main() -> int:
         main_cases = [c for c in kcases if c["dtype"] == "float32"
                       and c["case"] in ("decode", "mixed")]
         head = next(c for c in main_cases if c["case"] == "decode")
+        mixed = next(c for c in main_cases if c["case"] == "mixed")
         kernels.append(dict(
             name=name, route="cuda", source=K1_SOURCE, replaces=replaces,
             launches=n,
@@ -1130,6 +1271,11 @@ def main() -> int:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"],
             timed_case="decode float32 B=8 Q=1 Hq=Hkv=12 D=64 page=64",
+            mixed_ms=mixed["ms"], mixed_bound_ms=mixed["bound_ms"],
+            mixed_bound_by=mixed["bound_by"],
+            mixed_bound_unit=mixed["bound_unit"],
+            mixed_library_ms=mixed["library_ms"],
+            mixed_case="mixed float32 B=8 Q=64 Hq=Hkv=12 D=64 page=64",
             library_call=library, cases=kcases))
     # K3/K4 at the train path's own shape and dtype (bf16 under AMP)
     train_case = next(c for c in flash_cases if c["case"] == "train"
@@ -1162,7 +1308,7 @@ def main() -> int:
         timed_case=f"train {path_dtype} [16384, 768]",
         plain_call="ops.layer_norm.layer_norm",
         library_call="torch.nn.functional.layer_norm", cases=ln_cases))
-    result = dict(card=card, build_s=build_s, flash_build=flash_build,
+    result = dict(card=card, build_s=build_s, kernel_build=builds,
                   kernels=kernels, serve=serve,
                   serve_quant=serve_q, train=train, train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
@@ -1181,4 +1327,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -431,7 +431,7 @@ def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
         r, scales = _write_kv(k_pages, v_pages, k_scales, v_scales, li, rows,
                               qkv[:, 1], qkv[:, 2])
         refolds = r if refolds is None else refolds + r
-        attn = pa.paged_attention(qkv[:, 0].contiguous(), k_pages[li],
+        attn = pa.paged_attention(qkv[:, 0], k_pages[li],
                                   v_pages[li], block_tables, lens_now,
                                   **scales)
         x = _block_tail(x, blk, attn.reshape(b, h), eps)
@@ -486,7 +486,7 @@ def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
             qkv[:, :, 1].reshape(b * qn, num_heads, head_dim),
             qkv[:, :, 2].reshape(b * qn, num_heads, head_dim))
         refolds = r if refolds is None else refolds + r
-        attn = pa.paged_attention(qkv[:, :, 0].contiguous(), k_pages[li],
+        attn = pa.paged_attention(qkv[:, :, 0], k_pages[li],
                                   v_pages[li], block_tables, lens_now,
                                   q_offsets=seq_lens, **scales)
         x = _block_tail(x, blk, attn.reshape(b, qn, h), eps)

@@ -23,6 +23,7 @@ rows (and dropped span pages) out explicitly, once per step.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,7 +36,7 @@ __all__ = ["pick_page_size", "default_page_size", "paged_write_indices",
            "paged_write_rows", "paged_write", "paged_write_spans",
            "paged_quant_write_rows", "paged_quant_write",
            "paged_attention_reference", "paged_attention",
-           "paged_attention_cuda", "paged_attention_cuda_q"]
+           "paged_attention_cuda", "paged_attention_cuda_q", "split_plan"]
 
 _MIN_PAGE_SIZE = 16
 _DEFAULT_PAGE_SIZE = 64
@@ -247,11 +248,54 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
     return out[:, 0] if squeeze else out
 
 
+# The kernels' geometry (csrc/paged_attention.cu): rows of a block on each
+# path, KV positions of a split's chunk unit, and the blocks a launch aims
+# for per SM.  The split count depends on host-known sizes only, so a step
+# never waits for the device to choose it.
+_TC_MIN_ROWS = 16
+_TC_ROWS = 64
+_SIMT_ROWS = 8
+_CHUNK_UNIT = 64
+_MAX_SPLITS = 16
+_BLOCKS_PER_SM = 8
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(batch: int, rows: int, hkv: int, horizon: int,
+               sm_count: int):
+    """``(splits, chunk)`` of a launch over ``rows = q_len * group`` query
+    rows a sequence and ``horizon = pages_max * page`` positions: the KV
+    range is cut into ``splits`` chunks of ``chunk`` positions (a multiple
+    of 64), as many as it takes to give the card about
+    ``_BLOCKS_PER_SM`` blocks an SM, and no more than the range has
+    64-position units, nor more than ``_MAX_SPLITS``."""
+    if rows >= _TC_MIN_ROWS:
+        row_tiles = -(-rows // _TC_ROWS)
+    else:
+        row_tiles = 1 if rows == 1 else -(-rows // _SIMT_ROWS)
+    units = max(1, -(-horizon // _CHUNK_UNIT))
+    want = -(-_BLOCKS_PER_SM * sm_count // max(1, batch * hkv * row_tiles))
+    splits = min(max(want, 1), units, _MAX_SPLITS)
+    per = -(-units // splits)
+    return -(-units // per), per * _CHUNK_UNIT
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 class _PagedAttentionCuda:
     """ctypes wrapper of kernel K1 (``quant=False``: f32/bf16 pages) or K2
     (``quant=True``: int8 pages with per-page, per-head f32 scales).
     ``launches`` counts the kernel launches this process made; it grows
-    by one per launch and nowhere else."""
+    by one per launch and nowhere else.
+
+    A launch that splits the KV range gets an f32 workspace for the
+    partials from the caching allocator and a zeroed int32 counter per
+    (sequence, KV head, row tile), kept here per device, which the
+    kernel leaves zero; launches on one device share the counters, so
+    they run on one stream at a time."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
     _HEAD_DIMS = (64, 128)
@@ -261,22 +305,34 @@ class _PagedAttentionCuda:
         self._symbol = symbol
         self._quant = quant
         self._fn = None
+        self._counters = {}
 
     def _kernel(self):
         if self._fn is None:
             fn = getattr(_build.load("paged_attention"), self._symbol)
-            fn.argtypes = ([ctypes.c_void_p] * (9 if self._quant else 7)
+            fn.argtypes = ([ctypes.c_void_p] * (11 if self._quant else 9)
                            + [ctypes.c_int] * 8
+                           + [ctypes.c_longlong] * 3
+                           + [ctypes.c_int] * 2
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
+    def _counters_for(self, device, n: int):
+        have = self._counters.get(device)
+        if have is None or have.numel() < n:
+            have = self._counters[device] = torch.zeros(
+                max(n, 1024), dtype=torch.int32, device=device)
+        return have
+
     def __call__(self, q, k_pages, v_pages, block_tables, seq_lens,
                  q_offsets, scale=None, k_scales=None, v_scales=None):
-        """q: [B, Q, Hq, D]; the other arguments as for
+        """q: [B, Q, Hq, D], its last dim contiguous and its other strides
+        multiples of 16 bytes; the other arguments as for
         `paged_attention`, with ``q_offsets`` given, and the scales with
-        K2 only.  Raises on any input the kernel does not take."""
+        K2 only.  Returns a dense [B, Q, Hq, D].  Raises on any input the
+        kernel does not take."""
         if q.dim() != 4:
             raise ValueError(f"kernel takes q as [B, Q, Hq, D], got rank "
                              f"{q.dim()}")
@@ -289,12 +345,17 @@ class _PagedAttentionCuda:
         if d not in self._HEAD_DIMS:
             raise ValueError(f"kernel takes head_dim in {self._HEAD_DIMS}, "
                              f"got {d}")
+        if hq % hkv:
+            raise ValueError(f"query heads {hq} not a multiple of kv heads "
+                             f"{hkv}")
         kv_dtype = torch.int8 if self._quant else q.dtype
         for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
             if t.dtype != kv_dtype or tuple(t.shape) != (hkv, num_pages,
                                                          page, d):
                 raise ValueError(f"{name} must be {kv_dtype} "
                                  f"[{hkv}, {num_pages}, {page}, {d}]")
+        if hkv * num_pages * page >= 2 ** 31:
+            raise ValueError("kernel takes pools of fewer than 2**31 rows")
         checks = [("block_tables", block_tables, torch.int32, (b, pages_max)),
                   ("seq_lens", seq_lens, torch.int32, (b,)),
                   ("q_offsets", q_offsets, torch.int32, (b,))]
@@ -309,30 +370,54 @@ class _PagedAttentionCuda:
         for name, t, dtype, shape in checks:
             if t is None or t.dtype != dtype or tuple(t.shape) != shape:
                 raise ValueError(f"{name} must be {dtype} {list(shape)}")
-        tensors = (q, k_pages, v_pages, block_tables, seq_lens, q_offsets,
-                   *scales)
-        for t in tensors:
-            if t.device != q.device or t.device.type != "cuda":
-                raise ValueError("kernel inputs must all lie on one CUDA "
-                                 "device")
-            if not t.is_contiguous():
-                raise ValueError("kernel inputs must be contiguous")
+        dev = q.device
+        others = (k_pages, v_pages, block_tables, seq_lens, q_offsets,
+                  *scales)
+        if dev.type != "cuda" or any(t.device != dev for t in others):
+            raise ValueError("kernel inputs must all lie on one CUDA "
+                             "device")
+        if not all(t.is_contiguous() for t in others):
+            raise ValueError("kernel inputs other than q must be "
+                             "contiguous")
+        # a dim of size 1 is never stepped along: its stride is moot
+        strides = [q.stride(i) if q.shape[i] > 1 else 0 for i in range(3)]
+        if q.stride(3) != 1 or any(st % (16 // q.element_size())
+                                   for st in strides):
+            raise ValueError("q's last dim must be contiguous and its other "
+                             "strides multiples of 16 bytes")
         for t in (q, k_pages, v_pages):
             if t.data_ptr() % 16:
                 raise ValueError("q and pages must be 16-byte aligned")
-        out = torch.empty_like(q)
+        out = torch.empty((b, qn, hq, d), dtype=q.dtype, device=dev)
         if b == 0 or qn == 0:
             return out
         s = scale if scale is not None else 1.0 / math.sqrt(d)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = self._kernel()(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                *(t.data_ptr() for t in scales),
-                block_tables.data_ptr(), seq_lens.data_ptr(),
-                q_offsets.data_ptr(), out.data_ptr(), b, qn, hq, hkv, d,
-                num_pages, page, pages_max, float(s),
-                self._DTYPES[q.dtype], stream)
+        index = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        rows = qn * (hq // hkv)
+        splits, chunk = split_plan(b, rows, hkv, pages_max * page,
+                                   _sm_count(index))
+        ws = counters = None  # the workspace lives until the launch
+        if splits > 1:
+            counters = self._counters_for(
+                dev, b * hkv * -(-rows // _SIMT_ROWS)).data_ptr()
+            ws = torch.empty(b * hkv * splits * rows * (d + 2),
+                             dtype=torch.float32, device=dev)
+        args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                *(t.data_ptr() for t in scales), block_tables.data_ptr(),
+                seq_lens.data_ptr(), q_offsets.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), counters,
+                b, qn, hq, hkv, d, num_pages, page, pages_max,
+                *strides, splits, chunk, float(s), self._DTYPES[q.dtype])
+        # the launch goes to the current device: switch only when q is
+        # elsewhere (the switch costs host time on every call)
+        if index == torch.cuda.current_device():
+            err = self._kernel()(*args,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+        else:
+            with torch.cuda.device(dev):
+                err = self._kernel()(
+                    *args, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self._symbol} kernel launch failed: "
                                f"cudaError {err}")

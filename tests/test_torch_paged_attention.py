@@ -216,31 +216,66 @@ def test_masked_scatter_drops_capped_rows_like_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _strided(q):
+    """q as a view with the serving steps' strides: the q slice of a
+    fused [B, Q, 3, Hq, D] qkv."""
+    big = torch.zeros(q.shape[0], q.shape[1], 3, *q.shape[2:],
+                      dtype=q.dtype, device=q.device)
+    big[:, :, 0] = q
+    return big[:, :, 0]
+
+
+# (head_dim, Hq, Hkv, Q, page, pages_max, seq_lens) of the kernel cases:
+# both paths (SIMT below Q * group = 16, tensor cores from it, just below
+# and at the threshold at head_dim 64 and 128), one split and several,
+# pages of 16, 32 and 64 (a 64-position tile spans several pages), a
+# zero-length slot in every case, seq_lens at and past the block table's
+# reach (pages_max * page)
+_KERNEL_CASES = [
+    (64, 12, 12, 1, 16, 8, (37, 0, 128)),
+    (64, 12, 12, 7, 16, 8, (37, 0, 128)),
+    (128, 32, 8, 1, 16, 8, (37, 0, 128)),
+    (128, 8, 2, 9, 16, 8, (37, 0, 128)),
+    (64, 12, 12, 1, 16, 5, (37, 0, 120)),
+    (64, 12, 12, 7, 16, 5, (37, 0, 120)),
+    (64, 12, 12, 15, 32, 8, (200, 0, 256)),
+    (64, 12, 12, 16, 32, 8, (200, 0, 256)),
+    (128, 15, 1, 1, 64, 4, (100, 0, 300)),
+    (128, 16, 1, 1, 64, 4, (100, 0, 256)),
+    (128, 4, 2, 8, 32, 8, (90, 0, 256)),
+    (64, 12, 12, 64, 64, 16, (700, 0, 1024)),
+    (64, 12, 12, 1, 16, 4, (60, 0, 64)),
+    (64, 12, 12, 16, 16, 4, (60, 0, 64)),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_kernel_matches_reference(cuda_device, dtype, tol):
-    """K1 on the card against the plain version (GQA, ragged lengths, a
-    zero-length slot, multi-query with offsets, head_dim 64 and 128, and
-    a seq_len past the block table's reach of 5 * 16 = 80 positions, which
-    is no multiple of K1's 32-position tile)."""
-    for seed, (d, hq, hkv, qn, pages_max, lens) in enumerate([
-            (64, 12, 12, 1, 8, (37, 0, 128)),
-            (64, 12, 12, 7, 8, (37, 0, 128)),
-            (128, 32, 8, 1, 8, (37, 0, 128)),
-            (128, 8, 2, 9, 8, (37, 0, 128)),
-            (64, 12, 12, 1, 5, (37, 0, 120)),
-            (64, 12, 12, 7, 5, (37, 0, 120))]):
-        arrays = _paged_inputs(seed, b=3, hq=hq, hkv=hkv, d=d, page=16,
+    """K1 on the card against the plain version over `_KERNEL_CASES`
+    (GQA, ragged lengths, a zero-length slot giving exact zeros,
+    multi-query with offsets, head_dim 64 and 128, both paths, one split
+    and several, pages of 16 to 64, seq_lens past the block table's
+    reach); q strided as the serving steps pass it in every other case;
+    two launches bitwise equal."""
+    for seed, (d, hq, hkv, qn, page, pages_max, lens) in enumerate(
+            _KERNEL_CASES):
+        arrays = _paged_inputs(seed, b=3, hq=hq, hkv=hkv, d=d, page=page,
                                pages_max=pages_max, lens=lens, qn=qn)
         tq, tkp, tvp, tbt, tlens = [t.to(cuda_device)
                                     for t in _torch(arrays, dtype)]
+        if seed % 2:
+            tq = _strided(tq)
         offs = tlens - qn
         before = TPA.paged_attention_cuda.launches
         out = TPA.paged_attention(tq, tkp, tvp, tbt, tlens, q_offsets=offs)
+        again = TPA.paged_attention(tq, tkp, tvp, tbt, tlens, q_offsets=offs)
         ref = TPA.paged_attention_reference(tq, tkp, tvp, tbt, tlens,
                                             q_offsets=offs)
         torch.cuda.synchronize()
-        assert TPA.paged_attention_cuda.launches == before + 1
-        assert float((out.float() - ref.float()).abs().max()) <= tol
+        assert TPA.paged_attention_cuda.launches == before + 2
+        err = float((out.float() - ref.float()).abs().max())
+        assert err <= tol, (seed, err)
         assert float(out[1].abs().max()) == 0.0
+        assert torch.equal(out, again), seed

@@ -556,15 +556,25 @@ def test_quant_steps_pack_the_refold_count(mixed):
 def test_cuda_k2_matches_reference(cuda_device, dtype, tol):
     """K2 on the card against the plain version (K1's tolerances: both
     attend over bit-identical dequantized operands): head_dim 64 and
-    128, GQA, multi-query with offsets, a zero-length slot, and pages of
-    16 and 4 positions (a 32-position tile then spans several pages)."""
+    128, GQA, multi-query with offsets, a zero-length slot, pages of 4 to
+    64 positions (a tile then spans several pages), both paths, one split
+    and several; two launches bitwise equal."""
     for seed, (d, hq, hkv, qn, page, pages_max, lens) in enumerate([
             (64, 12, 12, 1, 16, 8, (37, 0, 128)),
             (64, 12, 12, 7, 16, 8, (37, 0, 128)),
             (128, 32, 8, 1, 16, 8, (37, 0, 128)),
             (128, 8, 2, 9, 16, 8, (37, 0, 128)),
             (64, 12, 12, 5, 4, 32, (37, 0, 128)),
-            (64, 12, 12, 1, 16, 5, (37, 0, 120))]):
+            (64, 12, 12, 1, 16, 5, (37, 0, 120)),
+            # both paths at the threshold (Q * group 15 and 16), pages of
+            # 32 and 64, one split and several, seq_lens at and past the
+            # block table's reach
+            (64, 12, 12, 15, 32, 8, (200, 0, 256)),
+            (64, 12, 12, 16, 32, 8, (200, 0, 300)),
+            (128, 15, 1, 1, 64, 4, (100, 0, 256)),
+            (128, 16, 1, 1, 64, 4, (100, 0, 300)),
+            (64, 12, 12, 64, 64, 16, (700, 0, 1024)),
+            (64, 12, 12, 16, 16, 4, (60, 0, 64))]):
         arrays = _quant_inputs(seed, b=3, hq=hq, hkv=hkv, d=d, page=page,
                                pages_max=pages_max, lens=lens, qn=qn)
         q, kp, vp, bt, lens_t, ks, vs = [
@@ -574,10 +584,14 @@ def test_cuda_k2_matches_reference(cuda_device, dtype, tol):
         before = TPA.paged_attention_cuda_q.launches
         out = TPA.paged_attention(q, kp, vp, bt, lens_t, q_offsets=offs,
                                   k_scales=ks, v_scales=vs)
+        again = TPA.paged_attention(q, kp, vp, bt, lens_t, q_offsets=offs,
+                                    k_scales=ks, v_scales=vs)
         ref = TPA.paged_attention_reference(q, kp, vp, bt, lens_t,
                                             q_offsets=offs, k_scales=ks,
                                             v_scales=vs)
         torch.cuda.synchronize()
-        assert TPA.paged_attention_cuda_q.launches == before + 1
-        assert float((out.float() - ref.float()).abs().max()) <= tol
+        assert TPA.paged_attention_cuda_q.launches == before + 2
+        err = float((out.float() - ref.float()).abs().max())
+        assert err <= tol, (seed, err)
+        assert torch.equal(out, again), seed
         assert float(out[1].abs().max()) == 0.0
