@@ -18,8 +18,11 @@ Phases, in order; any failure exits non-zero:
    over int8 pages, made by `paged_quant_write` from random f32 K/V)
    against their plain PyTorch version on the card, f32 and bf16, at
    the serving path's decode and mixed-step shapes, at GQA shapes, at
-   the mixed step over 16-position pages and at a decode with every
-   slot near the horizon; check that two launches give bitwise-equal
+   the mixed step over 16-position pages, at a decode with every slot
+   near the horizon, at the speculative verify windows of K=4 and K=8 (5
+   and 9 query rows a sequence, from offsets 0 to the horizon, write caps
+   0 to K+1) and at the ragged step's steady state (64 rows a sequence,
+   one live); check that two launches give bitwise-equal
    outputs; time each kernel (beside the simple design's earlier time,
    `PAGED_SIMPLE_MS`), the plain version and one PyTorch library call, and
    give the bound with the unit it assumes (`paged_unit`) and its share;
@@ -36,7 +39,23 @@ Phases, in order; any failure exits non-zero:
    recorded steps against the plain version; then the int8 pools of one
    short request on the card against the CPU engine's (scales and
    payloads within `POOL_TOL`) and the greedy tokens (printed);
-6. flash  — hold kernels K3 (flash-attention forward) and K4 (its
+6. ragged — the serves of 4 and 5 with ``ragged_step=True``: every step
+   one unified ragged step, K1 (K2) launched num_layers x steps; a
+   recorded chunk-carrying step and a steady-state ragged step (every
+   slot one live row) against the plain version; one short request's
+   greedy tokens against the CPU's split engine (f32), the int8 pools
+   against the CPU's (int8);
+7. spec   — the serve of 4 with ``spec_decode_k=4``: prompt lookup on the
+   ragged and the split path, GPT-2-small as its own draft model (split;
+   acceptance at least 0.9) and a ``draft_config()`` draft with random
+   weights (ragged; acceptance printed); K1 launched exactly num_layers x
+   (mixed steps + verify rounds) + draft layers x draft steps; a recorded
+   verify step against the plain version; one short request's greedy
+   tokens, split and ragged spec engines against the CPU's non-spec
+   engine.  Every serve of 4-7 runs 3 times: tokens/s of each run and
+   their spread, acceptance and tokens equal to the f32 split serve's are
+   printed, not gated;
+8. flash  — hold kernels K3 (flash-attention forward) and K4 (its
    backward: dkv and dq) against their plain versions on the card at
    the train path's shape (B=16, H=12, S=1024, D=64, causal; f32 and
    bf16), non-causal, at a ragged S=1000, and at B=2, H=16, S=2048,
@@ -44,7 +63,7 @@ Phases, in order; any failure exits non-zero:
    of its bound), the plain versions and PyTorch's
    ``scaled_dot_product_attention`` forward and backward; check that two
    backward launches on the train case give bitwise-equal dq, dk and dv;
-7. train  — train GPT-2-small at full width with ``bench.py``'s bf16
+9. train  — train GPT-2-small at full width with ``bench.py``'s bf16
    AdamW `jit.TrainStep` (batch 16 x 1024): 2 warm-up and 10 timed
    steps; check finite, falling losses that start near ln(vocab) and
    that every step's attention went through K3 and K4; hold one layer's
@@ -52,13 +71,13 @@ Phases, in order; any failure exits non-zero:
    versions; then train a small GPT (D=64) 3 steps on the card and on
    the CPU from the same weights, in f32 and under bf16 AMP, and hold
    losses and parameters against each other;
-8. ln     — hold kernel K5 (row LayerNorm forward) against its plain
+10. ln    — hold kernel K5 (row LayerNorm forward) against its plain
    version at [16384, 768] and [4096, 4096], f32 and bf16, timed with
    the plain version and ``torch.nn.functional.layer_norm``;
-9. ln train — the train of 7 with ``FLAGS_use_pallas_layernorm`` on: 2
+11. ln train — the train of 9 with ``FLAGS_use_pallas_layernorm`` on: 2
    warm-up and 3 timed steps; K5 launched once per LayerNorm module (25)
-   per step, K3/K4 12 times; the first loss against 7's;
-10. report — one JSON line of kernels, the card line, and the last line
+   per step, K3/K4 12 times; the first loss against 9's;
+12. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -339,6 +358,12 @@ def kernel_phase(torch, quant=False):
     mixed_offs = [0, 37, 64, 200, 447, 0, 700, 960]
     mixed_caps = [64, 64, 64, 10, 64, 0, 1, 64]
     mixed_lens = [o + c for o, c in zip(mixed_offs, mixed_caps)]
+    # verify windows: K+1 rows written from offsets 0, 63, 64 ... up to the
+    # horizon, caps 0 (a slot still prefilling), 1 and the whole window
+    verify_offs = [0, 63, 64, 200, 517, 1000, 1019, 1023]
+    verify_caps = {5: [5, 5, 1, 0, 5, 3, 5, 1], 9: [9, 9, 1, 0, 9, 3, 5, 1]}
+    # the ragged steady state: every slot one live row of Q_r = 64
+    ragged_lens = [1, 2, 64, 65, 66, 518, 1001, 1024]
     base = dict(B=8, page=64, pages_max=16)
     cases = [
         # the serving path's two shapes (GPT-2-small, 8 slots, 64-token
@@ -359,6 +384,17 @@ def kernel_phase(torch, quant=False):
         # most
         dict(base, name="decode_long", Q=1, Hq=12, Hkv=12, D=64,
              seq_lens=long_lens, q_offsets=[s - 1 for s in long_lens]),
+        # the speculative verify step at K=4 (5 rows a KV head: one SIMT
+        # row tile) and K=8 (9 rows: two row tiles, each combined)
+        dict(base, name="verify", Q=5, Hq=12, Hkv=12, D=64,
+             seq_lens=[o + c for o, c in zip(verify_offs, verify_caps[5])],
+             q_offsets=verify_offs),
+        dict(base, name="verify_k8", Q=9, Hq=12, Hkv=12, D=64,
+             seq_lens=[o + c for o, c in zip(verify_offs, verify_caps[9])],
+             q_offsets=verify_offs),
+        # the ragged step with every slot decoding: the tensor-core path
+        dict(base, name="ragged_decode", Q=64, Hq=12, Hkv=12, D=64,
+             seq_lens=ragged_lens, q_offsets=[s - 1 for s in ragged_lens]),
     ]
     kname = "K2" if quant else "K1"
     kernel = pa.paged_attention_cuda_q if quant else pa.paged_attention_cuda
@@ -449,24 +485,36 @@ def kernel_phase(torch, quant=False):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve GPT-2-small
+# phases 4-5: serve GPT-2-small, in f32 and quantized
 # ---------------------------------------------------------------------------
 class AttentionRecorder:
-    """Records the inputs and output of the first mixed-step call (q of
-    rank 4) and the first decode-step call (rank 3) of the serving
-    path's attention, passing every call through unchanged."""
+    """Records the inputs and output of the first call of each kind the
+    serving path's attention makes, passing every call through unchanged:
+    "decode" (q of rank 3), "verify" (a speculative window of
+    ``spec_k + 1`` rows on the split path), "ragged" (a ragged step whose
+    slots write one row or none) and "mixed" (any other multi-row step)."""
 
-    def __init__(self, module):
+    def __init__(self, module, spec_k=None):
         self.module = module
         self.inner = module.paged_attention
+        self.spec_k = spec_k
         self.calls = {}
+
+    def kind(self, q, seq_lens, q_offsets):
+        if q.dim() == 3:
+            return "decode"
+        if self.spec_k is not None and q.shape[1] == self.spec_k + 1:
+            return "verify"
+        if int((seq_lens - q_offsets).max()) <= 1:
+            return "ragged"
+        return "mixed"
 
     def __call__(self, q, k_pages, v_pages, block_tables, seq_lens,
                  scale=None, q_offsets=None, k_scales=None, v_scales=None):
         out = self.inner(q, k_pages, v_pages, block_tables, seq_lens,
                          scale=scale, q_offsets=q_offsets, k_scales=k_scales,
                          v_scales=v_scales)
-        kind = "mixed" if q.dim() == 4 else "decode"
+        kind = self.kind(q, seq_lens, q_offsets)
         if kind not in self.calls:
             self.calls[kind] = dict(
                 args=[t.clone() for t in (q, k_pages, v_pages,
@@ -487,22 +535,35 @@ class AttentionRecorder:
         self.module.paged_attention = self.inner
 
 
-def drive_serve(torch, new_engine, prompts, cfg, label):
-    """Serve ``prompts`` on a fresh engine with every count set to 0 just
-    before; check that every request finished by length with tokens in
-    the vocabulary, that the pool drained and that the prefix cache hit.
-    Returns ``(engine, stats, counts, summary)``."""
+SERVE_RUNS = 3  # timed serves of each configuration, for the spread
+
+
+def serve_once(torch, new_engine, prompts):
+    """One serve of ``prompts`` on a fresh engine: ``(engine, requests,
+    wall seconds)``."""
     from paddle_tpu_torch.tools import serve_profile
 
     eng = new_engine()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
     t0 = time.perf_counter()
     reqs = [eng.add_request(p, max_new_tokens=serve_profile.NEW_TOKENS)
             for p in prompts]
     eng.run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return eng, reqs, time.perf_counter() - t0
+
+
+def drive_serve(torch, new_engine, prompts, cfg, label):
+    """Serve ``prompts`` on a fresh engine with every count set to 0 just
+    before; check that every request finished by length with tokens in
+    the vocabulary, that the pool drained and that the prefix cache hit;
+    then serve them `SERVE_RUNS` - 1 more times for the spread of
+    tokens/s.  Returns ``(engine, stats, counts, summary)``; the summary
+    keeps each request's tokens under ``tokens`` (not printed)."""
+    from paddle_tpu_torch.tools import serve_profile
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    eng, reqs, wall = serve_once(torch, new_engine, prompts)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     st = eng.decode_stats()
@@ -520,33 +581,63 @@ def drive_serve(torch, new_engine, prompts, cfg, label):
              f"{eng.pool.num_pages} pages available")
     if st["prefix_hits"] <= 0:
         fail(f"{label}: no prefix-cache hit")
-    decode_steps = st["steps"] - st["mixed_steps"]
+    rates = [st["tokens"] / wall] + [
+        st["tokens"] / serve_once(torch, new_engine, prompts)[2]
+        for _ in range(SERVE_RUNS - 1)]
+    spec = st["spec_steps"] > 0
+    decode_steps = 0 if spec else st["steps"] - st["mixed_steps"]
     summary = dict(
         requests=len(reqs), prompt_tokens=sum(len(p) for p in prompts),
         new_tokens=st["tokens"], wall_s=wall,
-        tokens_per_s=st["tokens"] / wall, steps=st["steps"],
-        mixed_steps=st["mixed_steps"], decode_steps=decode_steps,
+        tokens_per_s=st["tokens"] / wall, tokens_per_s_runs=rates,
+        tokens_per_s_median=statistics.median(rates),
+        tokens_per_s_spread=(max(rates) - min(rates))
+        / statistics.median(rates),
+        steps=st["steps"], mixed_steps=st["mixed_steps"],
+        decode_steps=decode_steps, ragged_steps=st["ragged_steps"],
         mean_mixed_step_ms=st["mixed_step_s"] / st["mixed_steps"] * 1e3,
         mean_decode_step_ms=(st["decode_step_s"] / decode_steps * 1e3
                              if decode_steps else None),
         prefix_hits=st["prefix_hits"], launches=counts,
         peak_memory_bytes=peak)
+    if spec:
+        summary.update(
+            {k: st[k] for k in ("spec_steps", "spec_proposed",
+                                "spec_accepted", "spec_emitted",
+                                "acceptance_rate",
+                                "mean_accepted_per_step", "draft_time_s",
+                                "verify_time_s")},
+            mean_round_ms=(st["draft_time_s"] + st["verify_time_s"])
+            / st["spec_steps"] * 1e3)
+    summary["tokens"] = [r.generated_ids for r in reqs]
     return eng, st, counts, summary
 
 
-def check_recorded_steps(torch, model, prompts, label, **engine_kw):
-    """The attention outputs of one real mixed step and one real decode
-    step, recorded on the path, against the plain version on the same
-    inputs (a check, not a route the engine can take)."""
+def printable(summary):
+    return json.dumps({k: v for k, v in summary.items() if k != "tokens"})
+
+
+def token_share(a, b):
+    """The share of positions where two serves' tokens are equal."""
+    pairs = [(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def check_recorded_steps(torch, model, prompts, label,
+                         kinds=("mixed", "decode"), max_new=3,
+                         **engine_kw):
+    """The attention outputs of one real step of each of ``kinds``,
+    recorded on the path, against the plain version on the same inputs
+    (a check, not a route the engine can take)."""
     from paddle_tpu_torch.inference.serving import DecodeEngine
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    with AttentionRecorder(pa) as rec:
+    with AttentionRecorder(pa, engine_kw.get("spec_decode_k")) as rec:
         DecodeEngine(model, max_batch_size=2, page_size=64,
                      **engine_kw).generate(
-            [prompts[0][:100], prompts[2][:150]], max_new_tokens=3)
+            [prompts[0][:100], prompts[2][:150]], max_new_tokens=max_new)
     checks = {}
-    for kind in ("mixed", "decode"):
+    for kind in kinds:
         if kind not in rec.calls:
             fail(f"{label}: no {kind} step recorded")
         call = rec.calls[kind]
@@ -561,8 +652,25 @@ def check_recorded_steps(torch, model, prompts, label, **engine_kw):
     return checks
 
 
-def serve_phase(torch):
+def greedy_card_vs_cpu(model, cpu_model, prompt, label, card_kw):
+    """Greedy tokens of one short request (8 new) on an engine on the card
+    (``card_kw`` added) against the CPU's default engine (the plain
+    version), same weights."""
     from paddle_tpu_torch.inference.serving import DecodeEngine
+
+    kw = dict(max_batch_size=1, max_seq_len=128, page_size=64)
+    gpu = DecodeEngine(model, **kw, **card_kw).generate([prompt], 8)[0]
+    cpu = DecodeEngine(cpu_model, device="cpu", **kw).generate([prompt],
+                                                               8)[0]
+    print(f"{label} greedy tokens, card vs CPU engine: {gpu} / {cpu}",
+          flush=True)
+    if gpu != cpu:
+        fail(f"{label}: greedy tokens of the card's engine differ from the "
+             f"CPU's")
+    return gpu
+
+
+def serve_phase(torch):
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.tools import serve_profile
 
@@ -577,23 +685,14 @@ def serve_phase(torch):
     if launches <= 0 or launches != cfg.num_layers * st["steps"]:
         fail(f"K1 launches {launches} != num_layers x steps "
              f"({cfg.num_layers} x {st['steps']})")
-    print("serve: " + json.dumps(serve), flush=True)
+    print("serve: " + printable(serve), flush=True)
     checks = check_recorded_steps(torch, model, prompts, "serve")
 
     # end to end on a small input: greedy tokens of the card's engine
     # (K1) against the CPU engine (the plain version) on the same weights
     cpu_model = GPT.random(cfg, seed=serve_profile.SEED,
                            device="cpu")  # the same weights
-    prompt = prompts[1][:64]
-    gpu_toks = DecodeEngine(model, max_batch_size=1, max_seq_len=128,
-                            page_size=64).generate([prompt], 8)[0]
-    cpu_toks = DecodeEngine(cpu_model, max_batch_size=1, max_seq_len=128,
-                            page_size=64, device="cpu").generate([prompt],
-                                                                 8)[0]
-    print(f"greedy tokens, card vs CPU engine: {gpu_toks} / {cpu_toks}",
-          flush=True)
-    if gpu_toks != cpu_toks:
-        fail("greedy tokens of the card's engine differ from the CPU's")
+    greedy_card_vs_cpu(model, cpu_model, prompts[1][:64], "serve", {})
     serve["step_attention_max_abs_err"] = checks
     serve["greedy_tokens_match_cpu"] = True
     return serve, launches
@@ -630,9 +729,9 @@ def serve_quant_phase(torch, f32_serve):
                                      "weight_quant_bytes_saved")})
     serve["kv_bytes_per_token"] = eng._kv_byte_occupancy()["bytes_per_token"]
     serve["vs_f32"] = {k: serve[k] / f32_serve[k] for k in (
-        "tokens_per_s", "mean_mixed_step_ms", "mean_decode_step_ms",
+        "tokens_per_s_median", "mean_mixed_step_ms", "mean_decode_step_ms",
         "peak_memory_bytes") if serve[k] and f32_serve[k]}
-    print("quantized serve: " + json.dumps(serve), flush=True)
+    print("quantized serve: " + printable(serve), flush=True)
     serve["step_attention_max_abs_err"] = check_recorded_steps(
         torch, model, prompts, "quantized serve", kv_quant="int8",
         serve_weights="int8")
@@ -642,9 +741,11 @@ def serve_quant_phase(torch, f32_serve):
     return serve, launches
 
 
-def quant_pools_card_vs_cpu(torch, model, cpu_model, prompt, new=8):
-    """One short request on a quantized engine on the card and on the CPU,
-    same weights; the two int8 pools after it, over the positions written
+def quant_pools_card_vs_cpu(torch, model, cpu_model, prompt, new=8,
+                            **engine_kw):
+    """One short request on a quantized engine (``engine_kw`` added) on
+    the card and on the CPU, same weights; the two int8 pools after it,
+    over the positions written
     from the same tokens, against `POOL_TOL`; the greedy tokens, with the
     first step where they part (printed, not failed: a 1-LSB flip may
     move a token)."""
@@ -654,7 +755,7 @@ def quant_pools_card_vs_cpu(torch, model, cpu_model, prompt, new=8):
     for dev, m in (("cuda", model), ("cpu", cpu_model)):
         eng = DecodeEngine(m, max_batch_size=1, max_seq_len=128,
                            page_size=64, kv_quant="int8",
-                           serve_weights="int8", device=dev)
+                           serve_weights="int8", device=dev, **engine_kw)
         req = eng.add_request(prompt, new)
         pages = []
         while req.state != "done":
@@ -707,7 +808,127 @@ def quant_pools_card_vs_cpu(torch, model, cpu_model, prompt, new=8):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: K3/K4 against their plain versions
+# phases 6-7: the unified ragged step and speculative decoding
+# ---------------------------------------------------------------------------
+SPEC_K = 4
+# the self-drafted serve: the draft runs the target's own weights, so
+# every draft is the target's token unless the draft's one-row steps and
+# the verify's window round a near-tie apart
+SELF_DRAFT_MIN_ACCEPTANCE = 0.9
+
+
+def ragged_serve_phase(torch, f32_serve):
+    """The serve of `serve_phase` with ``ragged_step=True``, in f32 (K1)
+    and with int8 KV pages and weights (K2): every step is one ragged
+    step, each launching the kernel once a layer.  A recorded mixed and
+    steady-state ragged step against the plain version; one short
+    request's greedy tokens against the CPU's split engine; the int8
+    pools against the CPU's."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import serve_profile
+
+    out = {}
+    for label, quant in (("ragged serve", {}),
+                         ("quantized ragged serve",
+                          dict(kv_quant="int8", serve_weights="int8"))):
+        kname = "paged_attention_q" if quant else "paged_attention"
+        model, prompts, new_engine = serve_profile.gpt2_small_serve(
+            "cuda", ragged_step=True, **quant)
+        cfg = model.cfg
+        _, st, counts, serve = drive_serve(torch, new_engine, prompts, cfg,
+                                           label)
+        n = counts[kname]
+        if st["ragged_steps"] != st["steps"] or \
+                n != cfg.num_layers * st["steps"] or n <= 0:
+            fail(f"{label}: {kname} launches {n}, ragged steps "
+                 f"{st['ragged_steps']}, steps {st['steps']}: want "
+                 f"{cfg.num_layers} x steps, every step ragged")
+        other = "paged_attention" if quant else "paged_attention_q"
+        if counts[other]:
+            fail(f"{label}: {other} launched {counts[other]} times")
+        serve["tokens_equal_to_split_f32_serve"] = token_share(
+            serve["tokens"], f32_serve["tokens"])
+        print(f"{label}: " + printable(serve), flush=True)
+        serve["step_attention_max_abs_err"] = check_recorded_steps(
+            torch, model, prompts, label, kinds=("mixed", "ragged"),
+            ragged_step=True, **quant)
+        cpu_model = GPT.random(cfg, seed=serve_profile.SEED, device="cpu")
+        if quant:
+            serve["card_vs_cpu"] = quant_pools_card_vs_cpu(
+                torch, model, cpu_model, prompts[1][:64], ragged_step=True)
+        else:
+            greedy_card_vs_cpu(model, cpu_model, prompts[1][:64], label,
+                               dict(ragged_step=True))
+        serve["launches_of_path"] = n
+        out["int8" if quant else "f32"] = serve
+    return out
+
+
+def spec_serve_phase(torch, f32_serve):
+    """The serve of `serve_phase` with ``spec_decode_k=4``: prompt lookup
+    on the ragged and the split path, GPT-2-small drafting for itself
+    (acceptance at least `SELF_DRAFT_MIN_ACCEPTANCE`) and a
+    ``draft_config()`` draft with random weights (acceptance printed).  K1
+    launches exactly num_layers x (mixed steps + verify rounds) for the
+    target and draft layers x draft steps for the draft model.  A
+    recorded verify step against the plain version; one short request's
+    greedy tokens, spec engines against the CPU's non-spec engine."""
+    from paddle_tpu_torch.inference.speculative import DraftModelDrafter
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import serve_profile
+
+    out = {}
+    for name, kw in (
+            ("prompt_lookup_ragged", dict(ragged_step=True)),
+            ("prompt_lookup_split", {}),
+            ("self_split", dict(drafter="self")),
+            ("draft_model_ragged", dict(ragged_step=True,
+                                        drafter="draft_model"))):
+        label = f"spec serve {name}"
+        model, prompts, new_engine = serve_profile.gpt2_small_serve(
+            "cuda", spec_decode_k=SPEC_K, **kw)
+        cfg = model.cfg
+        eng, st, counts, serve = drive_serve(torch, new_engine, prompts,
+                                             cfg, label)
+        drafter = eng._spec.drafter
+        draft_layers = draft_steps = 0
+        if isinstance(drafter, DraftModelDrafter):
+            draft_layers = len(drafter._params["blocks"])
+            draft_steps = drafter.steps
+        want = cfg.num_layers * (st["mixed_steps"] + st["spec_steps"]) + \
+            draft_layers * draft_steps
+        n = counts["paged_attention"]
+        if n != want or st["spec_steps"] <= 0:
+            fail(f"{label}: K1 launches {n} != {cfg.num_layers} x "
+                 f"({st['mixed_steps']} mixed + {st['spec_steps']} verify) "
+                 f"+ {draft_layers} x {draft_steps} draft steps")
+        if kw.get("ragged_step") and \
+                st["ragged_steps"] != st["mixed_steps"] + st["spec_steps"]:
+            fail(f"{label}: a step went around the ragged step")
+        serve.update(draft_layers=draft_layers, draft_steps=draft_steps,
+                     launches_of_path=n,
+                     tokens_equal_to_split_f32_serve=token_share(
+                         serve["tokens"], f32_serve["tokens"]))
+        print(f"{label}: " + printable(serve), flush=True)
+        if name == "self_split" and \
+                st["acceptance_rate"] < SELF_DRAFT_MIN_ACCEPTANCE:
+            fail(f"{label}: acceptance_rate {st['acceptance_rate']} < "
+                 f"{SELF_DRAFT_MIN_ACCEPTANCE}")
+        out[name] = serve
+    cpu_model = GPT.random(cfg, seed=serve_profile.SEED, device="cpu")
+    out["prompt_lookup_split"]["step_attention_max_abs_err"] = \
+        check_recorded_steps(torch, model, prompts, "spec serve",
+                             kinds=("mixed", "verify"), max_new=8,
+                             spec_decode_k=SPEC_K)
+    for ragged in (False, True):
+        greedy_card_vs_cpu(model, cpu_model, prompts[1][:64],
+                           f"spec serve {'ragged' if ragged else 'split'}",
+                           dict(spec_decode_k=SPEC_K, ragged_step=ragged))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: K3/K4 against their plain versions
 # ---------------------------------------------------------------------------
 def flash_build_report(_build):
     """Registers, local (stack and spill) bytes and shared memory of every
@@ -895,7 +1116,7 @@ def flash_phase(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: train GPT-2-small
+# phase 9: train GPT-2-small
 # ---------------------------------------------------------------------------
 class FlashRecorder:
     """Records q, k, v, the output and (through a hook on the output)
@@ -1051,7 +1272,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: K5 against its plain version, and the train with K5
+# phases 10-11: K5 against its plain version, and the train with K5
 # ---------------------------------------------------------------------------
 def ln_phase(torch):
     """K5 against `layer_norm` at the train path's shape ([16 * 1024,
@@ -1238,25 +1459,40 @@ def main(argv) -> int:
     # 5. quantized serve
     serve_q, launches_q = serve_quant_phase(torch, serve)
 
-    # 6. K3/K4 against their plain versions
+    # 6. the serve through the unified ragged step, f32 and int8
+    ragged = ragged_serve_phase(torch, serve)
+
+    # 7. speculative serves
+    spec = spec_serve_phase(torch, serve)
+
+    # 8. K3/K4 against their plain versions
     flash_cases = flash_phase(torch)
 
-    # 7. train
+    # 9. train
     train = train_phase(torch)
 
-    # 8. K5 against its plain version
+    # 10. K5 against its plain version
     ln_cases = ln_phase(torch)
 
-    # 9. train with K5
+    # 11. train with K5
     train_ln = ln_train_phase(torch, train)
 
-    # 10. report
+    # 12. report
     kernels = []
-    for name, replaces, kcases, n, library in (
-            ("paged_attention", K1_REPLACES, cases, launches,
+    # each serving path's launches, counted from 0 over its own serve
+    k1_paths = dict(serve=launches,
+                    ragged_serve=ragged["f32"]["launches_of_path"],
+                    **{f"spec_serve_{k}": v["launches_of_path"]
+                       for k, v in spec.items()})
+    k2_paths = dict(quantized_serve=launches_q,
+                    quantized_ragged_serve=ragged["int8"][
+                        "launches_of_path"])
+    for name, replaces, kcases, n, paths, library in (
+            ("paged_attention", K1_REPLACES, cases, launches, k1_paths,
              "scaled_dot_product_attention on K/V gathered ahead of time "
              "(gather excluded)"),
             ("paged_attention_q", K2_REPLACES, q_cases, launches_q,
+             k2_paths,
              "scaled_dot_product_attention on K/V dequantized and gathered "
              "ahead of time (excluded)")):
         main_cases = [c for c in kcases if c["dtype"] == "float32"
@@ -1265,7 +1501,7 @@ def main(argv) -> int:
         mixed = next(c for c in main_cases if c["case"] == "mixed")
         kernels.append(dict(
             name=name, route="cuda", source=K1_SOURCE, replaces=replaces,
-            launches=n,
+            launches=n, launches_by_path=paths,
             max_abs_err=max(c["max_abs_err"] for c in main_cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -1310,7 +1546,8 @@ def main(argv) -> int:
         library_call="torch.nn.functional.layer_norm", cases=ln_cases))
     result = dict(card=card, build_s=build_s, kernel_build=builds,
                   kernels=kernels, serve=serve,
-                  serve_quant=serve_q, train=train, train_layer_norm=train_ln)
+                  serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
+                  train=train, train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

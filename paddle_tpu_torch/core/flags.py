@@ -1,6 +1,6 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Seven flags work here; four
+The names and defaults are paddle_tpu's.  Fourteen flags work here; two
 more keep their default only, because the code they switch on is not
 ported yet — setting one of those to anything else raises
 NotImplementedError naming the slice that brings it.  As in paddle_tpu,
@@ -26,12 +26,20 @@ _PORTED = {
     "serve_weights": "off",
     # True: LayerNorm's forward runs kernel K5 on CUDA tensors
     "use_pallas_layernorm": False,
+    # True: decode, prompt chunks and verify windows share one step
+    "ragged_step": False,
+    # speculative decoding: K drafted tokens a round (0 = off), the
+    # drafter built by name, and adaptive per-slot depth
+    "spec_decode_k": 0,
+    "spec_drafter": "prompt_lookup",
+    "spec_adaptive_k": False,
+    "spec_k_min": 1,
+    "spec_k_shrink_streak": 2,
+    "spec_k_grow_streak": 2,
 }
 
 # flag -> (default, the later slice that ports what it switches on)
 _LATER = {
-    "ragged_step": (False, "unified ragged step"),
-    "spec_decode_k": (0, "speculative decoding"),
     "serve_mesh": ("", "tensor-parallel serving"),
     # "auto": kernels K3/K4 run for every call flash_attention_fwd sends
     # them; the TPU's sequence thresholds and forced modes do not carry over

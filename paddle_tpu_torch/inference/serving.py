@@ -10,7 +10,10 @@
   grid with chunked prefill: each step runs one ``[slots, Q_max]`` mixed
   batch (prefilling slots carry a prompt chunk as Q>1 ragged rows,
   decoding slots one row) while any slot is prefilling, and a classic
-  one-row decode step otherwise.  Both steps call
+  one-row decode step otherwise.  With ``ragged_step`` every step is one
+  ``[slots, Q_r]`` unified ragged step (`_gpt_ragged_step`) instead;
+  with ``spec_decode_k`` each step is a speculative round
+  (`inference.speculative`).  Every step calls
   `ops.paged_attention.paged_attention` once per layer.
 
 Quantized serving: ``kv_quant="int8"`` keeps the KV pages as int8 with
@@ -26,8 +29,8 @@ The step functions are plain functions over the params dict and the
 page pools, as in the JAX package, and record no autograd graph.  Where JAX donates the pools to a
 jitted step and gets new ones back, the port writes into the pool
 tensors in place.  The containment ladder, journal, telemetry plane,
-schedulers other than FIFO, the legacy one-shot prefill, the ragged
-step and speculation are later slices.
+schedulers other than FIFO, the legacy one-shot prefill and the
+tensor-parallel mesh are later slices.
 """
 from __future__ import annotations
 
@@ -391,10 +394,13 @@ def _write_kv(k_pages, v_pages, k_scales, v_scales, li, rows, k, v):
 
 def _pack(tokens, refolds):
     """The step's output: the tokens, and after them the refold count when
-    the pages are int8 (JAX's ``[B+1]`` form), so one fetch brings both."""
+    the pages are int8 (JAX's ``[B+1]`` form; ``[B+1, Q]`` with the count
+    in column 0 for per-position targets), so one fetch brings both."""
     if refolds is None:
         return tokens
-    return torch.cat([tokens, refolds.reshape(1).to(tokens.dtype)])
+    row = torch.zeros_like(tokens[:1])
+    row.view(-1)[0] = refolds.to(tokens.dtype)
+    return torch.cat([tokens, row])
 
 
 @torch.no_grad()
@@ -440,24 +446,17 @@ def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
     return _pack(torch.where(active, nxt, torch.zeros_like(nxt)), refolds)
 
 
-@torch.no_grad()
-def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
-                    tokens, write_caps, sample_idx, sample_mask, generator,
-                    *, num_heads, head_dim, eps, sampling, k_scales=None,
-                    v_scales=None):
-    """One mixed prefill+decode step over every slot: a prefilling slot
-    contributes a prompt chunk (rows 0..cap-1 of its ``tokens`` row), a
-    decoding slot its last sampled token (cap 1), an idle slot nothing
-    (cap 0).  K/V of every contributed row is written into the slot's
-    pages (in place), attention runs with per-sequence causal offsets
-    ``q_offsets = seq_lens``, and one token per slot is sampled from row
-    ``sample_idx``; ``sample_mask`` zeroes slots still mid-prefill.
-
-    tokens: [B, Q_max] int32; write_caps, sample_idx: [B] int32;
-    sample_mask: [B] bool; k_scales/v_scales: [L, Hkv, P] f32 with int8
-    pages (`_gpt_mixed_step_q` of the JAX package: each page a write
-    touches refolds once, `paged_write_spans`).  Returns [B] int32, and
-    with int8 pages [B+1]: the refold count last."""
+def _forward_rows(params, k_pages, v_pages, block_tables, seq_lens, tokens,
+                  write_caps, *, num_heads, head_dim, eps, k_scales=None,
+                  v_scales=None):
+    """The ragged body the mixed, ragged and verify steps share: row ``i``
+    of slot ``b`` holds ``tokens[b, i]`` at position ``seq_lens[b] + i``;
+    the K/V of rows ``i < write_caps[b]`` is written into the slot's pages
+    (in place; with ``k_scales``/``v_scales`` through the quantized
+    write, which refolds each page a write touches once), and attention
+    runs with per-sequence causal offsets ``q_offsets = seq_lens``.
+    Rows past a slot's cap are computed and left to the caller to ignore.
+    Returns ``(x [B, Q, h] before the final LayerNorm, refolds or None)``."""
     b, qn = tokens.shape
     h = num_heads * head_dim
     num_pages_total, page = k_pages.shape[2], k_pages.shape[3]
@@ -490,12 +489,62 @@ def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
                                   v_pages[li], block_tables, lens_now,
                                   q_offsets=seq_lens, **scales)
         x = _block_tail(x, blk, attn.reshape(b, qn, h), eps)
+    return x, refolds
 
+
+@torch.no_grad()
+def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
+                    tokens, write_caps, sample_idx, sample_mask, generator,
+                    *, num_heads, head_dim, eps, sampling, k_scales=None,
+                    v_scales=None):
+    """One mixed prefill+decode step over every slot: a prefilling slot
+    contributes a prompt chunk (rows 0..cap-1 of its ``tokens`` row), a
+    decoding slot its last sampled token (cap 1), an idle slot nothing
+    (cap 0); `_forward_rows` writes and attends, and one token per slot
+    is sampled from row ``sample_idx``; ``sample_mask`` zeroes slots
+    still mid-prefill.
+
+    tokens: [B, Q_max] int32; write_caps, sample_idx: [B] int32;
+    sample_mask: [B] bool; k_scales/v_scales: [L, Hkv, P] f32 with int8
+    pages (`_gpt_mixed_step_q` of the JAX package).  Returns [B] int32,
+    and with int8 pages [B+1]: the refold count last."""
+    b = tokens.shape[0]
+    x, refolds = _forward_rows(
+        params, k_pages, v_pages, block_tables, seq_lens, tokens,
+        write_caps, num_heads=num_heads, head_dim=head_dim, eps=eps,
+        k_scales=k_scales, v_scales=v_scales)
     # sample ONE row per slot: the head matmul runs over [B, h]
     sel = x[torch.arange(b, device=x.device), sample_idx.long()]
     nxt = _sample(params, sel, eps, generator, sampling)
     return _pack(torch.where(sample_mask, nxt, torch.zeros_like(nxt)),
                  refolds)
+
+
+@torch.no_grad()
+def _gpt_ragged_step(params, k_pages, v_pages, block_tables, seq_lens,
+                     tokens, write_caps, generator, *, num_heads, head_dim,
+                     eps, sampling, k_scales=None, v_scales=None):
+    """The unified ragged step: score up to Q_r incoming tokens a slot in
+    one pass — a decode row (cap 1), a prompt chunk (cap C) or a
+    speculative verify window (cap K+1) — and draw a target token at
+    EVERY position with the engine's `sample_logits`.  The rows of
+    `_forward_rows`; a cap of 0 sits the slot out, and its targets, like
+    those past any cap, are garbage the host ignores.
+
+    tokens: [B, Q_r] int32; write_caps: [B] int32 in [0, Q_r];
+    k_scales/v_scales as for `_gpt_mixed_step` (`_gpt_ragged_step_q` of
+    the JAX package).  Returns [B, Q_r] int32 targets, and with int8
+    pages [B+1, Q_r]: the refold count in column 0 of the last row.
+    Every row pays the head's matmul, as in JAX; greedy targets are the
+    split path's tokens."""
+    b, qn = tokens.shape
+    h = num_heads * head_dim
+    x, refolds = _forward_rows(
+        params, k_pages, v_pages, block_tables, seq_lens, tokens,
+        write_caps, num_heads=num_heads, head_dim=head_dim, eps=eps,
+        k_scales=k_scales, v_scales=v_scales)
+    nxt = _sample(params, x.reshape(b * qn, h), eps, generator, sampling)
+    return _pack(nxt.reshape(b, qn), refolds)
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +553,11 @@ def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
 _STAT_KEYS = ("steps", "tokens", "mixed_steps", "prefill_chunks",
               "prefix_hits", "prefix_misses", "prefix_cached_tokens",
               "kv_quant_pages", "kv_quant_refolds", "weight_quant_mats",
-              "weight_quant_bytes_saved")
+              "weight_quant_bytes_saved", "ragged_steps", "spec_steps",
+              "spec_slot_steps", "spec_proposed", "spec_accepted",
+              "spec_emitted", "spec_k_shrinks", "spec_k_grows")
+_STAT_SECONDS = ("mixed_step_s", "decode_step_s", "draft_time_s",
+                 "verify_time_s")
 
 
 class DecodeEngine:
@@ -516,16 +569,20 @@ class DecodeEngine:
     ``device="cpu"`` for the plain PyTorch path.  The KV pages take the
     weights' dtype, which K1 needs of q and pages alike, or int8 with
     ``kv_quant="int8"`` (kernel K2); ``serve_weights="int8"`` folds the
-    matmul weights to int8.  The flags of `core.flags` fill every
-    argument left None."""
+    matmul weights to int8.  ``ragged_step`` serves every step through
+    `_gpt_ragged_step`; ``spec_decode_k`` (with ``drafter`` and
+    ``spec_adaptive_k``) speculates K tokens a round.  The flags of
+    `core.flags` fill every argument left None."""
 
     def __init__(self, model, max_batch_size=4, max_seq_len=None,
                  page_size=None, num_pages=None, sampler="greedy",
                  temperature=1.0, top_k=0, top_p=1.0, seed=0,
-                 eos_token_id=None, chunked_prefill=None,
-                 prefill_chunk_tokens=None, prefix_cache=None,
+                 eos_token_id=None, spec_decode_k=None, drafter=None,
+                 chunked_prefill=None, prefill_chunk_tokens=None,
+                 prefill_q_max=None, prefix_cache=None,
                  cache_generated_pages=None, kv_quant=None,
-                 serve_weights=None, device=None):
+                 serve_weights=None, ragged_step=None, spec_adaptive_k=None,
+                 device=None):
         self.device = resolve_device(device)
         cfg = model.cfg
         self._params = _tree_to(model.params(), self.device)
@@ -603,8 +660,9 @@ class DecodeEngine:
         self._generator.manual_seed(int(seed))
         self._queue: "deque[Request]" = deque()
         self._stats = dict.fromkeys(_STAT_KEYS, 0)
-        self._stats.update(mixed_step_s=0.0, decode_step_s=0.0)
-        if serve_weights == "int8":
+        self._stats.update(dict.fromkeys(_STAT_SECONDS, 0.0))
+        self._weight_quant = serve_weights == "int8"
+        if self._weight_quant:
             self._params, mats, saved = _quantize_gpt_params(self._params)
             self._stats.update(weight_quant_mats=mats,
                                weight_quant_bytes_saved=saved)
@@ -622,9 +680,18 @@ class DecodeEngine:
             raise ValueError(
                 f"prefill_chunk_tokens must be >= 1, got "
                 f"{prefill_chunk_tokens}")
-        # per-step prompt-token budget, also the mixed step's row width
+        # per-step prompt-token budget
         self._chunk_budget = min(int(prefill_chunk_tokens),
                                  self._max_seq_len)
+        # Q_max, the mixed step's row width and a chunk's largest span:
+        # the budget, or less when the caller caps the step's compute
+        q_max_explicit = prefill_q_max is not None
+        if prefill_q_max is None:
+            prefill_q_max = self._chunk_budget
+        if prefill_q_max < 1:
+            raise ValueError(
+                f"prefill_q_max must be >= 1, got {prefill_q_max}")
+        self._q_max = min(int(prefill_q_max), self._chunk_budget)
         if prefix_cache is None:
             prefix_cache = bool(_flags.flag("prefix_cache"))
         self._prefix_cache = bool(prefix_cache)
@@ -634,6 +701,39 @@ class DecodeEngine:
             cache_generated_pages = bool(_flags.flag("cache_generated_pages"))
         self._cache_generated = bool(cache_generated_pages) and \
             self._prefix_cache
+
+        # speculative decoding, with JAX's refusals of a drafter or an
+        # adaptive depth without it
+        if spec_decode_k is None:
+            spec_decode_k = int(_flags.flag("spec_decode_k"))
+        if drafter is not None and not spec_decode_k:
+            raise ValueError(
+                "drafter passed but speculative decoding is off: set "
+                "spec_decode_k >= 1 (or FLAGS_spec_decode_k)")
+        if spec_adaptive_k and not spec_decode_k:
+            raise ValueError(
+                "spec_adaptive_k passed but speculative decoding is off: "
+                "set spec_decode_k >= 1 (or FLAGS_spec_decode_k)")
+        if spec_adaptive_k is None:
+            spec_adaptive_k = bool(_flags.flag("spec_adaptive_k"))
+        self._spec = None
+        if spec_decode_k:
+            from .speculative import SpeculativeDecoder
+
+            self._spec = SpeculativeDecoder(self, k=int(spec_decode_k),
+                                            drafter=drafter,
+                                            adaptive=bool(spec_adaptive_k))
+        if ragged_step is None:
+            ragged_step = bool(_flags.flag("ragged_step"))
+        self._ragged = bool(ragged_step)
+        # the ragged grid's row width Q_r fits the widest span of any
+        # phase: a decode row, a chunk (Q_max), a verify window (K+1).
+        # Every step pays the whole grid, so an unpinned Q_max shrinks
+        # to one page of span (never below the verify window)
+        window = self._spec.k + 1 if self._spec is not None else 1
+        if self._ragged and not q_max_explicit:
+            self._q_max = min(self._q_max, max(self._page, window))
+        self._q_ragged = max(self._q_max, window)
 
     def _model_fingerprint(self) -> bytes:
         """The chain-hash root: the embedding's first row, one qkv row
@@ -654,10 +754,20 @@ class DecodeEngine:
         kv_quant_pages (pages whose scales were reset when handed out)
         and kv_quant_refolds (page-head scales that grew over written
         rows) with int8 pages; weight_quant_mats and
-        weight_quant_bytes_saved with int8 weights; and the host wall
-        seconds spent in mixed and in decode steps (each step ends in the
-        token fetch, which waits for the device)."""
-        return dict(self._stats)
+        weight_quant_bytes_saved with int8 weights; ragged_steps; the
+        speculative counters spec_steps (rounds), spec_slot_steps (slots
+        verified), spec_proposed, spec_accepted, spec_emitted,
+        spec_k_shrinks and spec_k_grows, with acceptance_rate and
+        mean_accepted_per_step from them as in JAX; and the host wall
+        seconds spent in mixed and in decode steps, drafting and
+        verifying (each step ends in the token fetch, which waits for the
+        device)."""
+        out = dict(self._stats)
+        out["acceptance_rate"] = out["spec_accepted"] / max(
+            out["spec_proposed"], 1)
+        out["mean_accepted_per_step"] = out["spec_emitted"] / max(
+            out["spec_slot_steps"], 1)
+        return out
 
     def _kv_byte_occupancy(self) -> dict:
         """Device bytes the KV pool holds in pages that are not free
@@ -800,6 +910,8 @@ class DecodeEngine:
             self._stats["prefix_hits"] += len(hit_pages)
             self._stats["prefix_misses"] += n_probe - len(hit_pages)
             self._stats["prefix_cached_tokens"] += start
+        if self._spec is not None:
+            self._spec.on_admit(slot, req)
 
     def _release_slot(self, slot: int):
         self._by_slot[slot] = None
@@ -869,6 +981,8 @@ class DecodeEngine:
         req.slot = None
         req.pages = []
         self._release_slot(slot)
+        if self._spec is not None:
+            self._spec.on_finish(slot, req)
 
     def _on_first_token(self, slot: int, req: Request, tok: int) -> bool:
         """The slot's last prompt chunk landed and sampled its first
@@ -933,27 +1047,45 @@ class DecodeEngine:
         ids = self._dev(np.asarray(list(dict.fromkeys(self._fresh_pages)),
                                    np.int64))
         self._fresh_pages = []
-        self._k_scales[:, :, ids] = 0.0
-        self._v_scales[:, :, ids] = 0.0
+        # a draft model's pools share the page ids, and their scales
+        scales = [(self._k_scales, self._v_scales)]
+        if self._spec is not None and \
+                getattr(self._spec.drafter, "_k_scales", None) is not None:
+            d = self._spec.drafter
+            scales.append((d._k_scales, d._v_scales))
+        for ks, vs in scales:
+            ks[:, :, ids] = 0.0
+            vs[:, :, ids] = 0.0
         self._stats["kv_quant_pages"] += int(ids.numel())
 
-    def _run_step(self, fn, *args) -> list:
-        """Run one step function and fetch its tokens; with int8 pages
-        the packed refold count comes in the same fetch and is counted."""
-        out = fn(self._params, self._k_pages, self._v_pages, *args,
-                 self._generator, **self._step_kwargs()).tolist()
+    def _fetch(self, out: torch.Tensor) -> np.ndarray:
+        """A step's packed output on the host; with int8 pages the refold
+        count it carries is counted and dropped."""
+        out = out.cpu().numpy()
         if self._kv_quant:
-            self._stats["kv_quant_refolds"] += out.pop()
+            self._stats["kv_quant_refolds"] += int(out[-1].flat[0])
+            out = out[:-1]
         return out
 
-    def _mixed_step(self) -> bool:
-        """One fused prefill+decode step over the fixed ``[slots,
-        chunk_budget]`` batch.  The step's prompt-token budget splits
-        evenly across prefilling slots (remainder to the lower slots),
-        so a short prompt next to a long one finishes its prefill
-        without queueing behind the long prompt's stream."""
-        slots, qmax = self._slots, self._chunk_budget
-        tokens = np.zeros((slots, qmax), np.int32)
+    def _run_step(self, fn, *args) -> np.ndarray:
+        """Run one step function over the engine's weights and pools and
+        fetch its tokens (`_fetch`)."""
+        return self._fetch(fn(self._params, self._k_pages, self._v_pages,
+                              *args, self._generator,
+                              **self._step_kwargs()))
+
+    def _mixed_step(self, decode_rows=True) -> bool:
+        """One fused prefill+decode step over the fixed ``[slots, Q_max]``
+        batch (``[slots, Q_r]`` through `_gpt_ragged_step` with
+        ``ragged_step``).  The step's prompt-token budget splits evenly
+        across prefilling slots (remainder to the lower slots), so a
+        short prompt next to a long one finishes its prefill without
+        queueing behind the long prompt's stream.  ``decode_rows=False``
+        (a speculative engine) feeds prompt chunks only: decoding slots
+        advance in the round that follows."""
+        slots, qmax = self._slots, self._q_max
+        width = self._q_ragged if self._ragged else qmax
+        tokens = np.zeros((slots, width), np.int32)
         caps = np.zeros(slots, np.int32)
         sample_idx = np.zeros(slots, np.int32)
         sample_mask = np.zeros(slots, bool)
@@ -976,25 +1108,41 @@ class DecodeEngine:
                 # last chunk: this step samples the first token
                 sample_idx[s] = c - 1
                 sample_mask[s] = True
-        for s in range(slots):
-            if self._active[s] and s not in chunk_of and \
-                    not self._is_prefilling(s):
-                tokens[s, 0] = self._last[s]
-                caps[s] = 1
-                sample_idx[s] = 0
-                sample_mask[s] = True
+        if decode_rows:
+            for s in range(slots):
+                if self._active[s] and s not in chunk_of and \
+                        not self._is_prefilling(s):
+                    tokens[s, 0] = self._last[s]
+                    caps[s] = 1
+                    sample_idx[s] = 0
+                    sample_mask[s] = True
         self._grow_block_tables(writes=caps)
         self._flush_fresh_scales()
 
         t0 = time.perf_counter()
-        toks = self._run_step(
-            _gpt_mixed_step, self._dev(self._bt), self._dev(self._lens),
-            self._dev(tokens), self._dev(caps), self._dev(sample_idx),
-            self._dev(sample_mask))
+        bt, lens = self._dev(self._bt), self._dev(self._lens)
+        if self._ragged:
+            # a target at every position: the host picks each slot's
+            # span-end row, and keeps NAN_TOKEN where the row faulted
+            toks = self._run_step(_gpt_ragged_step, bt, lens,
+                                  self._dev(tokens), self._dev(caps))
+            toks = np.where(sample_mask, toks[np.arange(slots), sample_idx],
+                            0)
+            self._stats["ragged_steps"] += 1
+        else:
+            toks = self._run_step(
+                _gpt_mixed_step, bt, lens, self._dev(tokens),
+                self._dev(caps), self._dev(sample_idx),
+                self._dev(sample_mask))
         self._stats["mixed_step_s"] += time.perf_counter() - t0
-        self._stats["steps"] += 1
+        if decode_rows:
+            # a chunk-only step is prompt work: the round that follows
+            # counts the engine step
+            self._stats["steps"] += 1
         self._stats["mixed_steps"] += 1
         self._stats["prefill_chunks"] += len(chunk_of)
+        if self._spec is not None and chunk_of:
+            self._spec.drafter.ingest_chunks(tokens, caps)
 
         emitted = 0
         for s in range(slots):
@@ -1047,14 +1195,18 @@ class DecodeEngine:
         return True
 
     def step(self) -> bool:
-        """Admit what fits, then run one batched step: a mixed
-        prefill+decode step while any slot is mid-prefill, a classic
-        decode step otherwise.  Returns False when nothing is left.
-        Errors propagate (the containment ladder is a later slice)."""
+        """Admit what fits, then run one batched step: a speculative round
+        with ``spec_decode_k``; else a mixed prefill+decode step while any
+        slot is mid-prefill, and a decode step otherwise — the ragged
+        step in both cases with ``ragged_step``.  Returns False when
+        nothing is left.  Errors propagate, a drafter's too (the
+        containment ladder is a later slice)."""
         self._admit()
         if not self._active.any():
             return bool(self._queue)
-        if self._prefilling_any():
+        if self._spec is not None:
+            return self._spec.step()
+        if self._ragged or self._prefilling_any():
             return self._mixed_step()
         return self._decode_step()
 

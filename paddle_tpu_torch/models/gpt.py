@@ -40,6 +40,32 @@ class GPTConfig:
         if self.intermediate_size is None:
             self.intermediate_size = 4 * self.hidden_size
 
+    def draft_config(self, num_layers=1, hidden_size=None, num_heads=None,
+                     intermediate_size=None):
+        """A shrunk config for a speculative-decoding draft model
+        (`inference.speculative.DraftModelDrafter`): vocab and position
+        table pinned to this one's, so the draft proposes over the same
+        tokens and horizon.  Defaults: 1 layer, half the width at this
+        config's head_dim."""
+        if hidden_size is None:
+            head_dim = self.hidden_size // self.num_heads
+            hidden_size = max(head_dim, self.hidden_size // 2)
+        if num_heads is None:
+            num_heads = max(1, min(self.num_heads,
+                                   hidden_size //
+                                   (self.hidden_size // self.num_heads)))
+        if hidden_size % num_heads:
+            raise ValueError(
+                f"draft hidden_size {hidden_size} not divisible by "
+                f"num_heads {num_heads}")
+        return GPTConfig(
+            vocab_size=self.vocab_size, hidden_size=hidden_size,
+            num_layers=num_layers, num_heads=num_heads,
+            max_seq_len=self.max_seq_len,
+            intermediate_size=intermediate_size, dropout=0.0,
+            tie_embeddings=self.tie_embeddings,
+            use_parallel_layers=False)
+
 
 def _adopt(layer: nn.Module, **tensors) -> nn.Module:
     """``layer`` (built on the meta device) over the given tensors, each

@@ -1,14 +1,19 @@
 """Where a GPT-2-small serve spends its time on the card.
 
     python -m paddle_tpu_torch.tools.serve_profile
-        [--kv-quant int8] [--serve-weights int8]
+        [--kv-quant int8] [--serve-weights int8] [--ragged]
+        [--spec-k K [--drafter prompt_lookup|draft_model|self]]
         [--out chiprun_out/serve_profile.json]
 
 Serves the workload of ``chip_smoke.py``'s serve phase (`gpt2_small_serve`:
 GPT-2-small at full width, random weights from seed 0, 8 slots, 64-token
 pages, 16 prompts of 64-512 tokens, half sharing a 128-token prefix, 64
 new tokens each; int8 KV pages and int8 weights with the switches, default
-off) twice: once plain, for the wall time, and once under
+off; every step through the unified ragged step with ``--ragged``;
+speculative decoding of K tokens a round with ``--spec-k``, drafted by
+prompt lookup, by a ``draft_config()`` model with random weights from
+seed 1, or by GPT-2-small itself) twice: once plain, for the wall time,
+and once under
 ``torch.profiler`` for the breakdown.  Prints, and writes to ``--out``:
 the wall time of each run; the device's busy time (the sum of every
 kernel's and copy's time, one stream so nothing overlaps) and idle share
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ..inference.serving import DecodeEngine
+from ..inference.speculative import DraftModelDrafter
 from ..models.gpt import GPT, GPTConfig
 from ..device import default_device
 from ._device_time import breakdown, card_line
@@ -52,26 +58,42 @@ def make_prompts(vocab: int, n: int, seed: int, shared_len: int = 128):
     return prompts
 
 
-def gpt2_small_serve(device, kv_quant="off", serve_weights="off"):
+def gpt2_small_serve(device, kv_quant="off", serve_weights="off",
+                     ragged_step=False, spec_decode_k=0,
+                     drafter="prompt_lookup"):
     """The GPT-2-small serve of ``chip_smoke.py`` and of this profile.
 
     Returns ``(model, prompts, new_engine)``: GPT-2-small at full width
     (the ``bench.py`` config) with random f32 weights from `SEED`, its 16
     prompts, and a factory of fresh ``DecodeEngine(max_batch_size=8,
-    page_size=64, kv_quant=..., serve_weights=...)`` engines, the other
-    flags at their defaults.  One engine has already served two prompts
-    at those shapes, so cuBLAS's handles and the first load of each
-    kernel the steps launch stay out of any timing."""
+    page_size=64, kv_quant=..., serve_weights=..., ragged_step=...,
+    spec_decode_k=...)`` engines, the other flags at their defaults.
+    ``drafter`` (with ``spec_decode_k``) is "prompt_lookup", "draft_model"
+    (`GPTConfig.draft_config` with random weights from ``SEED + 1``) or
+    "self" (the model drafts for itself); each engine gets a drafter of
+    its own.  One engine has already served two prompts at those shapes,
+    so cuBLAS's handles and the first load of each kernel the steps
+    launch stay out of any timing."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
                     num_heads=12, max_seq_len=1024)
     model = GPT.random(cfg, seed=SEED, device=device, dtype=torch.float32)
     prompts = make_prompts(cfg.vocab_size, 16, SEED)
+    if drafter not in ("prompt_lookup", "draft_model", "self"):
+        raise ValueError(f"unknown drafter {drafter!r}")
+    draft = None  # the draft model, if any
+    if spec_decode_k and drafter == "self":
+        draft = model
+    elif spec_decode_k and drafter == "draft_model":
+        draft = GPT.random(cfg.draft_config(), seed=SEED + 1, device=device)
 
     def new_engine():
-        return DecodeEngine(model, max_batch_size=8, page_size=64,
-                            kv_quant=kv_quant, serve_weights=serve_weights,
-                            device=device)
+        return DecodeEngine(
+            model, max_batch_size=8, page_size=64, kv_quant=kv_quant,
+            serve_weights=serve_weights, ragged_step=ragged_step,
+            spec_decode_k=spec_decode_k,
+            drafter=None if draft is None else DraftModelDrafter(draft),
+            device=device)
 
     new_engine().generate(prompts[:2], max_new_tokens=4)
     torch.cuda.synchronize()
@@ -92,11 +114,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--kv-quant", choices=("off", "int8"), default="off")
     ap.add_argument("--serve-weights", choices=("off", "int8"),
                     default="off")
+    ap.add_argument("--ragged", action="store_true")
+    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--drafter", default="prompt_lookup",
+                    choices=("prompt_lookup", "draft_model", "self"))
     ap.add_argument("--out", default="chiprun_out/serve_profile.json")
     args = ap.parse_args(argv)
 
     _, prompts, new_engine = gpt2_small_serve(
-        default_device(), args.kv_quant, args.serve_weights)
+        default_device(), args.kv_quant, args.serve_weights, args.ragged,
+        args.spec_k, args.drafter)
     wall_plain, st = _serve(new_engine, prompts)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -107,12 +134,17 @@ def main(argv=None) -> dict:
     result = dict(
         device=torch.cuda.get_device_name(0), card=card_line(),
         kv_quant=args.kv_quant, serve_weights=args.serve_weights,
+        ragged_step=args.ragged, spec_decode_k=args.spec_k,
+        drafter=args.drafter if args.spec_k else None,
         requests=len(prompts), new_tokens=st["tokens"],
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         wall_s=wall_plain, tokens_per_s=st["tokens"] / wall_plain,
         mean_mixed_step_ms=st["mixed_step_s"] / max(st["mixed_steps"], 1)
         * 1e3,
         mean_decode_step_ms=st["decode_step_s"] / max(decode_steps, 1) * 1e3,
+        **{k: st[k] for k in ("ragged_steps", "spec_steps",
+                              "acceptance_rate", "mean_accepted_per_step",
+                              "draft_time_s", "verify_time_s")},
         profiled_wall_s=wall_prof, **breakdown(prof, wall_prof))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

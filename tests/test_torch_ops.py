@@ -169,7 +169,9 @@ def test_sampler_marginals_match_jax(kw, support):
 # ---------------------------------------------------------------------------
 _FLAG_NAMES = ["chunked_prefill", "prefill_chunk_tokens", "prefix_cache",
                "cache_generated_pages", "kv_quant", "serve_weights",
-               "ragged_step", "spec_decode_k", "serve_mesh"]
+               "ragged_step", "spec_decode_k", "serve_mesh", "spec_drafter",
+               "spec_adaptive_k", "spec_k_min", "spec_k_shrink_streak",
+               "spec_k_grow_streak"]
 
 
 @pytest.mark.parametrize("name", _FLAG_NAMES)
@@ -182,11 +184,12 @@ def test_flag_defaults_match_jax(name):
     ("kv_quant", "int8"), ("serve_weights", "int8"), ("ragged_step", True),
     ("spec_decode_k", 4), ("serve_mesh", "mp=2")])
 def test_unported_flags_raise(name, value):
-    """ragged_step, spec_decode_k and serve_mesh refuse a non-default,
-    naming the slice that brings it.  kv_quant and serve_weights are
-    ported (quantized serving): the value is set, and an engine that
-    takes it from the flag alone serves with it."""
-    if name in ("kv_quant", "serve_weights"):
+    """serve_mesh refuses a non-default, naming the slice that brings it.
+    kv_quant and serve_weights (quantized serving), ragged_step (the
+    unified ragged step) and spec_decode_k (speculative decoding) are
+    ported: the value is set, and an engine that takes it from the flag
+    alone serves with it."""
+    if name != "serve_mesh":
         from paddle_tpu_torch.models.gpt import GPT, GPTConfig
         tm = GPT.random(GPTConfig(vocab_size=64, hidden_size=32,
                                   num_layers=2, num_heads=4,
@@ -204,9 +207,13 @@ def test_unported_flags_raise(name, value):
         if name == "kv_quant":
             assert eng._k_pages.dtype == torch.int8
             assert st["kv_quant_pages"] > 0
-        else:
+        elif name == "serve_weights":
             assert st["weight_quant_mats"] == 8
             assert "qkv_w_q" in eng._params["blocks"][0]
+        elif name == "ragged_step":
+            assert eng._ragged and st["ragged_steps"] == st["steps"] > 0
+        else:
+            assert eng._spec.k == value and st["spec_steps"] > 0
         return
     with pytest.raises(NotImplementedError, match="slice"):
         TF.set_flags({name: value})

@@ -178,6 +178,13 @@ def make_case(seed, b, qn, hq, hkv, d, page, pages_max, seq_lens, q_offsets,
 _DECODE = [0, 1, 63, 64, 65, 517, 1000, 1024]
 _OFFS = [0, 37, 64, 200, 447, 0, 700, 960]
 _CAPS = [64, 64, 64, 10, 64, 0, 1, 64]
+# ... and its verify windows (K=4 and K=8) and ragged steady state (every
+# slot one live row of 64), with K+1-row plans: 5 and 9 rows a KV head on
+# the SIMT path (9: two row tiles, each with its own combine), 20 (GQA)
+# on the tensor cores
+_V_OFFS = [0, 63, 64, 200, 517, 1000, 1019, 1023]
+_V_CAPS = {5: [5, 5, 1, 0, 5, 3, 5, 1], 9: [9, 9, 1, 0, 9, 3, 5, 1]}
+_RAGGED = [1, 2, 64, 65, 66, 518, 1001, 1024]
 SHAPES = {
     # tier-1 sizes: both paths, several splits, a zero-length slot, a
     # length past the block table's reach, pages of 16
@@ -190,6 +197,20 @@ SHAPES = {
     "mixed": dict(b=8, qn=64, hq=12, hkv=12, d=64, page=64, pages_max=16,
                   seq_lens=[o + c for o, c in zip(_OFFS, _CAPS)],
                   q_offsets=_OFFS),
+    "verify": dict(b=8, qn=5, hq=12, hkv=12, d=64, page=64, pages_max=16,
+                   seq_lens=[o + c for o, c in zip(_V_OFFS, _V_CAPS[5])],
+                   q_offsets=_V_OFFS),
+    "verify_k8": dict(b=8, qn=9, hq=12, hkv=12, d=64, page=64, pages_max=16,
+                      seq_lens=[o + c for o, c in zip(_V_OFFS, _V_CAPS[9])],
+                      q_offsets=_V_OFFS),
+    "gqa_verify": dict(b=8, qn=5, hq=32, hkv=8, d=128, page=64,
+                       pages_max=16,
+                       seq_lens=[o + c for o, c in zip(_V_OFFS,
+                                                       _V_CAPS[5])],
+                       q_offsets=_V_OFFS),
+    "ragged_decode": dict(b=8, qn=64, hq=12, hkv=12, d=64, page=64,
+                          pages_max=16, seq_lens=_RAGGED,
+                          q_offsets=[s - 1 for s in _RAGGED]),
 }
 
 
@@ -213,12 +234,18 @@ def test_split_plan_cuts_the_horizon():
     serve's decode and mixed shapes do split."""
     for b, rows, hkv, horizon in [(8, 1, 12, 1024), (8, 64, 12, 1024),
                                   (8, 256, 8, 1024), (1, 1, 1, 16),
-                                  (64, 1, 32, 4096), (3, 9, 2, 128)]:
+                                  (64, 1, 32, 4096), (3, 9, 2, 128),
+                                  (8, 5, 12, 1024), (8, 9, 12, 1024),
+                                  (8, 20, 8, 1024)]:
         splits, chunk = TPA.split_plan(b, rows, hkv, horizon, SM_COUNT)
         assert chunk % 64 == 0 and splits >= 1
         assert (splits - 1) * chunk < horizon <= splits * chunk
     assert TPA.split_plan(8, 1, 12, 1024, SM_COUNT)[0] > 1
     assert TPA.split_plan(8, 64, 12, 1024, SM_COUNT)[0] > 1
+    # the verify plans split too: 5 and 9 rows (one and two SIMT row
+    # tiles) and GQA's 20 (one tensor-core tile)
+    for rows, hkv in ((5, 12), (9, 12), (20, 8)):
+        assert TPA.split_plan(8, rows, hkv, 1024, SM_COUNT)[0] > 1
 
 
 def test_tf32_rounds_to_nearest_ties_away():
@@ -242,7 +269,8 @@ def test_tf32_alone_misses_the_f32_tolerance():
 
 
 if __name__ == "__main__":
-    for name in ("decode", "mixed"):
+    for name in ("decode", "mixed", "verify", "verify_k8", "gqa_verify",
+                 "ragged_decode"):
         for dtype in (torch.float32, torch.bfloat16):
             for quant in (False, True):
                 args, sc = make_case(0, dtype=dtype, quant=quant,
@@ -251,7 +279,7 @@ if __name__ == "__main__":
                                                     q_offsets=args[5], **sc)
                 err = float((emulate(*args, **sc).float()
                              - ref.float()).abs().max())
-                print(f"{name:>6} {str(dtype)[6:]:>8} "
+                print(f"{name:>13} {str(dtype)[6:]:>8} "
                       f"{'int8' if quant else 'dense'}: max_abs_err "
                       f"{err:.3g} (tol {TOL[dtype]})")
     args, _ = make_case(3, dtype=torch.float32, **SHAPES["mixed"])

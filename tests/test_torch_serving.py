@@ -254,26 +254,41 @@ def test_sampled_serving_is_seeded():
                                 dict(chunked_prefill=False)])
 def test_unported_options_raise(kw):
     """The legacy one-shot prefill raises, naming the slice that brings
-    it; the engine takes no argument at all for ragged_step, spec_decode_k
-    and serve_mesh (their flags refuse non-defaults:
-    test_torch_ops.test_unported_flags_raise).  kv_quant and
+    it; the engine takes no serve_mesh argument (its flag refuses a
+    non-default: test_torch_ops.test_unported_flags_raise).  kv_quant and
     serve_weights are ported: the engine takes "int8" and serves, and
-    raises ValueError on any other mode, as the JAX engine does."""
+    raises ValueError on any other mode, as the JAX engine does.
+    ragged_step and spec_decode_k are ported: the engine takes each and
+    serves the same greedy tokens as without it."""
     _, tm = _models("tiny", seed=0)
-    if next(iter(kw)) in ("kv_quant", "serve_weights"):
+    name = next(iter(kw))
+    if name in ("kv_quant", "serve_weights"):
         eng = TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
                               max_seq_len=64, page_size=16, **kw)
         assert len(eng.generate(_prompts(1, (6,)), 3)[0]) == 3
         assert eng.pool.available_count == eng.pool.num_pages
-        with pytest.raises(ValueError, match=next(iter(kw))):
+        with pytest.raises(ValueError, match=name):
             TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
                             max_seq_len=64, page_size=16,
-                            **{next(iter(kw)): "int4"})
+                            **{name: "int4"})
+        return
+    if name in ("ragged_step", "spec_decode_k"):
+        prompts = _prompts(1, (6, 11))
+        ref = TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
+                              max_seq_len=64, page_size=16).generate(
+            prompts, 5)
+        eng = TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
+                              max_seq_len=64, page_size=16, **kw)
+        assert eng.generate(prompts, 5) == ref
+        assert eng.pool.available_count == eng.pool.num_pages
+        st = eng.decode_stats()
+        key = "ragged_steps" if name == "ragged_step" else "spec_steps"
+        assert st[key] > 0
         return
     if "chunked_prefill" in kw:
         expected = pytest.raises(NotImplementedError, match="slice")
     else:
-        expected = pytest.raises(TypeError, match=next(iter(kw)))
+        expected = pytest.raises(TypeError, match=name)
     with expected:
         TS.DecodeEngine(tm, device="cpu", max_batch_size=1, max_seq_len=64,
                         page_size=16, **kw)
@@ -302,8 +317,13 @@ for mod in pkgutil.walk_packages(paddle_tpu_torch.__path__,
     importlib.import_module(mod.name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
-print(len(sys.modules), bad)
-sys.exit(1 if bad else 0)
+# the serving modules this guard must see, the ragged step's and the
+# speculative decoder's among them
+missing = [m for m in ("paddle_tpu_torch.inference.serving",
+                       "paddle_tpu_torch.inference.speculative")
+           if m not in sys.modules]
+print(len(sys.modules), bad, missing)
+sys.exit(1 if bad or missing else 0)
 """
 
 
