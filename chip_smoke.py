@@ -32,7 +32,16 @@ Phases, in order; any failure exits non-zero:
    each; check the drain, the prefix cache and that every step's
    attention went through K1; then hold a recorded mixed step's and
    decode step's attention outputs against the plain version, and one
-   short request's greedy tokens against the CPU engine;
+   short request's greedy tokens against the CPU engine.  Every serve
+   of 4-7 and 12 runs its steps as captured CUDA graphs (the engine's
+   default): after its first run no ``*_retraces`` counter may have
+   moved and each step kind it runs must have counted one compile (a
+   legacy serve one prefill compile a bucket); the split f32, the int8,
+   the ragged f32 and the split prompt-lookup serves run again under
+   ``disable_capture()``, where the greedy tokens must equal the
+   captured serve's request by request and the K1/K2 launches the
+   captured serve's; the recorders run under ``disable_capture()`` (a
+   replay never calls the Python they wrap);
 5. quant  — the same serve with ``kv_quant="int8", serve_weights="int8"``:
    the checks of 4, int8 pages, reset page scales, 48 folded weight
    matrices, every step's attention through K2 and none through K1; the
@@ -52,9 +61,10 @@ Phases, in order; any failure exits non-zero:
    (mixed steps + verify rounds) + draft layers x draft steps; a recorded
    verify step against the plain version; one short request's greedy
    tokens, split and ragged spec engines against the CPU's non-spec
-   engine.  Every serve of 4-7 runs 3 times: tokens/s of each run and
-   their spread, acceptance and tokens equal to the f32 split serve's are
-   printed, not gated;
+   engine.  Every serve of 4-7 and 12 runs 3 times: tokens/s of each run
+   and their spread, the host milliseconds a step and the peak memory
+   (captured and eager side by side where both ran), acceptance and
+   tokens equal to the f32 split serve's are printed, not gated;
 8. flash  — hold kernels K3 (flash-attention forward) and K4 (its
    backward: dkv and dq) against their plain versions on the card at
    the train path's shape (B=16, H=12, S=1024, D=64, causal; f32 and
@@ -77,7 +87,12 @@ Phases, in order; any failure exits non-zero:
 11. ln train — the train of 9 with ``FLAGS_use_pallas_layernorm`` on: 2
    warm-up and 3 timed steps; K5 launched once per LayerNorm module (25)
    per step, K3/K4 12 times; the first loss against 9's;
-12. report — one JSON line of kernels, the card line, and the last line
+12. legacy — the serve of 4 with ``chunked_prefill=False`` (each prompt
+   one `_gpt_prefill` pass between steps, one graph a power-of-two
+   bucket), in f32 and with int8 KV pages and weights: K1 (K2) launched
+   num_layers x decode steps; one short request's greedy tokens against
+   the CPU's legacy engine (f32), or its int8 pools against the CPU's;
+13. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -85,6 +100,7 @@ imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import statistics
@@ -229,8 +245,8 @@ def quant_pages(torch, hkv, npages, page, d, gen):
              ).repeat_interleave(page)[:, None, None]
     pages = torch.zeros(hkv, npages, page, d, dtype=torch.int8, device=dev)
     scales = torch.zeros(hkv, npages, device=dev)
+    # every row written, none dropped: the pages need no drop page
     paged_quant_write(pages, scales, (
-        torch.arange(rows, device=dev),
         torch.arange(npages, device=dev).repeat_interleave(page),
         torch.arange(page, device=dev).repeat(npages),
         torch.arange(npages, device=dev)), vals)
@@ -536,37 +552,73 @@ class AttentionRecorder:
 
 
 SERVE_RUNS = 3  # timed serves of each configuration, for the spread
+# the step trackers' compile counters (`inference.serving._StepGraph`)
+COMPILE_KEYS = ("decode_compiles", "mixed_compiles", "ragged_compiles",
+                "verify_compiles", "draft_compiles", "prefill_compiles",
+                "kv_quant_compiles")
 
 
-def serve_once(torch, new_engine, prompts):
-    """One serve of ``prompts`` on a fresh engine: ``(engine, requests,
-    wall seconds)``."""
+def compiles(**kinds):
+    """The compile counters a serve must show: ``kinds`` (e.g.
+    ``decode=1``), every other kind 0."""
+    return {k: kinds.get(k[:-len("_compiles")], 0) for k in COMPILE_KEYS}
+
+
+def capturing(capture):
+    """The steps as captured graphs (the engine's default), or eager."""
+    from paddle_tpu_torch.inference.serving import disable_capture
+
+    return contextlib.nullcontext() if capture else disable_capture()
+
+
+def serve_once(torch, new_engine, prompts, capture=True):
+    """One serve of ``prompts`` on a fresh engine, its steps captured or
+    eager: ``(engine, requests, wall seconds)``."""
     from paddle_tpu_torch.tools import serve_profile
 
-    eng = new_engine()
-    t0 = time.perf_counter()
-    reqs = [eng.add_request(p, max_new_tokens=serve_profile.NEW_TOKENS)
-            for p in prompts]
-    eng.run()
-    torch.cuda.synchronize()
+    with capturing(capture):
+        eng = new_engine()
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, max_new_tokens=serve_profile.NEW_TOKENS)
+                for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
     return eng, reqs, time.perf_counter() - t0
 
 
-def drive_serve(torch, new_engine, prompts, cfg, label):
+def drive_serve(torch, new_engine, prompts, cfg, label, want, capture=True):
     """Serve ``prompts`` on a fresh engine with every count set to 0 just
-    before; check that every request finished by length with tokens in
-    the vocabulary, that the pool drained and that the prefix cache hit;
+    before, its steps captured (or, with ``capture=False``, eager); check
+    that every request finished by length with tokens in the vocabulary,
+    that the pool drained, that the prefix cache hit (chunked engines),
+    that no retrace counter moved, that the compile counters are
+    ``want`` and, captured, that each compiled step took one graph;
     then serve them `SERVE_RUNS` - 1 more times for the spread of
     tokens/s.  Returns ``(engine, stats, counts, summary)``; the summary
     keeps each request's tokens under ``tokens`` (not printed)."""
+    from paddle_tpu_torch.inference import serving
     from paddle_tpu_torch.tools import serve_profile
 
     torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    serving.reset_decode_stats()
     reset_counts()
-    eng, reqs, wall = serve_once(torch, new_engine, prompts)
+    eng, reqs, wall = serve_once(torch, new_engine, prompts, capture)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     st = eng.decode_stats()
+    pst = serving.decode_stats()
+    retraces = {k: v for k, v in pst.items()
+                if k.endswith("_retraces") or k == "retraces_after_warmup"}
+    if any(retraces.values()):
+        fail(f"{label}: a step retraced after warm-up: {retraces}")
+    got = {k: pst[k] for k in COMPILE_KEYS}
+    if got != want:
+        fail(f"{label}: compile counters {got} != {want}")
+    graphs = eng.graph_captures()
+    if graphs != (sum(want.values()) if capture else 0):
+        fail(f"{label}: {graphs} graphs captured for the compiles {want} "
+             f"({'captured' if capture else 'eager'} serve)")
 
     for r in reqs:
         toks = r.generated_ids
@@ -579,10 +631,10 @@ def drive_serve(torch, new_engine, prompts, cfg, label):
     if eng.pool.available_count != eng.pool.num_pages:
         fail(f"{label}: pool did not drain: {eng.pool.available_count} of "
              f"{eng.pool.num_pages} pages available")
-    if st["prefix_hits"] <= 0:
+    if eng._chunked and st["prefix_hits"] <= 0:
         fail(f"{label}: no prefix-cache hit")
     rates = [st["tokens"] / wall] + [
-        st["tokens"] / serve_once(torch, new_engine, prompts)[2]
+        st["tokens"] / serve_once(torch, new_engine, prompts, capture)[2]
         for _ in range(SERVE_RUNS - 1)]
     spec = st["spec_steps"] > 0
     decode_steps = 0 if spec else st["steps"] - st["mixed_steps"]
@@ -595,11 +647,19 @@ def drive_serve(torch, new_engine, prompts, cfg, label):
         / statistics.median(rates),
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         decode_steps=decode_steps, ragged_steps=st["ragged_steps"],
-        mean_mixed_step_ms=st["mixed_step_s"] / st["mixed_steps"] * 1e3,
+        mean_mixed_step_ms=(st["mixed_step_s"] / st["mixed_steps"] * 1e3
+                            if st["mixed_steps"] else None),
         mean_decode_step_ms=(st["decode_step_s"] / decode_steps * 1e3
                              if decode_steps else None),
+        host_ms_per_step=wall / st["steps"] * 1e3,
         prefix_hits=st["prefix_hits"], launches=counts,
-        peak_memory_bytes=peak)
+        peak_memory_bytes=peak,
+        # the serve's own: what earlier phases left allocated excluded
+        peak_memory_above_start_bytes=peak - start_bytes,
+        captured=capture, compiles=got,
+        graphs=graphs, capture_s=eng._graph_memory.capture_s,
+        prefills=pst["prefills"],
+        stalled_decode_steps=pst["stalled_decode_steps"])
     if spec:
         summary.update(
             {k: st[k] for k in ("spec_steps", "spec_proposed",
@@ -614,7 +674,41 @@ def drive_serve(torch, new_engine, prompts, cfg, label):
 
 
 def printable(summary):
-    return json.dumps({k: v for k, v in summary.items() if k != "tokens"})
+    return json.dumps({k: v for k, v in summary.items()
+                       if k not in ("tokens", "eager")})
+
+
+def eager_twin(torch, new_engine, prompts, cfg, label, want, serve,
+               kernel):
+    """The serve of ``serve`` again with every step eager
+    (`disable_capture`): the greedy tokens must equal the captured
+    serve's request by request, and ``kernel``'s launches the captured
+    serve's.  Prints both serves' tokens/s (median and spread), host
+    milliseconds a step and peak memory side by side; stores the eager
+    summary under ``serve["eager"]``."""
+    _, _, counts, eager = drive_serve(torch, new_engine, prompts, cfg,
+                                      f"{label} (eager)", want,
+                                      capture=False)
+    for i, (a, b) in enumerate(zip(serve["tokens"], eager["tokens"])):
+        if a != b:
+            fail(f"{label}: request {i}'s greedy tokens differ between the "
+                 f"captured and the eager serve")
+    if counts[kernel] != serve["launches"][kernel]:
+        fail(f"{label}: {kernel} launches {serve['launches'][kernel]} "
+             f"captured, {counts[kernel]} eager")
+    print(f"{label} captured / eager: tokens/s median "
+          f"{serve['tokens_per_s_median']:.1f} / "
+          f"{eager['tokens_per_s_median']:.1f} (spread "
+          f"{serve['tokens_per_s_spread']:.1%} / "
+          f"{eager['tokens_per_s_spread']:.1%}), host ms a step "
+          f"{serve['host_ms_per_step']:.3f} / {eager['host_ms_per_step']:.3f}"
+          f", peak memory above the start "
+          f"{serve['peak_memory_above_start_bytes']} / "
+          f"{eager['peak_memory_above_start_bytes']} bytes; "
+          f"{serve['graphs']} graphs "
+          f"captured in {serve['capture_s']:.3f} s; tokens equal, "
+          f"{kernel} launches {counts[kernel]} both", flush=True)
+    serve["eager"] = {k: v for k, v in eager.items() if k != "tokens"}
 
 
 def token_share(a, b):
@@ -629,10 +723,13 @@ def check_recorded_steps(torch, model, prompts, label,
     """The attention outputs of one real step of each of ``kinds``,
     recorded on the path, against the plain version on the same inputs
     (a check, not a route the engine can take)."""
-    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.inference.serving import (DecodeEngine,
+                                                    disable_capture)
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    with AttentionRecorder(pa, engine_kw.get("spec_decode_k")) as rec:
+    # eager: a replayed graph never calls the Python the recorder wraps
+    with disable_capture(), \
+            AttentionRecorder(pa, engine_kw.get("spec_decode_k")) as rec:
         DecodeEngine(model, max_batch_size=2, page_size=64,
                      **engine_kw).generate(
             [prompts[0][:100], prompts[2][:150]], max_new_tokens=max_new)
@@ -652,16 +749,17 @@ def check_recorded_steps(torch, model, prompts, label,
     return checks
 
 
-def greedy_card_vs_cpu(model, cpu_model, prompt, label, card_kw):
+def greedy_card_vs_cpu(model, cpu_model, prompt, label, card_kw,
+                       cpu_kw=None):
     """Greedy tokens of one short request (8 new) on an engine on the card
     (``card_kw`` added) against the CPU's default engine (the plain
-    version), same weights."""
+    version; ``cpu_kw`` added), same weights."""
     from paddle_tpu_torch.inference.serving import DecodeEngine
 
     kw = dict(max_batch_size=1, max_seq_len=128, page_size=64)
     gpu = DecodeEngine(model, **kw, **card_kw).generate([prompt], 8)[0]
-    cpu = DecodeEngine(cpu_model, device="cpu", **kw).generate([prompt],
-                                                               8)[0]
+    cpu = DecodeEngine(cpu_model, device="cpu", **kw,
+                       **(cpu_kw or {})).generate([prompt], 8)[0]
     print(f"{label} greedy tokens, card vs CPU engine: {gpu} / {cpu}",
           flush=True)
     if gpu != cpu:
@@ -679,13 +777,16 @@ def serve_phase(torch):
     # GPT-2-small at full width, its prompts and its engine, warmed up
     model, prompts, new_engine = serve_profile.gpt2_small_serve("cuda")
     cfg = model.cfg
+    want = compiles(decode=1, mixed=1)
     _, st, counts, serve = drive_serve(torch, new_engine, prompts, cfg,
-                                       "serve")
+                                       "serve", want)
     launches = counts["paged_attention"]
     if launches <= 0 or launches != cfg.num_layers * st["steps"]:
         fail(f"K1 launches {launches} != num_layers x steps "
              f"({cfg.num_layers} x {st['steps']})")
     print("serve: " + printable(serve), flush=True)
+    eager_twin(torch, new_engine, prompts, cfg, "serve", want, serve,
+               "paged_attention")
     checks = check_recorded_steps(torch, model, prompts, "serve")
 
     # end to end on a small input: greedy tokens of the card's engine
@@ -707,8 +808,9 @@ def serve_quant_phase(torch, f32_serve):
     model, prompts, new_engine = serve_profile.gpt2_small_serve(
         "cuda", kv_quant="int8", serve_weights="int8")
     cfg = model.cfg
+    want = compiles(decode=1, mixed=1, kv_quant=1)
     eng, st, counts, serve = drive_serve(torch, new_engine, prompts, cfg,
-                                         "quantized serve")
+                                         "quantized serve", want)
     launches = counts["paged_attention_q"]
     if launches <= 0 or launches != cfg.num_layers * st["steps"]:
         fail(f"K2 launches {launches} != num_layers x steps "
@@ -732,6 +834,8 @@ def serve_quant_phase(torch, f32_serve):
         "tokens_per_s_median", "mean_mixed_step_ms", "mean_decode_step_ms",
         "peak_memory_bytes") if serve[k] and f32_serve[k]}
     print("quantized serve: " + printable(serve), flush=True)
+    eager_twin(torch, new_engine, prompts, cfg, "quantized serve", want,
+               serve, "paged_attention_q")
     serve["step_attention_max_abs_err"] = check_recorded_steps(
         torch, model, prompts, "quantized serve", kv_quant="int8",
         serve_weights="int8")
@@ -835,8 +939,9 @@ def ragged_serve_phase(torch, f32_serve):
         model, prompts, new_engine = serve_profile.gpt2_small_serve(
             "cuda", ragged_step=True, **quant)
         cfg = model.cfg
+        want = compiles(ragged=1, kv_quant=int(bool(quant)))
         _, st, counts, serve = drive_serve(torch, new_engine, prompts, cfg,
-                                           label)
+                                           label, want)
         n = counts[kname]
         if st["ragged_steps"] != st["steps"] or \
                 n != cfg.num_layers * st["steps"] or n <= 0:
@@ -849,6 +954,9 @@ def ragged_serve_phase(torch, f32_serve):
         serve["tokens_equal_to_split_f32_serve"] = token_share(
             serve["tokens"], f32_serve["tokens"])
         print(f"{label}: " + printable(serve), flush=True)
+        if not quant:
+            eager_twin(torch, new_engine, prompts, cfg, label, want, serve,
+                       kname)
         serve["step_attention_max_abs_err"] = check_recorded_steps(
             torch, model, prompts, label, kinds=("mixed", "ragged"),
             ragged_step=True, **quant)
@@ -878,18 +986,22 @@ def spec_serve_phase(torch, f32_serve):
     from paddle_tpu_torch.tools import serve_profile
 
     out = {}
-    for name, kw in (
-            ("prompt_lookup_ragged", dict(ragged_step=True)),
-            ("prompt_lookup_split", {}),
-            ("self_split", dict(drafter="self")),
+    for name, kw, want_compiles in (
+            ("prompt_lookup_ragged", dict(ragged_step=True),
+             compiles(ragged=1)),
+            ("prompt_lookup_split", {}, compiles(mixed=1, verify=1)),
+            # the draft's chunk ingest, catch-up and single-token step
+            ("self_split", dict(drafter="self"),
+             compiles(mixed=1, verify=1, draft=3)),
             ("draft_model_ragged", dict(ragged_step=True,
-                                        drafter="draft_model"))):
+                                        drafter="draft_model"),
+             compiles(ragged=1, draft=3))):
         label = f"spec serve {name}"
         model, prompts, new_engine = serve_profile.gpt2_small_serve(
             "cuda", spec_decode_k=SPEC_K, **kw)
         cfg = model.cfg
         eng, st, counts, serve = drive_serve(torch, new_engine, prompts,
-                                             cfg, label)
+                                             cfg, label, want_compiles)
         drafter = eng._spec.drafter
         draft_layers = draft_steps = 0
         if isinstance(drafter, DraftModelDrafter):
@@ -910,6 +1022,9 @@ def spec_serve_phase(torch, f32_serve):
                      tokens_equal_to_split_f32_serve=token_share(
                          serve["tokens"], f32_serve["tokens"]))
         print(f"{label}: " + printable(serve), flush=True)
+        if name == "prompt_lookup_split":
+            eager_twin(torch, new_engine, prompts, cfg, label,
+                       want_compiles, serve, "paged_attention")
         if name == "self_split" and \
                 st["acceptance_rate"] < SELF_DRAFT_MIN_ACCEPTANCE:
             fail(f"{label}: acceptance_rate {st['acceptance_rate']} < "
@@ -924,6 +1039,53 @@ def spec_serve_phase(torch, f32_serve):
         greedy_card_vs_cpu(model, cpu_model, prompts[1][:64],
                            f"spec serve {'ragged' if ragged else 'split'}",
                            dict(spec_decode_k=SPEC_K, ragged_step=ragged))
+    return out
+
+
+def legacy_serve_phase(torch, f32_serve):
+    """The serve of `serve_phase` with ``chunked_prefill=False``, in f32
+    (K1) and with int8 KV pages and weights (K2): each prompt one legacy
+    prefill pass between steps (one graph a bucket), every step a decode
+    step launching the kernel once a layer; one short request's greedy
+    tokens against the CPU's legacy engine (f32), its int8 pools against
+    the CPU's (int8)."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import serve_profile
+
+    out = {}
+    for label, quant in (("legacy serve", {}),
+                         ("quantized legacy serve",
+                          dict(kv_quant="int8", serve_weights="int8"))):
+        kname = "paged_attention_q" if quant else "paged_attention"
+        model, prompts, new_engine = serve_profile.gpt2_small_serve(
+            "cuda", chunked_prefill=False, **quant)
+        cfg = model.cfg
+        buckets = {new_engine()._prefill_bucket(len(p)) for p in prompts}
+        want = compiles(decode=1, prefill=len(buckets),
+                        kv_quant=int(bool(quant)))
+        _, st, counts, serve = drive_serve(torch, new_engine, prompts, cfg,
+                                           label, want)
+        n = counts[kname]
+        if st["mixed_steps"] or n <= 0 or n != cfg.num_layers * st["steps"]:
+            fail(f"{label}: {kname} launches {n}, steps {st['steps']}, mixed "
+                 f"steps {st['mixed_steps']}: want {cfg.num_layers} x decode "
+                 f"steps and no mixed step")
+        if serve["prefills"] != len(prompts):
+            fail(f"{label}: {serve['prefills']} prefills of {len(prompts)} "
+                 f"prompts")
+        serve.update(launches_of_path=n, prefill_buckets=sorted(buckets),
+                     tokens_equal_to_split_f32_serve=token_share(
+                         serve["tokens"], f32_serve["tokens"]))
+        print(f"{label}: " + printable(serve), flush=True)
+        cpu_model = GPT.random(cfg, seed=serve_profile.SEED, device="cpu")
+        legacy = dict(chunked_prefill=False)
+        if quant:
+            serve["card_vs_cpu"] = quant_pools_card_vs_cpu(
+                torch, model, cpu_model, prompts[1][:64], **legacy)
+        else:
+            greedy_card_vs_cpu(model, cpu_model, prompts[1][:64], label,
+                               legacy, cpu_kw=legacy)
+        out["int8" if quant else "f32"] = serve
     return out
 
 
@@ -1477,15 +1639,21 @@ def main(argv) -> int:
     # 11. train with K5
     train_ln = ln_train_phase(torch, train)
 
-    # 12. report
+    # 12. the legacy one-shot prefill, f32 and int8
+    legacy = legacy_serve_phase(torch, serve)
+
+    # 13. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
                     ragged_serve=ragged["f32"]["launches_of_path"],
+                    legacy_serve=legacy["f32"]["launches_of_path"],
                     **{f"spec_serve_{k}": v["launches_of_path"]
                        for k, v in spec.items()})
     k2_paths = dict(quantized_serve=launches_q,
                     quantized_ragged_serve=ragged["int8"][
+                        "launches_of_path"],
+                    quantized_legacy_serve=legacy["int8"][
                         "launches_of_path"])
     for name, replaces, kcases, n, paths, library in (
             ("paged_attention", K1_REPLACES, cases, launches, k1_paths,
@@ -1547,7 +1715,8 @@ def main(argv) -> int:
     result = dict(card=card, build_s=build_s, kernel_build=builds,
                   kernels=kernels, serve=serve,
                   serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
-                  train=train, train_layer_norm=train_ln)
+                  serve_legacy=legacy, train=train,
+                  train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -28,15 +28,25 @@ and it reads the int8 weight and writes an f32 copy on every call.
 The step functions are plain functions over the params dict and the
 page pools, as in the JAX package, and record no autograd graph.  Where JAX donates the pools to a
 jitted step and gets new ones back, the port writes into the pool
-tensors in place.  The containment ladder, journal, telemetry plane,
-schedulers other than FIFO, the legacy one-shot prefill and the
-tensor-parallel mesh are later slices.
+tensors in place.  Where JAX compiles each step into one executable per
+signature (`_JitTracker`), the port runs each through a `_StepGraph`: on
+the card, one CUDA graph per signature, captured at the step's first
+call and replayed after; on the CPU, or inside `disable_capture()`, the
+step runs eagerly.  Both count the JAX package's ``<kind>_compiles`` and
+``<kind>_retraces`` in the process-wide `decode_stats` (the schema of
+`paddle_tpu_torch.profiler`).  The legacy one-shot prefill
+(``chunked_prefill=False``: `_gpt_prefill`, one graph per power-of-two
+prompt bucket) is the chunked path's greedy oracle, as in JAX.  The
+containment ladder, journal, telemetry plane, schedulers other than
+FIFO and the tensor-parallel mesh are later slices.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import heapq
 import itertools
+import threading
 import time
 from collections import Counter, OrderedDict, deque
 from typing import Dict, List, Optional
@@ -48,17 +58,234 @@ import torch.nn.functional as F
 from ..core import flags as _flags
 from ..device import resolve_device
 from ..nn.decode import sample_logits
+from ..nn.functional.attention import _sdpa_reference
 from ..ops import paged_attention as pa
 from ..ops.layer_norm import layer_norm
+from ..profiler import DECODE_STAT_COUNTERS, _decode_stat_zero
 from ..quantization.int8 import Q_MAX, quantize_weight
 from .errors import PoolExhausted
 
 __all__ = ["KVBlockPool", "Request", "DecodeEngine", "sample_logits",
-           "NAN_TOKEN"]
+           "NAN_TOKEN", "decode_stats", "reset_decode_stats",
+           "disable_capture"]
 
 # the sampled-token value of a row whose logits were not all finite: the
 # host finishes that slot alone (finish_reason "fault")
 NAN_TOKEN = -1
+
+
+# ---------------------------------------------------------------------------
+# Telemetry (profiler.decode_stats): process-wide counters under one lock,
+# every engine's deltas summed, with JAX's keys
+# ---------------------------------------------------------------------------
+_STATS_LOCK = threading.RLock()
+_STATS = {k: _decode_stat_zero(k) for k in DECODE_STAT_COUNTERS}
+
+
+def _stats_add(**deltas):
+    """Apply counter deltas atomically (one lock round per call)."""
+    with _STATS_LOCK:
+        for k, v in deltas.items():
+            _STATS[k] += v
+
+
+def decode_stats(reset=False):
+    """Serving telemetry summed over every `DecodeEngine` of the process:
+    the counters of `profiler.DECODE_STAT_COUNTERS` and the derived
+    ``avg_step_ms``, ``batch_occupancy``, ``kv_block_utilization``,
+    ``acceptance_rate`` and ``mean_accepted_per_step``, as the JAX
+    package computes them.  ``retraces_after_warmup`` must stay 0 once
+    every step has met its shapes.  ``reset=True`` zeroes the counters
+    in the same lock round as the read."""
+    with _STATS_LOCK:
+        out = dict(_STATS)
+        if reset:
+            reset_decode_stats()
+    steps = max(out["steps"], 1)
+    out["avg_step_ms"] = out["decode_time_s"] / steps * 1e3
+    out["batch_occupancy"] = out["occupancy_sum"] / steps
+    out["kv_block_utilization"] = out["kv_util_sum"] / steps
+    out["acceptance_rate"] = out["spec_accepted"] / max(
+        out["spec_proposed"], 1)
+    out["mean_accepted_per_step"] = out["spec_emitted"] / max(
+        out["spec_slot_steps"], 1)
+    return out
+
+
+def reset_decode_stats():
+    with _STATS_LOCK:
+        for k in _STATS:
+            _STATS[k] = _decode_stat_zero(k)
+
+
+# ---------------------------------------------------------------------------
+# One captured step per signature (counterpart: _JitTracker)
+# ---------------------------------------------------------------------------
+_CAPTURE_OFF = [0]  # open `disable_capture` blocks
+
+
+@contextlib.contextmanager
+def disable_capture():
+    """Inside the block every `_StepGraph` runs its step eagerly, as JAX
+    runs a jitted function under ``jax.disable_jit``: no graph is
+    captured or replayed, and the counters count as before.  For
+    comparisons against the captured serve, and for code that must see
+    each step's Python call (a recorder that wraps a function the step
+    calls)."""
+    _CAPTURE_OFF[0] += 1
+    try:
+        yield
+    finally:
+        _CAPTURE_OFF[0] -= 1
+
+
+# the kernel wrappers a serving step launches: each counts the launches a
+# capture records (`ops.paged_attention._PagedAttentionCuda.captured`)
+_LAUNCH_COUNTED = (pa.paged_attention_cuda, pa.paged_attention_cuda_q)
+
+
+class _GraphMemory:
+    """What an engine's graphs share: one memory pool (they replay one
+    at a time, in the order the engine calls them, on one stream) and
+    the side stream that warms each step up and captures it.  Made at
+    the first capture."""
+
+    def __init__(self):
+        self.pool = self.stream = None
+        self.capture_s = 0.0  # host seconds spent warming up and capturing
+
+    def ready(self):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream()
+        return self
+
+
+class _Captured:
+    """One step signature's CUDA graph: its inputs' static device
+    buffer (every input at a 16-byte offset) with a pinned host twin, so
+    a call stages its inputs with one asynchronous copy, and its static
+    output.  ``launch_counts`` are the kernel launches the capture
+    recorded, added to each wrapper's ``launches`` on every replay."""
+
+    def __init__(self, host, device):
+        offs, total = [], 0
+        for a in host:
+            offs.append(total)
+            total += -(-a.nbytes // 16) * 16
+        self._pinned = torch.empty(max(total, 16), dtype=torch.uint8,
+                                   pin_memory=True)
+        self._buf = torch.empty(max(total, 16), dtype=torch.uint8,
+                                device=device)
+        self._host, self.inputs = [], []
+        for a, off in zip(host, offs):
+            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+            self._host.append(self._pinned[off:off + a.nbytes].view(
+                dtype).view(a.shape).numpy())
+            self.inputs.append(self._buf[off:off + a.nbytes].view(
+                dtype).view(a.shape))
+        self._copied = torch.cuda.Event()
+        self.graph = self.out = None
+        self.launch_counts = ()
+
+    def load(self, host):
+        """Stage ``host`` into the static inputs, on the current stream.
+        The pinned buffer is rewritten only once its last copy is done."""
+        self._copied.synchronize()
+        for dst, a in zip(self._host, host):
+            dst[...] = a
+        self._buf.copy_(self._pinned, non_blocking=True)
+        self._copied.record()
+
+    def replay(self, host):
+        self.load(host)
+        self.graph.replay()
+        for w, n in self.launch_counts:
+            w.launches += n
+        return self.out
+
+
+class _StepGraph:
+    """The port's `_JitTracker`: one step function, counted as JAX
+    counts its executables, and on the card one CUDA graph per signature.
+
+    ``fn`` takes the step's per-call inputs as device tensors (weights,
+    pools, generator and static keywords bound in) and returns a tensor
+    or None; the tracker is called with those inputs as host numpy
+    arrays, whose shapes and dtypes are the signature.  Construction
+    counts one ``compile_key``; a signature first met after the first
+    call counts ``<kind>_retraces`` and ``retraces_after_warmup``, as
+    `_JitTracker.check_retrace` counts cache growth.
+
+    On the CPU, and inside `disable_capture`, the step runs eagerly.  On
+    the card a new signature stages its inputs into a `_Captured`'s
+    static buffer, runs the step once eagerly on the side stream (this
+    call's result: it also makes every lazy handle, kernel attribute and
+    counter a capture must not create), then captures it into the
+    engine's shared pool; later calls copy their inputs in and replay.
+    ``generator`` (an engine that samples) is registered with each
+    graph, so a replay advances it as the eager step would.  A capture
+    or replay that raises propagates: nothing falls back to eager."""
+
+    def __init__(self, fn, compile_key, device, memory, generator=None):
+        self.fn = fn
+        self.compile_key = compile_key
+        self._retrace_key = compile_key.replace("_compiles", "_retraces")
+        self._device = device
+        self._memory = memory
+        self._generator = generator
+        self._seen = set()
+        self._graphs: Dict[tuple, _Captured] = {}
+        _stats_add(**{compile_key: 1})
+
+    @property
+    def captures(self) -> int:
+        return len(self._graphs)
+
+    def __call__(self, *host):
+        sig = tuple((a.shape, a.dtype.str) for a in host)
+        if sig not in self._seen:
+            if self._seen:
+                _stats_add(retraces_after_warmup=1,
+                           **{self._retrace_key: 1})
+            self._seen.add(sig)
+        if self._device.type != "cuda" or _CAPTURE_OFF[0]:
+            return self.fn(*(torch.from_numpy(np.ascontiguousarray(a)).to(
+                self._device) for a in host))
+        cap = self._graphs.get(sig)
+        if cap is None:
+            cap, out = self._capture(host)
+            self._graphs[sig] = cap
+            return out
+        return cap.replay(host)
+
+    def _capture(self, host):
+        t0 = time.perf_counter()
+        mem = self._memory.ready()
+        cur = torch.cuda.current_stream(self._device)
+        cap = _Captured(host, self._device)
+        cap.load(host)
+        mem.stream.wait_stream(cur)
+        with torch.cuda.stream(mem.stream):
+            out = self.fn(*cap.inputs)
+            before = [w.captured for w in _LAUNCH_COUNTED]
+            graph = torch.cuda.CUDAGraph()
+            if self._generator is not None:
+                graph.register_generator_state(self._generator)
+            graph.capture_begin(pool=mem.pool)
+            try:
+                cap.out = self.fn(*cap.inputs)
+            finally:
+                graph.capture_end()
+        cur.wait_stream(mem.stream)
+        if out is not None:
+            out.record_stream(cur)
+        cap.graph = graph
+        cap.launch_counts = tuple(
+            (w, w.captured - b) for w, b in zip(_LAUNCH_COUNTED, before)
+            if w.captured > b)
+        mem.capture_s += time.perf_counter() - t0
+        return cap, out
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +333,12 @@ class KVBlockPool:
     def available_count(self) -> int:
         """Pages `alloc_page` can hand out now: free + evictable."""
         return len(self._free) + len(self._lru)
+
+    def utilization(self) -> float:
+        """Share of the pool a new request cannot claim: private and
+        referenced cached pages (an idle warm cache reads 0.0)."""
+        return (self.num_pages - self.available_count) / max(
+            self.num_pages, 1)
 
     def alloc_page(self) -> int:
         if self._free:
@@ -413,10 +646,11 @@ def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
     0.  block_tables: [B, pages_max] int32; seq_lens, tokens: [B] int32;
     active: [B] bool; k_scales/v_scales: [L, Hkv, P] f32 with int8 pages
     (`_gpt_decode_step_q` of the JAX package).  Returns [B] int32 (0 for
-    inactive slots), and with int8 pages [B+1]: the refold count last."""
+    inactive slots), and with int8 pages [B+1]: the refold count last.
+    The pools hold the drop page last (`_pool_shape`)."""
     b = tokens.shape[0]
     h = num_heads * head_dim
-    num_pages_total, page = k_pages.shape[2], k_pages.shape[3]
+    num_pages_total, page = k_pages.shape[2] - 1, k_pages.shape[3]
     pos = seq_lens.long()
     # gathers clamp their index explicitly (JAX clamps, torch raises)
     wpe = params["wpe"]
@@ -426,7 +660,7 @@ def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
         active, block_tables.long()[torch.arange(b, device=pos.device),
                                     bt_col], num_pages_total)
     # one row per sequence: the rows' pages are the refold set
-    rows = pa.paged_write_rows(page_idx, pos % page, num_pages_total)
+    rows = pa.paged_write_rows(page_idx, pos % page)
     lens_now = seq_lens + active.to(seq_lens.dtype)
     refolds = None
 
@@ -459,20 +693,17 @@ def _forward_rows(params, k_pages, v_pages, block_tables, seq_lens, tokens,
     Returns ``(x [B, Q, h] before the final LayerNorm, refolds or None)``."""
     b, qn = tokens.shape
     h = num_heads * head_dim
-    num_pages_total, page = k_pages.shape[2], k_pages.shape[3]
+    num_pages_total, page = k_pages.shape[2] - 1, k_pages.shape[3]
     offs = torch.arange(qn, dtype=torch.int64, device=tokens.device)
     pos = seq_lens.long()[:, None] + offs[None, :]
     wpe = params["wpe"]
     x = params["wte"][tokens.long()] + wpe[pos.clamp(max=wpe.shape[0] - 1)]
     page_idx, slot = pa.paged_write_indices(
         block_tables, seq_lens, write_caps, qn, num_pages_total, page)
-    if k_scales is None:
-        rows = pa.paged_write_rows(page_idx, slot, num_pages_total)
-    else:
-        rows = pa.paged_quant_write_rows(
-            page_idx, slot, pa.paged_write_spans(
-                block_tables, seq_lens, write_caps, qn, num_pages_total,
-                page), num_pages_total)
+    rows = pa.paged_write_rows(page_idx, slot, None if k_scales is None
+                               else pa.paged_write_spans(
+                                   block_tables, seq_lens, write_caps, qn,
+                                   num_pages_total, page))
     lens_now = seq_lens + write_caps
     refolds = None
 
@@ -547,6 +778,77 @@ def _gpt_ragged_step(params, k_pages, v_pages, block_tables, seq_lens,
     return _pack(nxt.reshape(b, qn), refolds)
 
 
+@torch.no_grad()
+def _gpt_prefill(params, k_pages, v_pages, ids, true_len, bt_row, generator,
+                 *, num_heads, head_dim, eps, sampling, k_scales=None,
+                 v_scales=None):
+    """The legacy one-shot prompt pass for ONE request: causal attention
+    over the bucket-padded prompt in plain PyTorch (`_sdpa_reference`, as
+    JAX's `_gpt_prefill` attends with the XLA reference), every valid
+    row's K/V written into the request's pages (int8 pages through the
+    quantized write, `_gpt_prefill_q` of the JAX package), and the first
+    token sampled from the last valid row, picked on the device.
+
+    ids: [1, S_pad] int32; true_len: [1] int32, so one graph serves every
+    prompt of a bucket; bt_row: [pages_max] int32.  Rows at or past
+    ``true_len`` write into the drop page.  Returns [1] int32 (`NAN_TOKEN`
+    on non-finite logits), and with int8 pages [2]: the refold count
+    after the token."""
+    s_pad = ids.shape[1]
+    h = num_heads * head_dim
+    num_pages_total, page = k_pages.shape[2] - 1, k_pages.shape[3]
+    pos = torch.arange(s_pad, dtype=torch.int64, device=ids.device)
+    x = params["wte"][ids[0].long()] + params["wpe"][pos]
+    bt_idx = (pos // page).clamp(max=bt_row.shape[0] - 1)
+    page_idx = torch.where(pos < true_len.long(), bt_row.long()[bt_idx],
+                           num_pages_total)
+    spans = None
+    if k_scales is not None:
+        spans = pa.paged_write_spans(bt_row[None], torch.zeros_like(true_len),
+                                     true_len, s_pad, num_pages_total, page)
+    rows = pa.paged_write_rows(page_idx, pos % page, spans)
+    refolds = None
+
+    for li, blk in enumerate(params["blocks"]):
+        y = _ln(x, blk["ln1_w"], blk["ln1_b"], eps)
+        qkv = (_wmm(y, blk, "qkv_w") + blk["qkv_b"]).reshape(
+            s_pad, 3, num_heads, head_dim)
+        r, _ = _write_kv(k_pages, v_pages, k_scales, v_scales, li, rows,
+                         qkv[:, 1], qkv[:, 2])
+        refolds = r if refolds is None else refolds + r
+        q, k, v = (qkv[:, i].transpose(0, 1)[None] for i in range(3))
+        attn = _sdpa_reference(q, k, v, None, 0.0, None, True)[0]
+        x = _block_tail(x, blk, attn.transpose(0, 1).reshape(s_pad, h), eps)
+
+    last = x.index_select(0, (true_len - 1).long())       # [1, h]
+    return _pack(_sample(params, last, eps, generator, sampling), refolds)
+
+
+def _reset_kv_scales(k_scales, v_scales, fresh_idx):
+    """Zero the scale entries of pages handed out since the last step
+    (counterpart: `_reset_kv_scales` of the JAX package).  ``fresh_idx``
+    is a fixed [num_pages] int64 index padded with ``num_pages``, the
+    drop page, so every call has one signature.  A fill, not an indexed
+    assignment of 0.0, which would copy the scalar from the host (a
+    capture refuses that)."""
+    k_scales.index_fill_(2, fresh_idx, 0.0)
+    v_scales.index_fill_(2, fresh_idx, 0.0)
+
+
+def _scale_reset_graph(k_scales, v_scales, device, memory) -> "_StepGraph":
+    """The `_StepGraph` of one pool pair's `_reset_kv_scales`
+    (``kv_quant_compiles``): a draft model's pools get their own, as
+    their layer count may differ from the target's."""
+    return _StepGraph(lambda idx: _reset_kv_scales(k_scales, v_scales, idx),
+                      "kv_quant_compiles", device, memory)
+
+
+def _pool_shape(layers, heads, num_pages, page, head_dim):
+    """A KV pool for ``num_pages`` allocatable pages: one more, the drop
+    page (`ops.paged_attention`), where the rows JAX drops land."""
+    return (layers, heads, num_pages + 1, page, head_dim)
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
@@ -571,8 +873,14 @@ class DecodeEngine:
     ``kv_quant="int8"`` (kernel K2); ``serve_weights="int8"`` folds the
     matmul weights to int8.  ``ragged_step`` serves every step through
     `_gpt_ragged_step`; ``spec_decode_k`` (with ``drafter`` and
-    ``spec_adaptive_k``) speculates K tokens a round.  The flags of
-    `core.flags` fill every argument left None."""
+    ``spec_adaptive_k``) speculates K tokens a round.
+    ``chunked_prefill=False`` admits each request with one legacy
+    prompt pass (`_gpt_prefill`) between steps instead of feeding its
+    prompt through the mixed steps; it takes no prefix cache, as in JAX.
+    On the card every step kind runs as a CUDA graph per signature
+    (`_StepGraph`), captured at its first call; `disable_capture` runs
+    them eagerly.  The flags of `core.flags` fill every argument left
+    None."""
 
     def __init__(self, model, max_batch_size=4, max_seq_len=None,
                  page_size=None, num_pages=None, sampler="greedy",
@@ -624,8 +932,8 @@ class DecodeEngine:
         self._pages_per_seq = -(-self._max_seq_len // self._page)
         n_pages = int(num_pages or self._slots * self._pages_per_seq)
         self.pool = KVBlockPool(n_pages)
-        shape = (self._num_layers, self._num_heads, n_pages, self._page,
-                 self._head_dim)
+        shape = _pool_shape(self._num_layers, self._num_heads, n_pages,
+                            self._page, self._head_dim)
         if self._kv_quant:
             kv_dtype = torch.int8
         self._k_pages = torch.zeros(shape, dtype=kv_dtype, device=self.device)
@@ -636,7 +944,7 @@ class DecodeEngine:
         # any quantized write folds into them (`_flush_fresh_scales`)
         self._fresh_pages: List[int] = []
         if self._kv_quant:
-            sshape = (self._num_layers, self._num_heads, n_pages)
+            sshape = shape[:3]
             self._k_scales = torch.zeros(sshape, dtype=torch.float32,
                                          device=self.device)
             self._v_scales = torch.zeros(sshape, dtype=torch.float32,
@@ -661,19 +969,23 @@ class DecodeEngine:
         self._queue: "deque[Request]" = deque()
         self._stats = dict.fromkeys(_STAT_KEYS, 0)
         self._stats.update(dict.fromkeys(_STAT_SECONDS, 0.0))
+        self._evictions_seen = 0
+        # the step trackers, made at each kind's first step: graphs of one
+        # engine (its draft model's too) share one memory pool
+        self._graph_memory = _GraphMemory()
+        self._decode_fn = self._mixed_fn = self._ragged_fn = None
+        self._scale_reset_fn = None
+        self._prefill_fns: Dict[int, _StepGraph] = {}
         self._weight_quant = serve_weights == "int8"
         if self._weight_quant:
             self._params, mats, saved = _quantize_gpt_params(self._params)
-            self._stats.update(weight_quant_mats=mats,
-                               weight_quant_bytes_saved=saved)
+            self._add(weight_quant_mats=mats, weight_quant_bytes_saved=saved)
 
+        # the legacy one-shot prefill (chunked_prefill=False) stays the
+        # chunked path's greedy oracle, as in JAX
         if chunked_prefill is None:
             chunked_prefill = bool(_flags.flag("chunked_prefill"))
-        if not chunked_prefill:
-            raise NotImplementedError(
-                "chunked_prefill=False (the legacy one-shot prefill) is "
-                "not ported yet: it lands with a later slice of "
-                "paddle_tpu_torch")
+        self._chunked = bool(chunked_prefill)
         if prefill_chunk_tokens is None:
             prefill_chunk_tokens = int(_flags.flag("prefill_chunk_tokens"))
         if prefill_chunk_tokens < 1:
@@ -692,8 +1004,16 @@ class DecodeEngine:
             raise ValueError(
                 f"prefill_q_max must be >= 1, got {prefill_q_max}")
         self._q_max = min(int(prefill_q_max), self._chunk_budget)
+        # the prefix cache needs chunked prefill: the one-shot pass cannot
+        # start mid-prompt
         if prefix_cache is None:
-            prefix_cache = bool(_flags.flag("prefix_cache"))
+            prefix_cache = bool(_flags.flag("prefix_cache")) and \
+                self._chunked
+        elif prefix_cache and not self._chunked:
+            raise ValueError(
+                "prefix_cache needs chunked prefill: the legacy one-shot "
+                "prefill cannot start mid-prompt (set chunked_prefill=1, "
+                "or drop prefix_cache)")
         self._prefix_cache = bool(prefix_cache)
         self._model_salt = self._model_fingerprint() \
             if self._prefix_cache else b""
@@ -731,9 +1051,9 @@ class DecodeEngine:
         # Every step pays the whole grid, so an unpinned Q_max shrinks
         # to one page of span (never below the verify window)
         window = self._spec.k + 1 if self._spec is not None else 1
-        if self._ragged and not q_max_explicit:
+        if self._ragged and self._chunked and not q_max_explicit:
             self._q_max = min(self._q_max, max(self._page, window))
-        self._q_ragged = max(self._q_max, window)
+        self._q_ragged = max(self._q_max if self._chunked else 1, window)
 
     def _model_fingerprint(self) -> bytes:
         """The chain-hash root: the embedding's first row, one qkv row
@@ -768,6 +1088,73 @@ class DecodeEngine:
         out["mean_accepted_per_step"] = out["spec_emitted"] / max(
             out["spec_slot_steps"], 1)
         return out
+
+    def _add(self, **deltas):
+        """Add counter deltas to this engine's counters (the keys it
+        keeps) and to the process-wide ones (the keys of JAX's schema)."""
+        for k, v in deltas.items():
+            if k in self._stats:
+                self._stats[k] += v
+        _stats_add(**{k: v for k, v in deltas.items() if k in _STATS})
+
+    def _observe_step(self):
+        """After each engine step: cached pages the pool recycled since
+        the last one (`_observe_step` of the JAX package, its counter
+        alone)."""
+        if self._prefix_cache:
+            d = self.pool.evictions - self._evictions_seen
+            if d:
+                self._evictions_seen = self.pool.evictions
+                self._add(prefix_evictions=d)
+
+    def _tracker(self, step, compile_key) -> _StepGraph:
+        """A `_StepGraph` of ``step`` over this engine's weights, pools,
+        generator and sampling."""
+        params, kp, vp, gen = (self._params, self._k_pages, self._v_pages,
+                               self._generator)
+        kw = self._step_kwargs()
+        sampled = self._sampling["sampler"] != "greedy"
+        return _StepGraph(lambda *inputs: step(params, kp, vp, *inputs, gen,
+                                               **kw),
+                          compile_key, self.device, self._graph_memory,
+                          gen if sampled else None)
+
+    def _decode_tracker(self) -> _StepGraph:
+        if self._decode_fn is None:
+            self._decode_fn = self._tracker(_gpt_decode_step,
+                                            "decode_compiles")
+        return self._decode_fn
+
+    def _mixed_tracker(self) -> _StepGraph:
+        if self._mixed_fn is None:
+            self._mixed_fn = self._tracker(_gpt_mixed_step, "mixed_compiles")
+        return self._mixed_fn
+
+    def _ragged_tracker(self) -> _StepGraph:
+        """The ONE step a ragged engine runs for decode rows, prompt
+        chunks and verify windows alike (``ragged_compiles``)."""
+        if self._ragged_fn is None:
+            self._ragged_fn = self._tracker(_gpt_ragged_step,
+                                            "ragged_compiles")
+        return self._ragged_fn
+
+    def _prefill_tracker(self, bucket: int) -> _StepGraph:
+        """One prefill graph per prompt bucket: a new bucket is a
+        compile, never a retrace, as in JAX."""
+        fn = self._prefill_fns.get(bucket)
+        if fn is None:
+            fn = self._prefill_fns[bucket] = self._tracker(
+                _gpt_prefill, "prefill_compiles")
+        return fn
+
+    def graph_captures(self) -> int:
+        """CUDA graphs this engine and its draft model captured so far (0
+        on the CPU and inside `disable_capture`)."""
+        fns = [self._decode_fn, self._mixed_fn, self._ragged_fn,
+               self._scale_reset_fn, *self._prefill_fns.values()]
+        if self._spec is not None:
+            fns += self._spec.trackers()
+        return sum(f.captures for f in fns if f is not None)
 
     def _kv_byte_occupancy(self) -> dict:
         """Device bytes the KV pool holds in pages that are not free
@@ -860,7 +1247,10 @@ class DecodeEngine:
         self._queue.remove(req)
         slot = heapq.heappop(self._free_slots)
         try:
-            self._bind_slot(req, slot, total_pages, hit_pages)
+            if self._chunked:
+                self._bind_slot(req, slot, total_pages, hit_pages)
+            else:
+                self._prefill_into(req, slot, total_pages)
         except PoolExhausted:
             # the pool could not deliver what the capacity probe
             # promised: unwind the partial claim, stay queued at the head
@@ -907,11 +1297,57 @@ class DecodeEngine:
         self._active[slot] = True
         if self._prefix_cache:
             n_probe = (len(req.prompt_ids) - 1) // self._page
-            self._stats["prefix_hits"] += len(hit_pages)
-            self._stats["prefix_misses"] += n_probe - len(hit_pages)
-            self._stats["prefix_cached_tokens"] += start
+            self._add(prefix_hits=len(hit_pages),
+                      prefix_misses=n_probe - len(hit_pages),
+                      prefix_cached_tokens=start)
         if self._spec is not None:
             self._spec.on_admit(slot, req)
+
+    def _prefill_bucket(self, p_len: int) -> int:
+        """Power-of-two prompt bucket (floor 16, capped at the horizon),
+        so prompt lengths share prefill graphs; a draft model's one-shot
+        prefill buckets with this method too."""
+        bucket = 16
+        while bucket < p_len:
+            bucket *= 2
+        return min(bucket, self._max_seq_len)
+
+    def _prefill_into(self, req: Request, slot: int, total_pages: int):
+        """Legacy admission: allocate the prompt's pages and run its whole
+        prompt pass now, between steps (every decoding slot stalls for
+        it: ``stalled_decode_steps``), emitting the first token.  A NaN
+        sentinel finishes the request as "fault" with nothing emitted."""
+        self._alloc_prompt_pages(req, slot, total_pages)
+        if self._active.any():
+            self._add(stalled_decode_steps=1)
+        p_len = len(req.prompt_ids)
+        bucket = self._prefill_bucket(p_len)
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :p_len] = req.prompt_ids
+        fn = self._prefill_tracker(bucket)
+        t0 = time.perf_counter()
+        self._flush_fresh_scales()
+        tok = int(self._fetch(fn(ids, np.asarray([p_len], np.int32),
+                                 self._bt[slot]))[0])
+        self._add(prefill_time_s=time.perf_counter() - t0)
+
+        req.state = "running"
+        req.slot = slot
+        self._by_slot[slot] = req
+        self._lens[slot] = p_len
+        self._prefill_pos[slot] = p_len  # the prompt is consumed whole
+        self._last[slot] = max(tok, 0)
+        self._active[slot] = True
+        if tok < 0:
+            self._finish(slot, "fault")
+            return
+        self._add(prefills=1, tokens=1)
+        self._emit(req, [tok])
+        if self._spec is not None:
+            self._spec.on_admit(slot, req)
+        reason = self._done(req, tok)
+        if reason:
+            self._finish(slot, reason)
 
     def _release_slot(self, slot: int):
         self._by_slot[slot] = None
@@ -978,6 +1414,7 @@ class DecodeEngine:
             self._pages_for(req.total_kv_tokens()) - len(req.pages), 0)
         req.state = "done"
         req.finish_reason = reason
+        self._add(**{f"finished_{reason}": 1})
         req.slot = None
         req.pages = []
         self._release_slot(slot)
@@ -995,6 +1432,7 @@ class DecodeEngine:
         self._register_prompt_pages(req)
         self._emit(req, [tok])
         self._last[slot] = tok
+        self._add(prefills=1)
         reason = self._done(req, tok)
         if reason:
             self._finish(slot, reason)
@@ -1028,9 +1466,6 @@ class DecodeEngine:
         return p
 
     # -- steps ----------------------------------------------------------------
-    def _dev(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
     def _step_kwargs(self):
         kw = dict(num_heads=self._num_heads, head_dim=self._head_dim,
                   eps=self._eps, sampling=self._sampling)
@@ -1038,41 +1473,40 @@ class DecodeEngine:
             kw.update(k_scales=self._k_scales, v_scales=self._v_scales)
         return kw
 
+    def _scale_reset_tracker(self) -> _StepGraph:
+        if self._scale_reset_fn is None:
+            self._scale_reset_fn = _scale_reset_graph(
+                self._k_scales, self._v_scales, self.device,
+                self._graph_memory)
+        return self._scale_reset_fn
+
     def _flush_fresh_scales(self):
         """Zero the scale entries of the pages handed out since the last
-        step; runs before each step, and only with int8 pages."""
+        step, in the target's pools and a draft model's (they share the
+        page ids): one fixed-shape reset each; runs before each step, and
+        only with int8 pages."""
         if not self._fresh_pages:
             return
         # an id can repeat (alloc, unwind, alloc): the reset is idempotent
-        ids = self._dev(np.asarray(list(dict.fromkeys(self._fresh_pages)),
-                                   np.int64))
+        ids = list(dict.fromkeys(self._fresh_pages))
         self._fresh_pages = []
-        # a draft model's pools share the page ids, and their scales
-        scales = [(self._k_scales, self._v_scales)]
+        buf = np.full(self.pool.num_pages, self.pool.num_pages, np.int64)
+        buf[:len(ids)] = ids
+        self._scale_reset_tracker()(buf)
         if self._spec is not None and \
                 getattr(self._spec.drafter, "_k_scales", None) is not None:
-            d = self._spec.drafter
-            scales.append((d._k_scales, d._v_scales))
-        for ks, vs in scales:
-            ks[:, :, ids] = 0.0
-            vs[:, :, ids] = 0.0
-        self._stats["kv_quant_pages"] += int(ids.numel())
+            self._spec.drafter._scale_reset_tracker()(buf)
+        self._add(kv_quant_pages=len(ids))
 
     def _fetch(self, out: torch.Tensor) -> np.ndarray:
-        """A step's packed output on the host; with int8 pages the refold
-        count it carries is counted and dropped."""
+        """A step's packed output on the host (the step's one wait for
+        the device); with int8 pages the refold count it carries is
+        counted and dropped."""
         out = out.cpu().numpy()
         if self._kv_quant:
-            self._stats["kv_quant_refolds"] += int(out[-1].flat[0])
+            self._add(kv_quant_refolds=int(out[-1].flat[0]))
             out = out[:-1]
         return out
-
-    def _run_step(self, fn, *args) -> np.ndarray:
-        """Run one step function over the engine's weights and pools and
-        fetch its tokens (`_fetch`)."""
-        return self._fetch(fn(self._params, self._k_pages, self._v_pages,
-                              *args, self._generator,
-                              **self._step_kwargs()))
 
     def _mixed_step(self, decode_rows=True) -> bool:
         """One fused prefill+decode step over the fixed ``[slots, Q_max]``
@@ -1120,27 +1554,31 @@ class DecodeEngine:
         self._flush_fresh_scales()
 
         t0 = time.perf_counter()
-        bt, lens = self._dev(self._bt), self._dev(self._lens)
         if self._ragged:
             # a target at every position: the host picks each slot's
             # span-end row, and keeps NAN_TOKEN where the row faulted
-            toks = self._run_step(_gpt_ragged_step, bt, lens,
-                                  self._dev(tokens), self._dev(caps))
+            toks = self._fetch(self._ragged_tracker()(
+                self._bt, self._lens, tokens, caps))
             toks = np.where(sample_mask, toks[np.arange(slots), sample_idx],
                             0)
-            self._stats["ragged_steps"] += 1
         else:
-            toks = self._run_step(
-                _gpt_mixed_step, bt, lens, self._dev(tokens),
-                self._dev(caps), self._dev(sample_idx),
-                self._dev(sample_mask))
-        self._stats["mixed_step_s"] += time.perf_counter() - t0
+            toks = self._fetch(self._mixed_tracker()(
+                self._bt, self._lens, tokens, caps, sample_idx,
+                sample_mask))
+        dt = time.perf_counter() - t0
+        n_active = int(self._active.sum())
         if decode_rows:
+            self._add(mixed_steps=1, prefill_chunks=len(chunk_of), steps=1,
+                      ragged_steps=int(self._ragged), mixed_step_s=dt,
+                      decode_time_s=dt, occupancy_sum=n_active / slots,
+                      kv_util_sum=self.pool.utilization())
+        else:
             # a chunk-only step is prompt work: the round that follows
             # counts the engine step
-            self._stats["steps"] += 1
-        self._stats["mixed_steps"] += 1
-        self._stats["prefill_chunks"] += len(chunk_of)
+            self._add(mixed_steps=1, prefill_chunks=len(chunk_of),
+                      ragged_steps=int(self._ragged), mixed_step_s=dt,
+                      prefill_time_s=dt)
+        self._observe_step()
         if self._spec is not None and chunk_of:
             self._spec.drafter.ingest_chunks(tokens, caps)
 
@@ -1159,7 +1597,7 @@ class DecodeEngine:
                         emitted += 1
             elif caps[s] == 1:
                 emitted += self._land_decode_token(s, req, int(toks[s]))
-        self._stats["tokens"] += emitted
+        self._add(tokens=emitted)
         return True
 
     def _land_decode_token(self, slot: int, req: Request, tok: int) -> int:
@@ -1181,24 +1619,28 @@ class DecodeEngine:
         self._grow_block_tables()
         self._flush_fresh_scales()
         t0 = time.perf_counter()
-        toks = self._run_step(
-            _gpt_decode_step, self._dev(self._bt), self._dev(self._lens),
-            self._dev(self._last), self._dev(self._active))
-        self._stats["decode_step_s"] += time.perf_counter() - t0
-        self._stats["steps"] += 1
+        toks = self._fetch(self._decode_tracker()(
+            self._bt, self._lens, self._last, self._active))
+        dt = time.perf_counter() - t0
+        n_active = int(self._active.sum())
+        kv_util = self.pool.utilization()  # before the step's finishes
+        self._observe_step()
         emitted = 0
         for slot in range(self._slots):
             if self._active[slot]:
                 emitted += self._land_decode_token(
                     slot, self._by_slot[slot], int(toks[slot]))
-        self._stats["tokens"] += emitted
+        self._add(steps=1, tokens=emitted, decode_step_s=dt,
+                  decode_time_s=dt, occupancy_sum=n_active / self._slots,
+                  kv_util_sum=kv_util)
         return True
 
     def step(self) -> bool:
-        """Admit what fits, then run one batched step: a speculative round
-        with ``spec_decode_k``; else a mixed prefill+decode step while any
-        slot is mid-prefill, and a decode step otherwise — the ragged
-        step in both cases with ``ragged_step``.  Returns False when
+        """Admit what fits (a legacy engine runs each admitted prompt's
+        one-shot prefill here), then run one batched step: a speculative
+        round with ``spec_decode_k``; else a mixed prefill+decode step
+        while any slot is mid-prefill, and a decode step otherwise — the
+        ragged step in both cases with ``ragged_step``.  Returns False when
         nothing is left.  Errors propagate, a drafter's too (the
         containment ladder is a later slice)."""
         self._admit()

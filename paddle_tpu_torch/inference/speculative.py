@@ -11,6 +11,13 @@ last target as a bonus when every draft survives.  Every emitted token
 is a target draw, so greedy output equals the non-speculative engine's
 and sampled output follows the target distribution.
 
+Every step runs through a `serving._StepGraph`, as JAX runs each
+through a `_JitTracker`: the verify step (``verify_compiles``; the
+engine's ragged step with ``ragged_step``) and the draft model's chunk
+ingest, catch-up, single-token step and one-shot prefill
+(``draft_compiles``).  Adaptive K changes only the write caps, never a
+shape, so a warm speculative serve never meets a new signature.
+
 Rejection costs no page work: the verify window's rows go into pages the
 request already holds (`DecodeEngine._grow_block_tables(writes=...)`,
 the window clamped to the request's token budget), and a rejected tail
@@ -38,8 +45,9 @@ import numpy as np
 import torch
 
 from ..core import flags as _flags
-from .serving import (_gpt_decode_step, _gpt_mixed_step, _gpt_ragged_step,
-                      _quantize_gpt_params, _tree_to)
+from .serving import (_gpt_decode_step, _gpt_mixed_step, _gpt_prefill,
+                      _gpt_ragged_step, _pool_shape, _quantize_gpt_params,
+                      _scale_reset_graph, _StepGraph, _tree_to)
 
 __all__ = ["Drafter", "PromptLookupDrafter", "DraftModelDrafter",
            "SpeculativeDecoder", "make_drafter"]
@@ -149,14 +157,18 @@ class DraftModelDrafter(Drafter):
     admission, growth, rollback and release need nothing of the drafter.
 
     The draft decodes greedily.  It ingests prompt chunks through
-    `_gpt_mixed_step` over its weights; a round runs one catch-up pass
-    over the tokens accepted since it last saw the slot (`_gpt_spec_verify`
-    in the verify's [slots, K+1] frame) and K-1 single-token steps
-    (`_gpt_decode_step`).  With int8 pages its pools are int8 with their
-    own scales, which the engine zeroes for fresh pages as it does its
-    own; with int8 weights its weights fold to int8 too.  ``steps``
-    counts its step calls, each of which runs every draft layer's
-    attention once."""
+    `_gpt_mixed_step` over its weights (or, on a legacy engine, runs one
+    `_gpt_prefill` a request at admission, bucketed as the engine's); a
+    round runs one catch-up pass over the tokens accepted since it last
+    saw the slot (`_gpt_spec_verify` in the verify's [slots, K+1] frame)
+    and K-1 single-token steps (`_gpt_decode_step`).  Each is a
+    `_StepGraph` counted under ``draft_compiles``, the catch-up and the
+    single-token step made at bind as in JAX.  With int8 pages its pools
+    are int8 with their own scales, which the engine zeroes for fresh
+    pages as it does its own; with int8 weights its weights fold to int8
+    too.  ``steps`` counts its paged step calls, each of which runs every
+    draft layer's attention once (the one-shot prefill attends in plain
+    PyTorch and is not one of them)."""
 
     name = "draft_model"
 
@@ -184,11 +196,11 @@ class DraftModelDrafter(Drafter):
         self._params = _tree_to(self._params, engine.device)
         if engine._weight_quant and "qkv_w" in self._params["blocks"][0]:
             self._params, mats, saved = _quantize_gpt_params(self._params)
-            engine._stats["weight_quant_mats"] += mats
-            engine._stats["weight_quant_bytes_saved"] += saved
+            engine._add(weight_quant_mats=mats,
+                        weight_quant_bytes_saved=saved)
         n_layers = len(self._params["blocks"])
-        shape = (n_layers, self._num_heads, engine.pool.num_pages,
-                 engine._page, self._head_dim)
+        shape = _pool_shape(n_layers, self._num_heads, engine.pool.num_pages,
+                            engine._page, self._head_dim)
         dtype = engine._k_pages.dtype
         self._k_pages = torch.zeros(shape, dtype=dtype, device=engine.device)
         self._v_pages = torch.zeros(shape, dtype=dtype, device=engine.device)
@@ -206,19 +218,60 @@ class DraftModelDrafter(Drafter):
                                       top_k=0, top_p=1.0))
         if engine._kv_quant:
             self._kw.update(k_scales=self._k_scales, v_scales=self._v_scales)
+        self._catch_fn = self._tracker(_gpt_spec_verify)
+        self._step_fn = self._tracker(_gpt_decode_step)
+        self._chunk_fn = self._scale_reset_fn = None
+        self._prefill_fns = {}
 
-    def _run(self, fn, *args) -> torch.Tensor:
-        """One step function over the draft's weights and pools; the
-        greedy draft draws nothing from the generator it is handed."""
+    def _tracker(self, step) -> _StepGraph:
+        """A `_StepGraph` of ``step`` over the draft's weights and pools
+        (``draft_compiles``); the greedy draft draws nothing from the
+        generator it is handed."""
+        eng = self.engine
+        params, kp, vp, gen, kw = (self._params, self._k_pages,
+                                   self._v_pages, eng._generator, self._kw)
+        return _StepGraph(lambda *inputs: step(params, kp, vp, *inputs, gen,
+                                               **kw),
+                          "draft_compiles", eng.device, eng._graph_memory)
+
+    def _scale_reset_tracker(self) -> _StepGraph:
+        if self._scale_reset_fn is None:
+            self._scale_reset_fn = _scale_reset_graph(
+                self._k_scales, self._v_scales, self.engine.device,
+                self.engine._graph_memory)
+        return self._scale_reset_fn
+
+    def trackers(self):
+        return [self._catch_fn, self._step_fn, self._chunk_fn,
+                self._scale_reset_fn, *self._prefill_fns.values()]
+
+    def _run(self, fn, *host) -> torch.Tensor:
+        """One paged step of the draft (``fn`` a tracker of this
+        drafter's)."""
         self.steps += 1
-        return fn(self._params, self._k_pages, self._v_pages, *args,
-                  self.engine._generator, **self._kw)
+        return fn(*host)
 
     def on_admit(self, slot: int, req):
-        # the prompt arrives chunk by chunk (`ingest_chunks`) from the
-        # first token past a cached prefix, whose draft K/V the request
-        # that streamed those chunks wrote
-        self._lens[slot] = req.cached_prefix_len
+        eng = self.engine
+        if eng._chunked:
+            # the prompt arrives chunk by chunk (`ingest_chunks`) from the
+            # first token past a cached prefix, whose draft K/V the
+            # request that streamed those chunks wrote
+            self._lens[slot] = req.cached_prefix_len
+            return
+        # legacy: the whole prompt in one draft prefill through the
+        # slot's pages, bucketed as the engine's; its token is not read
+        p_len = len(req.prompt_ids)
+        bucket = eng._prefill_bucket(p_len)
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :p_len] = req.prompt_ids
+        fn = self._prefill_fns.get(bucket)
+        if fn is None:
+            fn = self._prefill_fns[bucket] = self._tracker(_gpt_prefill)
+        t0 = time.perf_counter()
+        fn(ids, np.asarray([p_len], np.int32), eng._bt[slot])
+        eng._add(draft_time_s=time.perf_counter() - t0)
+        self._lens[slot] = p_len
 
     def on_finish(self, slot: int, req):
         self._lens[slot] = 0
@@ -226,13 +279,14 @@ class DraftModelDrafter(Drafter):
     def ingest_chunks(self, tokens, caps):
         eng = self.engine
         caps = np.asarray(caps, np.int32)
+        if self._chunk_fn is None:
+            self._chunk_fn = self._tracker(_gpt_mixed_step)
         t0 = time.perf_counter()
         # nothing is sampled, so nothing is fetched: no host sync
-        self._run(_gpt_mixed_step, eng._dev(eng._bt), eng._dev(self._lens),
-                  eng._dev(tokens), eng._dev(caps),
-                  eng._dev(np.zeros(eng._slots, np.int32)),
-                  eng._dev(np.zeros(eng._slots, bool)))
-        eng._stats["draft_time_s"] += time.perf_counter() - t0
+        self._run(self._chunk_fn, eng._bt, self._lens, tokens, caps,
+                  np.zeros(eng._slots, np.int32),
+                  np.zeros(eng._slots, bool))
+        eng._add(draft_time_s=time.perf_counter() - t0)
         self._lens += caps
 
     def propose(self, write_caps) -> np.ndarray:
@@ -253,10 +307,8 @@ class DraftModelDrafter(Drafter):
             assert 1 <= pend <= k + 1, (pend, k)
             catch[s, :pend] = full[self._lens[s]:self._lens[s] + pend]
             caps[s] = pend
-        bt = eng._dev(eng._bt)
-        targets = eng._fetch(self._run(
-            _gpt_spec_verify, bt, eng._dev(self._lens), eng._dev(catch),
-            eng._dev(caps)))
+        targets = eng._fetch(self._run(self._catch_fn, eng._bt, self._lens,
+                                       catch, caps))
         self._lens[active] += caps[active]
         cur = np.where(active, targets[np.arange(slots),
                                        np.maximum(caps - 1, 0)],
@@ -269,9 +321,8 @@ class DraftModelDrafter(Drafter):
             step_active = active & (i <= write_caps - 1)
             if not step_active.any():
                 break
-            nxt = eng._fetch(self._run(
-                _gpt_decode_step, bt, eng._dev(self._lens), eng._dev(cur),
-                eng._dev(step_active))).astype(np.int32)
+            nxt = eng._fetch(self._run(self._step_fn, eng._bt, self._lens,
+                                       cur, step_active)).astype(np.int32)
             self._lens[step_active] += 1
             cur = np.where(step_active, nxt, cur).astype(np.int32)
             drafts[:, i] = np.where(step_active, nxt, 0)
@@ -332,6 +383,22 @@ class SpeculativeDecoder:
         self.k_slot = np.full(engine._slots, self.k, np.int32)
         self._rej_streak = np.zeros(engine._slots, np.int32)
         self._acc_streak = np.zeros(engine._slots, np.int32)
+        self._verify_fn = None  # split path only: a ragged engine's step
+
+    def trackers(self):
+        """Every `_StepGraph` of the round's own (the engine's are
+        counted by the engine)."""
+        return [self._verify_fn, *getattr(self.drafter, "trackers",
+                                          list)()]
+
+    def _verify_tracker(self):
+        eng = self.engine
+        if eng._ragged:
+            return eng._ragged_tracker()
+        if self._verify_fn is None:
+            self._verify_fn = eng._tracker(_gpt_spec_verify,
+                                           "verify_compiles")
+        return self._verify_fn
 
     def on_admit(self, slot: int, req):
         self._reset_k(slot)
@@ -358,7 +425,7 @@ class SpeculativeDecoder:
         full acceptance the acceptance run, a partial one resets both."""
         if usable <= 0:
             return
-        st = self.engine._stats
+        eng = self.engine
         if m == 0:
             self._acc_streak[slot] = 0
             self._rej_streak[slot] += 1
@@ -367,7 +434,7 @@ class SpeculativeDecoder:
                 self.k_slot[slot] = max(self.k_min,
                                         int(self.k_slot[slot]) // 2)
                 self._rej_streak[slot] = 0
-                st["spec_k_shrinks"] += 1
+                eng._add(spec_k_shrinks=1)
         elif m >= usable:
             self._rej_streak[slot] = 0
             self._acc_streak[slot] += 1
@@ -376,7 +443,7 @@ class SpeculativeDecoder:
                 self._acc_streak[slot] = 0
                 if self._grow_ok():
                     self.k_slot[slot] += 1
-                    st["spec_k_grows"] += 1
+                    eng._add(spec_k_grows=1)
         else:
             self._rej_streak[slot] = 0
             self._acc_streak[slot] = 0
@@ -388,7 +455,7 @@ class SpeculativeDecoder:
         that is decoding."""
         eng = self.engine
         slots = eng._slots
-        if eng._prefilling_any():
+        if eng._chunked and eng._prefilling_any():
             # a slot whose last chunk lands here joins this very round
             eng._mixed_step(decode_rows=False)
 
@@ -419,10 +486,10 @@ class SpeculativeDecoder:
             # the ragged grid's padding columns sit past every cap
             tokens = np.pad(tokens, ((0, 0), (0, width - tokens.shape[1])))
         t0 = time.perf_counter()
-        targets = eng._run_step(_gpt_spec_verify, eng._dev(eng._bt),
-                                eng._dev(eng._lens), eng._dev(tokens),
-                                eng._dev(caps))
+        targets = eng._fetch(self._verify_tracker()(eng._bt, eng._lens,
+                                                    tokens, caps))
         t_verify = time.perf_counter() - t0
+        n_active = int(eng._active.sum())
 
         emitted_total = proposed_total = accepted_total = 0
         for s in range(slots):
@@ -462,15 +529,13 @@ class SpeculativeDecoder:
             if reason:
                 eng._finish(s, reason)
 
-        st = eng._stats
-        st["spec_steps"] += 1
-        st["ragged_steps"] += int(eng._ragged)
-        st["spec_slot_steps"] += int((caps > 0).sum())
-        st["steps"] += 1
-        st["spec_proposed"] += proposed_total
-        st["spec_accepted"] += accepted_total
-        st["spec_emitted"] += emitted_total
-        st["tokens"] += emitted_total
-        st["draft_time_s"] += t_draft
-        st["verify_time_s"] += t_verify
+        eng._add(spec_steps=1, ragged_steps=int(eng._ragged),
+                 spec_slot_steps=int((caps > 0).sum()), steps=1,
+                 spec_proposed=proposed_total, spec_accepted=accepted_total,
+                 spec_emitted=emitted_total, tokens=emitted_total,
+                 draft_time_s=t_draft, verify_time_s=t_verify,
+                 decode_time_s=t_draft + t_verify,
+                 occupancy_sum=n_active / slots,
+                 kv_util_sum=eng.pool.utilization())
+        eng._observe_step()
         return True

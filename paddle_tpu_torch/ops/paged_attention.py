@@ -17,8 +17,11 @@ route: a CUDA input a kernel does not take raises.
 Page-size selection, the write coordinates of the serving steps and the
 quantized write (`paged_quant_write`) live here too.  Unlike JAX,
 PyTorch raises on an out-of-bounds scatter index instead of dropping the
-row, so `paged_write_rows` and `paged_quant_write_rows` filter dropped
-rows (and dropped span pages) out explicitly, once per step.
+row.  So a serving pool holds one page more than its allocator hands
+out, the **drop page**, whose id ``num_pages_total`` is JAX's "drop this
+row" marker: a dropped row (and a dropped span page) lands there, no
+block table points at it, and every write keeps its shape whatever the
+data, which is what lets a step be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from . import _build
 
 __all__ = ["pick_page_size", "default_page_size", "paged_write_indices",
            "paged_write_rows", "paged_write", "paged_write_spans",
-           "paged_quant_write_rows", "paged_quant_write",
+           "paged_quant_write",
            "paged_attention_reference", "paged_attention",
            "paged_attention_cuda", "paged_attention_cuda_q", "split_plan"]
 
@@ -65,8 +68,8 @@ def paged_write_indices(block_tables, seq_lens, write_caps, qn: int,
     """Scatter coordinates for writing up to ``qn`` new K/V rows per
     sequence: row ``i`` of sequence ``b`` lands at position
     ``seq_lens[b] + i``.  Rows ``i >= write_caps[b]`` get page id
-    ``num_pages_total`` (one past the pool), the JAX package's "drop
-    this row" marker; `paged_write_rows` filters them.
+    ``num_pages_total`` (the drop page, one past the live pages), the JAX
+    package's "drop this row" marker.
 
     block_tables: [B, pages_max]; seq_lens, write_caps: [B].  Returns
     ``(page_idx, slot)``, both [B, qn] int64."""
@@ -84,26 +87,27 @@ def paged_write_indices(block_tables, seq_lens, write_caps, qn: int,
     return page_idx, pos % page
 
 
-def paged_write_rows(page_idx, slot, num_pages_total: int):
-    """Keep only the rows a JAX scatter would not drop (page id inside
-    the pool).  Flattens ``page_idx``/``slot`` (any matching shape) and
-    returns ``(rows, page_idx, slot)`` of the kept rows, ``rows`` being
-    their flat positions.  Computed once per step: the boolean filter
-    waits for the device, so it stays out of the layer loop."""
-    page_idx = page_idx.reshape(-1)
-    rows = torch.nonzero(page_idx < num_pages_total).squeeze(1)
-    return rows, page_idx[rows], slot.reshape(-1)[rows]
+def paged_write_rows(page_idx, slot, span_idx=None):
+    """The flat write coordinates of one step: ``(page_idx, slot)`` of
+    every row (any matching shape, flattened), and with ``span_idx``
+    (`paged_write_spans`) the refold set of a quantized write after them.
+    Dropped rows keep their page id ``num_pages_total``, the drop page,
+    so the write's shape never depends on the data and nothing waits
+    for the device."""
+    rows = (page_idx.reshape(-1), slot.reshape(-1))
+    return rows if span_idx is None else rows + (span_idx.reshape(-1),)
 
 
 def paged_write(pages, write_rows, vals) -> None:
     """Write K or V rows into one layer's pages, IN PLACE.
 
-    pages: [Hkv, num_pages, page, D]; write_rows: `paged_write_rows`'
-    output; vals: [R, Hkv, D] with R the flat row count before the
-    filter.  The JAX steps return new pools that the jit donates; here
-    the pool tensor itself is updated."""
-    rows, page_idx, slot = write_rows
-    pages[:, page_idx, slot] = vals[rows].transpose(0, 1).to(pages.dtype)
+    pages: [Hkv, num_pages_total + 1, page, D] (the last page the drop
+    page); write_rows: `paged_write_rows`' output; vals: [R, Hkv, D], one
+    row per coordinate.  The JAX steps return new pools that the jit
+    donates; here the pool tensor itself is updated, and the rows JAX
+    drops land in the drop page."""
+    page_idx, slot = write_rows[:2]
+    pages[:, page_idx, slot] = vals.transpose(0, 1).to(pages.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -136,30 +140,6 @@ def paged_write_spans(block_tables, seq_lens, write_caps, qn: int,
     return span.reshape(-1)
 
 
-def _kept(mask, n: int):
-    """Positions of the ``n`` True entries of ``mask``, ascending, without
-    a device sync (``n`` is known)."""
-    order = torch.argsort(mask.to(torch.uint8), descending=True, stable=True)
-    return order[:n]
-
-
-def paged_quant_write_rows(page_idx, slot, span_idx, num_pages_total: int):
-    """`paged_write_rows` with the span pages of a multi-row write: keeps
-    the rows and the span entries a JAX scatter would not drop.  Both
-    counts come back in one device-to-host fetch, so a step pays the one
-    sync the unquantized path pays.  Returns ``(rows, page_idx, slot,
-    spans)``."""
-    page_idx = page_idx.reshape(-1)
-    span_idx = span_idx.reshape(-1)
-    keep_rows = page_idx < num_pages_total
-    keep_spans = span_idx < num_pages_total
-    n_rows, n_spans = torch.stack([keep_rows.sum(),
-                                   keep_spans.sum()]).tolist()
-    rows = _kept(keep_rows, n_rows)
-    return (rows, page_idx[rows], slot.reshape(-1)[rows],
-            span_idx[_kept(keep_spans, n_spans)])
-
-
 def paged_quant_write(pages, scales, write_rows, vals):
     """Quantized write of new K or V rows into one layer's int8 pages, IN
     PLACE (counterpart: `paged_quant_write` of the JAX package, which
@@ -168,24 +148,25 @@ def paged_quant_write(pages, scales, write_rows, vals):
     scale grows (the refold), so a page stays consistent under one scale
     however incrementally it was filled.
 
-    pages: [Hkv, P, page, D] int8; scales: [Hkv, P] f32 running scales
-    (absmax / Q_MAX; 0 = not written since the page was handed out, the
-    engine zeroes a page's entry then); write_rows: `paged_write_rows`'
-    ``(rows, page_idx, slot)`` — the refold then runs per row, which is
-    the distinct page set of a one-row-per-sequence decode write — or
-    `paged_quant_write_rows`' ``(rows, page_idx, slot, spans)``; vals:
-    [R, Hkv, D] float, R the flat row count before the filter.
+    pages: [Hkv, P + 1, page, D] int8 (the last page the drop page);
+    scales: [Hkv, P + 1] f32 running scales (absmax / Q_MAX; 0 = not
+    written since the page was handed out, the engine zeroes a page's
+    entry then); write_rows: `paged_write_rows`' ``(page_idx, slot)`` —
+    the refold then runs per row, which is the distinct page set of a
+    one-row-per-sequence decode write — or ``(page_idx, slot, spans)``;
+    vals: [R, Hkv, D] float, one row per coordinate.
 
     The fold is a scatter-max (order-free under duplicate rows); the
     refold multiplies by ``s_old / s_new``: 1.0 where nothing grew (a
     bit no-op), 0 for a fresh page (its stale bytes become zeros);
-    duplicate span ids write identical bytes.  Returns the number of
-    (page, head) scale entries that grew past an established value, a
-    0-d int32 tensor."""
-    rows, page_idx, slot = write_rows[:3]
-    spans = write_rows[3] if len(write_rows) > 3 else page_idx
-    h = pages.shape[0]
-    v = vals[rows].float()                                # [R, H, D]
+    duplicate span ids write identical bytes.  Dropped rows and spans
+    fold into and refold the drop page only.  Returns the number of
+    live (page, head) scale entries that grew past an established value,
+    a 0-d int32 tensor."""
+    page_idx, slot = write_rows[:2]
+    spans = write_rows[2] if len(write_rows) > 2 else page_idx
+    h, live = pages.shape[0], pages.shape[1] - 1
+    v = vals.float()                                      # [R, H, D]
     s_old = scales.clone()                                # [H, P]
     s_new = scales
     s_new.scatter_reduce_(1, page_idx[None].expand(h, -1),
@@ -202,7 +183,8 @@ def paged_quant_write(pages, scales, write_rows, vals):
     q = torch.clamp(torch.round(v / torch.clamp(sn_rows, min=1e-30)),
                     -Q_MAX, Q_MAX).to(torch.int8)
     pages[:, page_idx, slot] = q.transpose(0, 1)
-    return ((s_new > s_old) & (s_old > 0)).sum().to(torch.int32)
+    grew = (s_new > s_old) & (s_old > 0)
+    return grew[:, :live].sum().to(torch.int32)
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
@@ -289,23 +271,31 @@ class _PagedAttentionCuda:
     """ctypes wrapper of kernel K1 (``quant=False``: f32/bf16 pages) or K2
     (``quant=True``: int8 pages with per-page, per-head f32 scales).
     ``launches`` counts the kernel launches this process made; it grows
-    by one per launch and nowhere else.
+    by one per launch and nowhere else.  A call made while the stream is
+    being captured into a CUDA graph launches nothing: it adds one to
+    ``captured`` instead, and the graph adds its captured launches to
+    ``launches`` each time it replays (`inference.serving._StepGraph`).
 
     A launch that splits the KV range gets an f32 workspace for the
     partials from the caching allocator and a zeroed int32 counter per
     (sequence, KV head, row tile), kept here per device, which the
     kernel leaves zero; launches on one device share the counters, so
-    they run on one stream at a time."""
+    they run on one stream at a time.  The counters are allocated by an
+    eager launch, never inside a capture (a graph's private memory
+    must not outlive it), and a grown set keeps the old one alive for
+    the graphs that hold its address."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
     _HEAD_DIMS = (64, 128)
 
     def __init__(self, symbol: str, quant: bool):
         self.launches = 0
+        self.captured = 0
         self._symbol = symbol
         self._quant = quant
         self._fn = None
         self._counters = {}
+        self._retired = []
 
     def _kernel(self):
         if self._fn is None:
@@ -322,6 +312,12 @@ class _PagedAttentionCuda:
     def _counters_for(self, device, n: int):
         have = self._counters.get(device)
         if have is None or have.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{self._symbol}: the split counters must exist before "
+                    f"a capture; launch this shape once eagerly first")
+            if have is not None:
+                self._retired.append(have)
             have = self._counters[device] = torch.zeros(
                 max(n, 1024), dtype=torch.int32, device=device)
         return have
@@ -421,7 +417,10 @@ class _PagedAttentionCuda:
         if err != 0:
             raise RuntimeError(f"{self._symbol} kernel launch failed: "
                                f"cudaError {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         return out
 
 

@@ -1,9 +1,9 @@
 """Where a GPT-2-small serve spends its time on the card.
 
     python -m paddle_tpu_torch.tools.serve_profile
-        [--kv-quant int8] [--serve-weights int8] [--ragged]
+        [--kv-quant int8] [--serve-weights int8] [--ragged] [--legacy]
         [--spec-k K [--drafter prompt_lookup|draft_model|self]]
-        [--out chiprun_out/serve_profile.json]
+        [--eager] [--out chiprun_out/serve_profile.json]
 
 Serves the workload of ``chip_smoke.py``'s serve phase (`gpt2_small_serve`:
 GPT-2-small at full width, random weights from seed 0, 8 slots, 64-token
@@ -12,18 +12,23 @@ new tokens each; int8 KV pages and int8 weights with the switches, default
 off; every step through the unified ragged step with ``--ragged``;
 speculative decoding of K tokens a round with ``--spec-k``, drafted by
 prompt lookup, by a ``draft_config()`` model with random weights from
-seed 1, or by GPT-2-small itself) twice: once plain, for the wall time,
-and once under
-``torch.profiler`` for the breakdown.  Prints, and writes to ``--out``:
-the wall time of each run; the device's busy time (the sum of every
-kernel's and copy's time, one stream so nothing overlaps) and idle share
-over the profiled run; the kernels and the PyTorch operators that took
-the most device time; and the host time per step.  Needs a CUDA card;
+seed 1, or by GPT-2-small itself; the legacy one-shot prefill with
+``--legacy``) twice: once plain, for the wall time, and once under
+``torch.profiler`` for the breakdown.  The steps run as the engine runs
+them, one captured CUDA graph per step signature (each engine captures
+at its first step of each shape); ``--eager`` runs both serves under
+``disable_capture()`` instead.  Prints, and writes to ``--out``: the wall
+time of each run; the device's busy time (the sum of every kernel's and
+copy's time, one stream so nothing overlaps) and idle share over the
+profiled run; the kernels and the PyTorch operators that took the most
+device time; the host seconds a step (the serve's wall over its engine
+steps) and the host time in each kind of step.  Needs a CUDA card;
 raises without one.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -31,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..inference.serving import DecodeEngine
+from ..inference.serving import DecodeEngine, disable_capture
 from ..inference.speculative import DraftModelDrafter
 from ..models.gpt import GPT, GPTConfig
 from ..device import default_device
@@ -60,14 +65,15 @@ def make_prompts(vocab: int, n: int, seed: int, shared_len: int = 128):
 
 def gpt2_small_serve(device, kv_quant="off", serve_weights="off",
                      ragged_step=False, spec_decode_k=0,
-                     drafter="prompt_lookup"):
+                     drafter="prompt_lookup", chunked_prefill=True):
     """The GPT-2-small serve of ``chip_smoke.py`` and of this profile.
 
     Returns ``(model, prompts, new_engine)``: GPT-2-small at full width
     (the ``bench.py`` config) with random f32 weights from `SEED`, its 16
     prompts, and a factory of fresh ``DecodeEngine(max_batch_size=8,
     page_size=64, kv_quant=..., serve_weights=..., ragged_step=...,
-    spec_decode_k=...)`` engines, the other flags at their defaults.
+    spec_decode_k=..., chunked_prefill=...)`` engines, the other flags
+    at their defaults.
     ``drafter`` (with ``spec_decode_k``) is "prompt_lookup", "draft_model"
     (`GPTConfig.draft_config` with random weights from ``SEED + 1``) or
     "self" (the model drafts for itself); each engine gets a drafter of
@@ -93,7 +99,7 @@ def gpt2_small_serve(device, kv_quant="off", serve_weights="off",
             serve_weights=serve_weights, ragged_step=ragged_step,
             spec_decode_k=spec_decode_k,
             drafter=None if draft is None else DraftModelDrafter(draft),
-            device=device)
+            chunked_prefill=chunked_prefill, device=device)
 
     new_engine().generate(prompts[:2], max_new_tokens=4)
     torch.cuda.synchronize()
@@ -115,20 +121,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--serve-weights", choices=("off", "int8"),
                     default="off")
     ap.add_argument("--ragged", action="store_true")
+    ap.add_argument("--legacy", action="store_true",
+                    help="chunked_prefill=False: the one-shot prefill")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every step eagerly (disable_capture)")
     ap.add_argument("--spec-k", type=int, default=0)
     ap.add_argument("--drafter", default="prompt_lookup",
                     choices=("prompt_lookup", "draft_model", "self"))
     ap.add_argument("--out", default="chiprun_out/serve_profile.json")
     args = ap.parse_args(argv)
 
-    _, prompts, new_engine = gpt2_small_serve(
-        default_device(), args.kv_quant, args.serve_weights, args.ragged,
-        args.spec_k, args.drafter)
-    wall_plain, st = _serve(new_engine, prompts)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall_prof, _ = _serve(new_engine, prompts)
+    with disable_capture() if args.eager else contextlib.nullcontext():
+        _, prompts, new_engine = gpt2_small_serve(
+            default_device(), args.kv_quant, args.serve_weights, args.ragged,
+            args.spec_k, args.drafter, not args.legacy)
+        wall_plain, st = _serve(new_engine, prompts)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wall_prof, _ = _serve(new_engine, prompts)
 
     decode_steps = st["steps"] - st["mixed_steps"]
     result = dict(
@@ -136,9 +147,12 @@ def main(argv=None) -> dict:
         kv_quant=args.kv_quant, serve_weights=args.serve_weights,
         ragged_step=args.ragged, spec_decode_k=args.spec_k,
         drafter=args.drafter if args.spec_k else None,
+        chunked_prefill=not args.legacy, captured=not args.eager,
         requests=len(prompts), new_tokens=st["tokens"],
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         wall_s=wall_plain, tokens_per_s=st["tokens"] / wall_plain,
+        host_s_per_step=wall_plain / st["steps"],
+        profiled_host_s_per_step=wall_prof / st["steps"],
         mean_mixed_step_ms=st["mixed_step_s"] / max(st["mixed_steps"], 1)
         * 1e3,
         mean_decode_step_ms=st["decode_step_s"] / max(decode_steps, 1) * 1e3,

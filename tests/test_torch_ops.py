@@ -182,13 +182,14 @@ def test_flag_defaults_match_jax(name):
 
 @pytest.mark.parametrize("name,value", [
     ("kv_quant", "int8"), ("serve_weights", "int8"), ("ragged_step", True),
-    ("spec_decode_k", 4), ("serve_mesh", "mp=2")])
+    ("spec_decode_k", 4), ("chunked_prefill", False), ("serve_mesh", "mp=2")])
 def test_unported_flags_raise(name, value):
     """serve_mesh refuses a non-default, naming the slice that brings it.
     kv_quant and serve_weights (quantized serving), ragged_step (the
-    unified ragged step) and spec_decode_k (speculative decoding) are
-    ported: the value is set, and an engine that takes it from the flag
-    alone serves with it."""
+    unified ragged step), spec_decode_k (speculative decoding) and
+    chunked_prefill=False (the legacy one-shot prefill) are ported: the
+    value is set, and an engine that takes it from the flag alone serves
+    with it."""
     if name != "serve_mesh":
         from paddle_tpu_torch.models.gpt import GPT, GPTConfig
         tm = GPT.random(GPTConfig(vocab_size=64, hidden_size=32,
@@ -212,6 +213,11 @@ def test_unported_flags_raise(name, value):
             assert "qkv_w_q" in eng._params["blocks"][0]
         elif name == "ragged_step":
             assert eng._ragged and st["ragged_steps"] == st["steps"] > 0
+        elif name == "chunked_prefill":
+            # the one-shot prefill takes no prefix cache: the flag's
+            # default resolves off, as in JAX
+            assert not eng._chunked and not eng._prefix_cache
+            assert st["mixed_steps"] == 0 and st["steps"] == 3
         else:
             assert eng._spec.k == value and st["spec_steps"] > 0
         return

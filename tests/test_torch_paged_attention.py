@@ -193,8 +193,9 @@ def test_paged_write_indices_match_jax():
 
 def test_masked_scatter_drops_capped_rows_like_jax():
     """JAX drops a scatter row at page id == num_pages; torch would
-    raise, so the port filters those rows out — the pools must come out
-    identical, capped rows leaving no trace."""
+    raise, so the port's pool holds one page more, the drop page, where
+    those rows land — every live page must come out identical to JAX's,
+    capped rows leaving no trace there, and the write keeps its shape."""
     bt, lens, caps, npages, page, qn = _write_inputs(1)
     b, hkv, d = bt.shape[0], 3, 4
     rng = np.random.RandomState(2)
@@ -208,12 +209,14 @@ def test_masked_scatter_drops_capped_rows_like_jax():
                                      torch.from_numpy(lens),
                                      torch.from_numpy(caps), qn, npages,
                                      page)
-    rows = TPA.paged_write_rows(tp, ts, npages)
-    assert len(rows[0]) == int(caps.sum())
-    got = torch.from_numpy(pages.copy())
+    rows = TPA.paged_write_rows(tp, ts)
+    assert len(rows[0]) == b * qn  # every row, dropped ones too
+    assert int((rows[0] < npages).sum()) == int(caps.sum())
+    got = torch.zeros(hkv, npages + 1, page, d)
+    got[:, :npages] = torch.from_numpy(pages)
     TPA.paged_write(got, rows, torch.from_numpy(vals).reshape(b * qn, hkv,
                                                               d))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got[:, :npages].numpy(), np.asarray(want))
 
 
 def _strided(q):

@@ -192,8 +192,9 @@ def test_paged_write_spans_match_jax(seed, qn, page):
 
 
 def _coords(bt, lens, caps, qn, npages, page, spans):
-    """The write coordinates of both packages: JAX's raw (dropped rows
-    at page id ``npages``), the port's filtered."""
+    """The write coordinates of both packages: dropped rows at page id
+    ``npages`` (JAX drops them, the port writes them into its drop
+    page)."""
     args = (bt, lens, caps)
     jp, js = PA.paged_write_indices(*map(jnp.asarray, args), qn, npages,
                                     page)
@@ -205,9 +206,7 @@ def _coords(bt, lens, caps, qn, npages, page, spans):
                                      page)
         tspan = TPA.paged_write_spans(*map(torch.from_numpy, args), qn,
                                       npages, page)
-        rows = TPA.paged_quant_write_rows(tp, ts, tspan, npages)
-    else:
-        rows = TPA.paged_write_rows(tp, ts, npages)
+    rows = TPA.paged_write_rows(tp, ts, tspan)
     return (jp.reshape(-1), js.reshape(-1), jspan), rows
 
 
@@ -217,8 +216,10 @@ def test_paged_quant_write_matches_jax(spans):
     as garbage: a fresh page wipes it (ratio 0), later rows of larger
     magnitude grow a page's scale and refold its rows, capped rows and
     span slots drop, several rows share a page (and, per row, the span
-    ids repeat).  Payloads exact, scales within 1e-7 (the same f32 ops
-    in the same order: equal in practice), refold counts equal."""
+    ids repeat).  The port's pools hold a drop page past JAX's, where
+    the dropped rows and spans land.  Live payloads exact, scales within
+    1e-7 (the same f32 ops in the same order: equal in practice), refold
+    counts equal."""
     h, d, li = 3, 4, 1
     bt, lens, caps, npages, page, qn = _write_case(5)
     rng = np.random.RandomState(6)
@@ -226,8 +227,10 @@ def test_paged_quant_write_matches_jax(spans):
     scales = np.zeros((2, h, npages), np.float32)
     scales[0] = rng.rand(h, npages)  # another layer's: left untouched
     jpages, jscales = jnp.asarray(pages), jnp.asarray(scales)
-    tpages, tscales = torch.from_numpy(pages.copy()), torch.from_numpy(
-        scales.copy())
+    tpages = torch.zeros(2, h, npages + 1, page, d, dtype=torch.int8)
+    tscales = torch.zeros(2, h, npages + 1)
+    tpages[:, :, :npages] = torch.from_numpy(pages)
+    tscales[:, :, :npages] = torch.from_numpy(scales)
     refolds = []
     for step, mag in enumerate((1.0, 3.0, 0.5)):
         vals = (rng.randn(len(bt) * qn, h, d) * mag).astype(np.float32)
@@ -239,18 +242,21 @@ def test_paged_quant_write_matches_jax(spans):
                                    torch.from_numpy(vals))
         assert tr.dtype == torch.int32
         refolds.append((int(tr), int(jr)))
-        np.testing.assert_array_equal(tpages.numpy(), np.asarray(jpages))
-        np.testing.assert_allclose(tscales.numpy(), np.asarray(jscales),
-                                   atol=1e-7, rtol=0)
+        np.testing.assert_array_equal(tpages[:, :, :npages].numpy(),
+                                      np.asarray(jpages))
+        np.testing.assert_allclose(tscales[:, :, :npages].numpy(),
+                                   np.asarray(jscales), atol=1e-7, rtol=0)
         lens = lens + caps
     assert [t for t, _ in refolds] == [j for _, j in refolds]
     assert refolds[0][0] == 0 and refolds[1][0] > 0
-    np.testing.assert_array_equal(tpages[0].numpy(), pages[0])
+    np.testing.assert_array_equal(tpages[0, :, :npages].numpy(), pages[0])
 
 
 def test_quant_write_rows_pay_one_fetch(monkeypatch):
-    """The rows and the span pages are filtered with one device-to-host
-    fetch (`tolist` of both counts) and no `nonzero`."""
+    """The write coordinates, spans included, wait for the device in no
+    way: no `tolist`, no `nonzero` (the one fetch a step pays is its
+    token fetch), and they keep every row and span, dropped ones at page
+    id ``npages``, in the order of the step's rows."""
     bt, lens, caps, npages, page, qn = _write_case(7)
     args = [torch.from_numpy(a) for a in (bt, lens, caps)]
     tp, ts = TPA.paged_write_indices(*args, qn, npages, page)
@@ -260,14 +266,13 @@ def test_quant_write_rows_pay_one_fetch(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "tolist",
                         lambda t: calls.append(1) or real(t))
     monkeypatch.setattr(torch, "nonzero", None)
-    rows, p, s, sp = TPA.paged_quant_write_rows(tp, ts, span, npages)
-    assert len(calls) == 1
-    keep = (tp.reshape(-1) < npages).numpy()
-    np.testing.assert_array_equal(rows.numpy(), np.flatnonzero(keep))
-    np.testing.assert_array_equal(p.numpy(), tp.reshape(-1).numpy()[keep])
-    np.testing.assert_array_equal(s.numpy(), ts.reshape(-1).numpy()[keep])
-    np.testing.assert_array_equal(sp.numpy(), span.numpy()[
-        span.numpy() < npages])
+    p, s, sp = TPA.paged_write_rows(tp, ts, span)
+    assert not calls
+    np.testing.assert_array_equal(p.numpy(), tp.reshape(-1).numpy())
+    np.testing.assert_array_equal(s.numpy(), ts.reshape(-1).numpy())
+    np.testing.assert_array_equal(sp.numpy(), span.numpy())
+    keep = p.numpy() < npages
+    assert keep.sum() == caps.sum() and not keep.all()
 
 
 # ---------------------------------------------------------------------------
@@ -397,12 +402,12 @@ def _assert_pools_close(je, te):
     absmax / 127 of those rows."""
     for j, t in ((je._k_pages, te._k_pages), (je._v_pages, te._v_pages)):
         assert t.dtype == torch.int8
-        diff = np.abs(t.numpy().astype(np.int32)
+        diff = np.abs(t[:, :, :-1].numpy().astype(np.int32)  # no drop page
                       - np.asarray(j).astype(np.int32))
         assert diff.max() <= 1
     for j, t in ((je._k_scales, te._k_scales), (je._v_scales, te._v_scales)):
-        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
-                                   atol=1e-12)
+        np.testing.assert_allclose(t[:, :, :-1].numpy(), np.asarray(j),
+                                   rtol=1e-6, atol=1e-12)
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -446,7 +451,8 @@ def test_quant_engine_small_pages_prefix_cache_matches_jax():
 
 def test_kv_quant_off_is_todays_engine():
     """Explicit "off" modes are the default engine: the same tokens and
-    bit-identical f32 pools, no scales, no quant counter."""
+    bit-identical f32 pools (the live pages: the drop page holds
+    whichever dropped row landed last), no scales, no quant counter."""
     _, tm = _models("tiny", seed=8)
     prompts = _prompts(9, (5, 9, 13))
     kw = dict(max_batch_size=2, max_seq_len=64, page_size=16)
@@ -458,8 +464,8 @@ def test_kv_quant_off_is_todays_engine():
         assert eng._k_pages.dtype == torch.float32
         assert eng._k_scales is None and "qkv_w" in eng._params["blocks"][0]
         assert all(eng.decode_stats()[k] == 0 for k in STAT_KEYS[7:])
-    assert torch.equal(a._k_pages, b._k_pages)
-    assert torch.equal(a._v_pages, b._v_pages)
+    assert torch.equal(a._k_pages[:, :, :-1], b._k_pages[:, :, :-1])
+    assert torch.equal(a._v_pages[:, :, :-1], b._v_pages[:, :, :-1])
 
 
 def test_recycled_page_scale_reset_reproduces():

@@ -253,13 +253,13 @@ def test_sampled_serving_is_seeded():
                                 dict(serve_mesh="mp=2"),
                                 dict(chunked_prefill=False)])
 def test_unported_options_raise(kw):
-    """The legacy one-shot prefill raises, naming the slice that brings
-    it; the engine takes no serve_mesh argument (its flag refuses a
+    """The engine takes no serve_mesh argument (its flag refuses a
     non-default: test_torch_ops.test_unported_flags_raise).  kv_quant and
     serve_weights are ported: the engine takes "int8" and serves, and
     raises ValueError on any other mode, as the JAX engine does.
-    ragged_step and spec_decode_k are ported: the engine takes each and
-    serves the same greedy tokens as without it."""
+    ragged_step, spec_decode_k and chunked_prefill=False (the legacy
+    one-shot prefill) are ported: the engine takes each and serves the
+    same greedy tokens as without it."""
     _, tm = _models("tiny", seed=0)
     name = next(iter(kw))
     if name in ("kv_quant", "serve_weights"):
@@ -272,24 +272,28 @@ def test_unported_options_raise(kw):
                             max_seq_len=64, page_size=16,
                             **{name: "int4"})
         return
-    if name in ("ragged_step", "spec_decode_k"):
+    if name in ("ragged_step", "spec_decode_k", "chunked_prefill"):
         prompts = _prompts(1, (6, 11))
         ref = TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
                               max_seq_len=64, page_size=16).generate(
             prompts, 5)
+        TS.reset_decode_stats()
         eng = TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
                               max_seq_len=64, page_size=16, **kw)
         assert eng.generate(prompts, 5) == ref
         assert eng.pool.available_count == eng.pool.num_pages
+        if name == "chunked_prefill":
+            # two one-shot prefills through one bucket's graph (16), no
+            # mixed step
+            st = TS.decode_stats()
+            assert (st["prefills"], st["prefill_compiles"],
+                    st["mixed_steps"]) == (2, 1, 0)
+            return
         st = eng.decode_stats()
         key = "ragged_steps" if name == "ragged_step" else "spec_steps"
         assert st[key] > 0
         return
-    if "chunked_prefill" in kw:
-        expected = pytest.raises(NotImplementedError, match="slice")
-    else:
-        expected = pytest.raises(TypeError, match=name)
-    with expected:
+    with pytest.raises(TypeError, match=name):
         TS.DecodeEngine(tm, device="cpu", max_batch_size=1, max_seq_len=64,
                         page_size=16, **kw)
 
