@@ -4,6 +4,8 @@
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --kernels   # phases 1-3 of K1/K2 only
 
+(``--durability-child`` is phase 13's own child process.)
+
 Phases, in order; any failure exits non-zero:
 
 1. card   — require CUDA; print the card's name and power limit as
@@ -92,7 +94,35 @@ Phases, in order; any failure exits non-zero:
    bucket), in f32 and with int8 KV pages and weights: K1 (K2) launched
    num_layers x decode steps; one short request's greedy tokens against
    the CPU's legacy engine (f32), or its int8 pools against the CPU's;
-13. report — one JSON line of kernels, the card line, and the last line
+13. reliability — the f32 serve of 4 through the serving stack around
+   the engine: (a) `ServingFrontend` under ``sched_policy`` "fifo" and
+   "slo", every `TokenStream` consumed concurrently, 3 serves each beside
+   3 of ``engine.run``: tokens equal ``engine.run``'s request by request,
+   K1 launched num_layers x steps, one mixed and one decode graph, no
+   retrace, the engine never rebuilt; tokens/s, TTFT and TPOT
+   p50/p95 (from the streams) printed; (b) the serve under `FAULT_PLAN`
+   (retries, pool exhaustion, a dropped callback, three mixed-step faults
+   that degrade to the legacy prefill, a poisoned request): the poisoned
+   request alone finishes "fault" with a `FaultInfo`, the others with
+   the clean tokens, no retrace; every scheduled fault fired once,
+   ``faults_injected`` counts exactly what fired and the ladder contained
+   nothing else; (c) `resilience.recover` twice mid-serve,
+   with graph handoff (no graph captured) and cold: the clean tokens, and
+   the allocated memory after both within one engine's pools of before;
+   seconds printed; (d) a journaled serve in a child process
+   (``--durability-child``) killed with SIGKILL after `KILL_STEP` steps
+   and restored by another, f32 and int8: the uninterrupted serve's
+   tokens, every streamed token exactly once across the two lives, sidecar
+   pages installed bit-equal to the dead process's; restore seconds,
+   pages installed, tokens recomputed and the journal's tokens/s cost
+   printed; (e) ``step_timeout_ms`` and a `slow_step` stall through the
+   frontend: the worker abandoned, the streams finish with the clean
+   tokens, the abandoned engine's late return launches nothing.  Every
+   serve without a fault plan (each timed run of 4-13, each frontend,
+   recovery and durability serve) and the watchdog's beside its one
+   stall must leave the ladder's counters (`LADDER_KEYS`) where they
+   were and contain nothing (`check_unfaulted`);
+14. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -571,11 +601,47 @@ def capturing(capture):
     return contextlib.nullcontext() if capture else disable_capture()
 
 
+# the containment ladder's counters (process-wide `decode_stats` keys):
+# a serve with no fault plan moves none of them.  On the card the ladder
+# takes only what a plan injects, so a kernel's or a capture's exception
+# leaves the serve; these checks hold that no retry, degradation to the
+# legacy prefill's plain attention or quarantine happened all the same
+LADDER_KEYS = ("faults_injected", "step_retries", "legacy_fallbacks",
+               "spec_disables", "finished_fault")
+
+
+def ladder_counts():
+    from paddle_tpu_torch.inference import serving
+
+    st = serving.decode_stats()
+    return {k: st[k] for k in LADDER_KEYS}
+
+
+def check_unfaulted(label, before, engines, injected=0):
+    """Fail unless, since ``before`` (`ladder_counts`), the ladder
+    counters moved by nothing but ``injected`` faults the plan injected
+    (stalls, which the ladder never sees) and no engine of ``engines``
+    contained anything."""
+    after = ladder_counts()
+    moved = {k: after[k] - before[k] for k in LADDER_KEYS}
+    want = dict.fromkeys(LADDER_KEYS, 0)
+    want["faults_injected"] = injected
+    contained = {f"{name}{' (injected)' if inj else ''}": n
+                 for eng in engines
+                 for (name, inj), n in eng._resilience.contained.items()}
+    if moved != want or contained:
+        fail(f"{label}: the containment ladder acted in a serve without "
+             f"faults to contain: counters moved {moved} (want {want}), "
+             f"contained {contained}")
+
+
 def serve_once(torch, new_engine, prompts, capture=True):
     """One serve of ``prompts`` on a fresh engine, its steps captured or
-    eager: ``(engine, requests, wall seconds)``."""
+    eager: ``(engine, requests, wall seconds)``; the ladder left idle
+    (`check_unfaulted`)."""
     from paddle_tpu_torch.tools import serve_profile
 
+    before = ladder_counts()
     with capturing(capture):
         eng = new_engine()
         t0 = time.perf_counter()
@@ -583,7 +649,9 @@ def serve_once(torch, new_engine, prompts, capture=True):
                 for p in prompts]
         eng.run()
         torch.cuda.synchronize()
-    return eng, reqs, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    check_unfaulted("serve", before, [eng])
+    return eng, reqs, wall
 
 
 def drive_serve(torch, new_engine, prompts, cfg, label, want, capture=True):
@@ -1557,6 +1625,557 @@ def ln_train_phase(torch, train):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 13. the serving stack around the engine: frontend, containment,
+# recovery, durability, watchdog
+# ---------------------------------------------------------------------------
+# the containment serve's fault plan; {poison} is a token of one prompt
+# alone (the JAX package's grammar, at its default ladder flags:
+# step_retries=2, degrade_after=3)
+FAULT_PLAN = ("step@3,7;pool@2;host_callback@5;mixed_step@9,10,11;"
+              "poison@{poison}")
+# the durability children: a journaled serve killed with SIGKILL after
+# engine step KILL_STEP (a snapshot every SNAPSHOT_STEPS steps), restored
+# by a fresh process
+KILL_STEP = 50
+SNAPSHOT_STEPS = 4
+JOURNAL_ROOT = Path("build") / "chip_smoke_journal"
+# the watchdog phase: a step budget far above a replayed step's few ms
+# and a capture's tens, and a stall far above the budget
+STEP_TIMEOUT_MS = 1000.0
+SLOW_MS = 3000.0
+# the slow_step consult that stalls: the warm-up request's 4 steps, then
+# the 8th step of the serve
+SLOW_AT = 12
+
+
+def retrace_counts(stats):
+    return {k: v for k, v in stats.items()
+            if k.endswith("_retraces") or k == "retraces_after_warmup"}
+
+
+def stream_serve(torch, eng, prompts, warm=None, **frontend_kw):
+    """Serve ``prompts`` through `ServingFrontend` over ``eng`` (steps in
+    its worker thread), every `TokenStream` consumed concurrently:
+    ``(streams, tokens, ttft_s, tpot_s, wall_s)``, TTFT and TPOT read from
+    each stream's token arrival times.  ``warm`` (a prompt) is served to
+    its end first, outside the timing."""
+    import asyncio
+
+    from paddle_tpu_torch.inference.frontend import ServingFrontend
+    from paddle_tpu_torch.tools import serve_profile
+
+    async def consume(fe, prompt):
+        t_sub = time.perf_counter()
+        stream = await fe.submit(prompt,
+                                 max_new_tokens=serve_profile.NEW_TOKENS)
+        toks, times = [], []
+        async for tok in stream:
+            times.append(time.perf_counter())
+            toks.append(tok)
+        return stream, toks, times, t_sub
+
+    async def go():
+        async with ServingFrontend(eng, **frontend_kw) as fe:
+            if warm is not None:
+                await (await fe.submit(warm, max_new_tokens=4)).collect()
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*[consume(fe, p) for p in prompts])
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return fe, res, wall
+
+    fe, res, wall = asyncio.run(go())
+    ttft = [times[0] - t_sub for _, _, times, t_sub in res]
+    tpot = [(times[-1] - times[0]) / (len(times) - 1)
+            for _, _, times, _ in res if len(times) > 1]
+    return fe, [r[0] for r in res], [r[1] for r in res], ttft, tpot, wall
+
+
+def quantile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def frontend_check(torch, new_engine, prompts, cfg, want_tokens):
+    """(a) The set through `ServingFrontend` under FIFO and SLO, 3 serves
+    each, beside `engine.run`'s 3 in the same call."""
+    from paddle_tpu_torch.inference import serving
+
+    out = {}
+    rates = []
+    for _ in range(SERVE_RUNS):
+        eng, reqs, wall = serve_once(torch, new_engine, prompts)
+        rates.append(sum(len(r.generated_ids) for r in reqs) / wall)
+    out["engine_run"] = dict(tokens_per_s_runs=rates,
+                             tokens_per_s_median=statistics.median(rates))
+    for policy in ("fifo", "slo"):
+        rates, ttft, tpot = [], [], []
+        for run in range(SERVE_RUNS):
+            eng = new_engine(scheduler=policy)
+            serving.reset_decode_stats()
+            reset_counts()
+            before = ladder_counts()
+            fe, streams, toks, t1, t2, wall = stream_serve(torch, eng,
+                                                           prompts)
+            counts = read_counts()
+            st, pst = eng.decode_stats(), serving.decode_stats()
+            if fe.engine is not eng or fe._recoveries:
+                fail(f"frontend {policy}: the engine was rebuilt")
+            check_unfaulted(f"frontend {policy}", before, [eng])
+            if toks != want_tokens:
+                fail(f"frontend {policy}: streamed tokens differ from "
+                     f"engine.run's")
+            if [s.generated_ids for s in streams] != want_tokens or any(
+                    s.finish_reason != "length" for s in streams):
+                fail(f"frontend {policy}: requests did not finish with "
+                     f"engine.run's tokens")
+            if counts["paged_attention"] != cfg.num_layers * st["steps"]:
+                fail(f"frontend {policy}: K1 launches "
+                     f"{counts['paged_attention']} != num_layers x steps "
+                     f"({st['steps']})")
+            if any(retrace_counts(pst).values()):
+                fail(f"frontend {policy}: a step retraced: "
+                     f"{retrace_counts(pst)}")
+            compiled = {k: pst[k] for k in COMPILE_KEYS if pst[k]}
+            if compiled != dict(mixed_compiles=1, decode_compiles=1) or \
+                    eng.graph_captures() != 2:
+                fail(f"frontend {policy}: compiles {compiled}, "
+                     f"{eng.graph_captures()} graphs (want one mixed and "
+                     f"one decode graph)")
+            rates.append(st["tokens"] / wall)
+            ttft += t1
+            tpot += t2
+        out[policy] = dict(
+            tokens_per_s_runs=rates,
+            tokens_per_s_median=statistics.median(rates),
+            tokens_per_s_spread=(max(rates) - min(rates))
+            / statistics.median(rates),
+            ttft_p50_s=quantile(ttft, 0.5), ttft_p95_s=quantile(ttft, 0.95),
+            tpot_p50_s=quantile(tpot, 0.5), tpot_p95_s=quantile(tpot, 0.95),
+            k1_launches=counts["paged_attention"], steps=st["steps"])
+        print(f"frontend {policy}: tokens/s median "
+              f"{out[policy]['tokens_per_s_median']:.1f} (spread "
+              f"{out[policy]['tokens_per_s_spread']:.1%}) against "
+              f"engine.run {out['engine_run']['tokens_per_s_median']:.1f}; "
+              f"TTFT p50 {out[policy]['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+              f"{out[policy]['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
+              f"{out[policy]['tpot_p50_s'] * 1e3:.2f} ms, p95 "
+              f"{out[policy]['tpot_p95_s'] * 1e3:.2f} ms; tokens equal, "
+              f"K1 {counts['paged_attention']} = {cfg.num_layers} x "
+              f"{st['steps']}",
+              flush=True)
+    return out
+
+
+def poison_token(prompts, i, generated):
+    """A token of prompt ``i`` that no other prompt holds and no request
+    generates (a preempted request's replay prompt holds its tokens)."""
+    others = set(t for j, p in enumerate(prompts) if j != i for t in p)
+    others.update(t for g in generated for t in g)
+    return next(t for t in prompts[i] if t not in others)
+
+
+def containment_check(torch, new_engine, prompts, want_tokens):
+    """(b) The set under `FAULT_PLAN`: the poisoned request alone
+    finishes "fault", the others with the clean serve's tokens; the
+    mixed-step faults degrade to the legacy prefill; retries replay the
+    captured graphs."""
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.inference.errors import StepFault
+
+    victim = 5
+    plan = FAULT_PLAN.format(poison=poison_token(prompts, victim,
+                                                 want_tokens))
+    serving.reset_decode_stats()
+    eng = new_engine(fault_plan=plan)
+    streamed = [[] for _ in prompts]
+    reqs = [eng.add_request(p, max_new_tokens=len(want_tokens[0]),
+                            on_token=streamed[i].append)
+            for i, p in enumerate(prompts)]
+    try:
+        eng.run()
+    except StepFault as e:
+        fail(f"containment: a fault escaped the ladder: {e!r}")
+    torch.cuda.synchronize()
+    pst = serving.decode_stats()
+    bad = reqs[victim]
+    if bad.finish_reason != "fault" or bad.fault_info is None or \
+            bad.fault_info.recovered:
+        fail(f"containment: the poisoned request finished "
+             f"{bad.finish_reason!r} with {bad.fault_info}")
+    for i, r in enumerate(reqs):
+        if i != victim and (r.finish_reason != "length"
+                            or r.generated_ids != want_tokens[i]):
+            fail(f"containment: request {i} finished {r.finish_reason!r}, "
+                 f"tokens equal to the clean serve's: "
+                 f"{r.generated_ids == want_tokens[i]}")
+    dropped = [i for i, r in enumerate(reqs) if r.fault_info is not None
+               and r.fault_info.site == "host_callback"]
+    if len(dropped) != 1 or streamed[dropped[0]] != \
+            reqs[dropped[0]].generated_ids[:len(streamed[dropped[0]])]:
+        fail(f"containment: host_callback fault not contained: {dropped}")
+    if pst["legacy_fallbacks"] < 1 or pst["prefill_compiles"] < 1:
+        fail("containment: the mixed-step faults did not fall back to the "
+             "legacy prefill")
+    if any(retrace_counts(pst).values()):
+        fail(f"containment: a retried step retraced: "
+             f"{retrace_counts(pst)}")
+    graphs = eng.graph_captures()
+    compiled = sum(pst[k] for k in COMPILE_KEYS)
+    if graphs != compiled:
+        fail(f"containment: {graphs} graphs for {compiled} compiles")
+    # every scheduled fault fired once, the poison at least once, and the
+    # ladder took those and nothing else
+    fired, sched = eng._fault.fired, eng._fault.schedule
+    contained = {f"{name}{' (injected)' if inj else ''}": n
+                 for (name, inj), n in eng._resilience.contained.items()}
+    if any(fired.get(site, 0) != len(occ) for site, occ in sched.items()) \
+            or fired.get("poison", 0) < 1 \
+            or pst["faults_injected"] != sum(fired.values()):
+        fail(f"containment: faults fired {fired} for the schedule "
+             f"{ {k: sorted(v) for k, v in sched.items()} }, "
+             f"faults_injected {pst['faults_injected']}")
+    if any(not inj for _, inj in eng._resilience.contained):
+        fail(f"containment: the ladder contained a fault the plan did not "
+             f"inject: {contained}")
+    keys = ("faults_injected", "step_retries", "finished_fault",
+            "preemptions", "resumes", "legacy_fallbacks", "recoveries",
+            "prefill_compiles", "mixed_compiles", "decode_compiles")
+    out = {k: pst[k] for k in keys}
+    out.update(poisoned_request=victim, fault_info=bad.fault_info.as_dict(),
+               callback_dropped_request=dropped[0], graphs=graphs,
+               plan=plan, fired=dict(fired), contained=contained)
+    print(f"containment: {plan}: request {victim} quarantined "
+          f"({bad.fault_info.site}, {bad.fault_info.attempts} attempts), "
+          f"the other 15 with the clean tokens; faults fired "
+          f"{json.dumps(fired)}, contained {json.dumps(contained)}; "
+          f"counters {json.dumps({k: pst[k] for k in keys})}", flush=True)
+    return out
+
+
+def recovery_check(torch, new_engine, prompts, want_tokens, pool_bytes):
+    """(c) `recover` twice mid-serve, with handoff, then cold."""
+    import gc
+
+    from paddle_tpu_torch.inference import resilience, serving
+
+    before = ladder_counts()
+    eng = new_engine()
+    engines = [eng]
+    reqs = [eng.add_request(p, max_new_tokens=len(want_tokens[0]))
+            for p in prompts]
+    # run until both step kinds have their graph
+    while not (eng._decode_fn is not None and eng._decode_fn.captures
+               and eng._mixed_fn is not None and eng._mixed_fn.captures):
+        eng.step()
+    torch.cuda.synchronize()
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    graphs0 = eng.graph_captures()
+    compiled0 = {k: serving.decode_stats()[k] for k in COMPILE_KEYS}
+    seconds = {}
+    t0 = time.perf_counter()
+    eng = resilience.recover(eng, handoff=True)
+    seconds["handoff_recover_s"] = time.perf_counter() - t0
+    engines.append(eng)
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    seconds["handoff_first_step_s"] = time.perf_counter() - t0
+    for _ in range(20):
+        eng.step()
+    compiled1 = {k: serving.decode_stats()[k] for k in COMPILE_KEYS}
+    if eng.graph_captures() != graphs0 or compiled1 != compiled0:
+        fail(f"recovery: the handoff recovery captured graphs: "
+             f"{eng.graph_captures()} against {graphs0}, compiles "
+             f"{compiled1} against {compiled0}")
+    t0 = time.perf_counter()
+    eng = resilience.recover(eng, handoff=False)
+    seconds["cold_recover_s"] = time.perf_counter() - t0
+    engines.append(eng)
+    torch.cuda.synchronize()
+    gc.collect()
+    mem2 = torch.cuda.memory_allocated()
+    if abs(mem2 - mem0) > pool_bytes:
+        fail(f"recovery: {mem2} bytes allocated after two recoveries "
+             f"against {mem0} before (one engine's pools {pool_bytes})")
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    seconds["cold_first_step_s"] = time.perf_counter() - t0
+    eng.run()
+    if [r.generated_ids for r in reqs] != want_tokens:
+        fail("recovery: tokens differ from the clean serve's")
+    check_unfaulted("recovery", before, engines)
+    out = dict(seconds, memory_before=mem0, memory_after=mem2,
+               pool_bytes=pool_bytes, graphs_handed_over=graphs0,
+               exec_handoffs=serving.decode_stats()["exec_handoffs"])
+    print(f"recovery: handoff {seconds['handoff_recover_s']:.4f} s "
+          f"(first step {seconds['handoff_first_step_s']:.4f} s, no graph "
+          f"captured), cold {seconds['cold_recover_s']:.4f} s (first step "
+          f"{seconds['cold_first_step_s']:.4f} s); memory {mem0} -> {mem2} "
+          f"bytes; tokens equal the clean serve's", flush=True)
+    return out
+
+
+def _journaled_serve(new_engine, prompts, d, log):
+    """The child's serve: journal in ``d``, every streamed token appended
+    to ``log`` as "request token", SIGKILL after engine step
+    `KILL_STEP`."""
+    import os
+    import signal
+
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.tools import serve_profile
+
+    flags.set_flags({"snapshot_interval_steps": SNAPSHOT_STEPS})
+    before = ladder_counts()
+    eng = new_engine(journal_dir=str(d))
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    ids = []
+    for p in prompts:
+        r = eng.add_request(p, max_new_tokens=serve_profile.NEW_TOKENS)
+        r.on_token = (lambda rid: lambda t: os.write(
+            fd, f"{rid} {t}\n".encode()))(r.request_id)
+        ids.append(r.request_id)
+    (Path(d) / "ids.json").write_text(json.dumps(ids))
+    for _ in range(KILL_STEP):
+        eng.step()
+    check_unfaulted("durability serve", before, [eng])
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def _restore(torch, model, d, log):
+    """The second process: restore from ``d``, check the installed
+    sidecar pages against the dead process's bytes, finish the serve
+    appending to ``log``; returns the result."""
+    import io
+    import os
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference import durability, serving
+
+    serving.reset_decode_stats()
+    before = ladder_counts()
+    t0 = time.perf_counter()
+    eng, rmap = durability.restore_from_dir(str(d), model)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    snap = durability.load_snapshot(str(d))
+    data = np.load(io.BytesIO((Path(d) / snap.kv["file"]).read_bytes()))
+    index = {bytes.fromhex(h): i for i, h in enumerate(snap.kv["hashes"])}
+    installed = dict(eng.pool._page_hash)  # page -> hash, before serving
+    names = [("k", "_k_pages"), ("v", "_v_pages")]
+    if eng._kv_quant:
+        names += [("ks", "_k_scales"), ("vs", "_v_scales")]
+    equal = all(np.array_equal(getattr(eng, attr)[:, :, p].cpu().numpy(),
+                               data[key][:, :, index[h]])
+                for p, h in installed.items() for key, attr in names)
+    replay = sum(len(r.prompt_ids) for r in rmap.values())
+    fd = os.open(log, os.O_WRONLY | os.O_APPEND)
+    for rid, r in rmap.items():
+        r.on_token = (lambda i: lambda t: os.write(
+            fd, f"{i} {t}\n".encode()))(rid)
+    eng.run()
+    torch.cuda.synchronize()
+    check_unfaulted("durability restore", before, [eng])
+    st = serving.decode_stats()
+    return dict(restore_s=restore_s, pages_installed=len(installed),
+                installed_equal_sidecar=equal, requests=len(rmap),
+                replayed_tokens=replay,
+                tokens_recomputed=replay - st["prefix_cached_tokens"],
+                tokens={str(rid): r.generated_ids
+                        for rid, r in rmap.items()},
+                fault_sites=sorted({r.fault_info.site
+                                    for r in rmap.values()}))
+
+
+def durability_child(argv) -> int:
+    """``--durability-child serve|restore MODE``: one life of the
+    durability check (see `durability_check`)."""
+    import torch
+
+    from paddle_tpu_torch.tools import serve_profile
+
+    role, mode = argv
+    quant = mode == "int8"
+    model, prompts, new_engine = serve_profile.gpt2_small_serve(
+        "cuda", kv_quant="int8" if quant else "off",
+        serve_weights="int8" if quant else "off")
+    d = JOURNAL_ROOT / mode
+    if role == "serve":
+        _journaled_serve(new_engine, prompts, d, d / "streamed.log")
+        return 1  # not reached: the serve kills its process
+    res = _restore(torch, model, d, d / "streamed.log")
+    (d / "restored.json").write_text(json.dumps(res))
+    return 0
+
+
+def durability_check(torch, new_engine, prompts, clean):
+    """(d) A journaled serve in a child process, killed with SIGKILL
+    after `KILL_STEP` steps, restored by another process, f32 and int8:
+    the restored tokens against the uninterrupted serve's (``clean``,
+    by mode), every streamed token exactly once across the two lives, at
+    least one sidecar page installed bit-equal to the dead process's
+    bytes; then the journal's cost in this process."""
+    import shutil
+    import signal
+
+    out = {}
+    shutil.rmtree(JOURNAL_ROOT, ignore_errors=True)
+    for mode in ("f32", "int8"):
+        d = JOURNAL_ROOT / mode
+        d.mkdir(parents=True)
+        me = [sys.executable, str(Path(__file__).resolve()),
+              "--durability-child"]
+        t0 = time.perf_counter()
+        serve = subprocess.run(me + ["serve", mode], capture_output=True,
+                               text=True, timeout=300)
+        if serve.returncode != -signal.SIGKILL:
+            fail(f"durability {mode}: the journaled serve exited "
+                 f"{serve.returncode}, not by SIGKILL:\n{serve.stderr[-2000:]}")
+        restore = subprocess.run(me + ["restore", mode],
+                                 capture_output=True, text=True,
+                                 timeout=300)
+        if restore.returncode != 0:
+            fail(f"durability {mode}: the restore exited "
+                 f"{restore.returncode}:\n{restore.stderr[-2000:]}")
+        res = json.loads((d / "restored.json").read_text())
+        logs = {}
+        for line in (d / "streamed.log").read_text().split("\n"):
+            if line:
+                rid, tok = line.split()
+                logs.setdefault(rid, []).append(int(tok))
+        ids = [str(i) for i in json.loads((d / "ids.json").read_text())]
+        want = dict(zip(ids, clean[mode]))
+        if not res["tokens"] or any(res["tokens"][rid] != want[rid]
+                                    for rid in res["tokens"]):
+            fail(f"durability {mode}: restored tokens differ from the "
+                 f"uninterrupted serve's")
+        if logs != want:
+            fail(f"durability {mode}: the streamed log across both lives "
+                 f"is not every token exactly once")
+        if res["pages_installed"] < 1 or not res["installed_equal_sidecar"]:
+            fail(f"durability {mode}: sidecar pages installed "
+                 f"{res['pages_installed']}, bit-equal "
+                 f"{res['installed_equal_sidecar']}")
+        res.pop("tokens")
+        res["two_lives_s"] = time.perf_counter() - t0
+        out[mode] = res
+        print(f"durability {mode}: killed after step {KILL_STEP}, restored "
+              f"{res['requests']} requests in {res['restore_s']:.4f} s, "
+              f"{res['pages_installed']} sidecar pages installed "
+              f"(bit-equal), {res['tokens_recomputed']} tokens recomputed "
+              f"of {res['replayed_tokens']} replayed; tokens equal, each "
+              f"streamed once", flush=True)
+    # the journal's cost: fsync=step at the default snapshot cadence (32
+    # steps, with the KV sidecar), then with snapshots off, between two
+    # serves without a journal
+    from paddle_tpu_torch.core import flags
+
+    rates = {}
+    for label, journal, interval in (
+            ("none", False, 32), ("fsync_step", True, 32),
+            ("fsync_step_no_snapshots", True, 0), ("none_again", False, 32)):
+        runs = []
+        flags.set_flags({"snapshot_interval_steps": interval})
+        for i in range(SERVE_RUNS):
+            kw = {}
+            if journal:
+                jd = JOURNAL_ROOT / f"cost_{label}_{i}"
+                shutil.rmtree(jd, ignore_errors=True)
+                kw = dict(journal_dir=str(jd))
+            eng, reqs, wall = serve_once(
+                torch, lambda: new_engine(**kw), prompts)
+            runs.append(sum(len(r.generated_ids) for r in reqs) / wall)
+        rates[label] = dict(runs=runs, median=statistics.median(runs))
+    flags.set_flags({"snapshot_interval_steps": 32})
+    out["journal_cost"] = rates
+    print(f"durability: tokens/s median with the journal (fsync=step) "
+          f"{rates['fsync_step']['median']:.1f}, without its snapshots "
+          f"{rates['fsync_step_no_snapshots']['median']:.1f}, against "
+          f"{rates['none']['median']:.1f} / "
+          f"{rates['none_again']['median']:.1f} without a journal (runs "
+          f"{json.dumps({k: v['runs'] for k, v in rates.items()})})",
+          flush=True)
+    return out
+
+
+def watchdog_check(torch, new_engine, prompts, want_tokens, cfg):
+    """(e) ``step_timeout_ms`` armed and a `slow_step` stall through the
+    frontend: the worker is abandoned, the engine rebuilt from the
+    pre-step snapshot, the streams finish with the clean tokens, and the
+    abandoned engine's late return launches nothing."""
+    from paddle_tpu_torch.inference import serving
+
+    serving.reset_decode_stats()
+    before = ladder_counts()
+    eng = new_engine(fault_plan=f"slow_step@{SLOW_AT};slow_ms={SLOW_MS}",
+                     step_timeout_ms=STEP_TIMEOUT_MS)
+    reset_counts()
+    t0 = time.perf_counter()
+    fe, streams, toks, _, _, wall = stream_serve(
+        torch, eng, prompts, warm=prompts[0][:64])
+    # the abandoned worker wakes from its stall: let it return
+    time.sleep(max(0.0, SLOW_MS / 1e3 - (time.perf_counter() - t0)) + 0.5)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    new = fe.engine
+    pst = serving.decode_stats()
+    if fe._recoveries != 1 or new is eng or pst["hung_steps"] != 1:
+        fail(f"watchdog: {fe._recoveries} recoveries, {pst['hung_steps']} "
+             f"hung steps")
+    if toks != want_tokens or any(s.finish_reason != "length"
+                                  for s in streams):
+        fail("watchdog: the streams did not finish with the clean tokens")
+    # the stall is the one fault; the ladder saw none of it
+    check_unfaulted("watchdog", before, [eng, new], injected=1)
+    steps = eng.decode_stats()["steps"] + new.decode_stats()["steps"]
+    if counts["paged_attention"] != cfg.num_layers * steps:
+        fail(f"watchdog: K1 launches {counts['paged_attention']} != "
+             f"num_layers x the two engines' steps ({steps}): the "
+             f"abandoned engine's late step launched")
+    out = dict(recoveries=fe._recoveries, hung_steps=pst["hung_steps"],
+               wall_s=wall, k1_launches=counts["paged_attention"],
+               abandoned_engine_steps=eng.decode_stats()["steps"],
+               successor_steps=new.decode_stats()["steps"])
+    print(f"watchdog: step {SLOW_AT} stalled {SLOW_MS:.0f} ms against a "
+          f"{STEP_TIMEOUT_MS:.0f} ms budget: worker abandoned, engine "
+          f"rebuilt, streams finished with the clean tokens in "
+          f"{wall:.2f} s; K1 {counts['paged_attention']} = "
+          f"{cfg.num_layers} x {steps} "
+          f"steps (the late return launched nothing)", flush=True)
+    return out
+
+
+def reliability_phase(torch, serve, int8_tokens):
+    """Phase 13: (a) frontend, (b) containment, (c) recovery, (d)
+    durability, (e) watchdog, on the serve of phase 4 (f32, captured;
+    its tokens are the clean serve's) and, for (d), the int8 serve of
+    phase 5 (``int8_tokens``)."""
+    from paddle_tpu_torch.tools import serve_profile
+
+    model, prompts, new_engine = serve_profile.gpt2_small_serve("cuda")
+    cfg = model.cfg
+    clean = serve["tokens"]
+    probe = new_engine()
+    pool_bytes = sum(t.numel() * t.element_size() for t in (
+        probe._k_pages, probe._v_pages))
+    del probe
+    out = dict(frontend=frontend_check(torch, new_engine, prompts, cfg,
+                                       clean))
+    out["containment"] = containment_check(torch, new_engine, prompts,
+                                           clean)
+    out["recovery"] = recovery_check(torch, new_engine, prompts, clean,
+                                     pool_bytes)
+    out["durability"] = durability_check(
+        torch, new_engine, prompts, dict(f32=clean, int8=int8_tokens))
+    out["watchdog"] = watchdog_check(torch, new_engine, prompts, clean, cfg)
+    return out
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -1565,7 +2184,8 @@ def main(argv) -> int:
     import torch
 
     kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
+    child = argv[:1] == ["--durability-child"] and len(argv) == 3
+    if argv and not kernels_only and not child:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -1578,6 +2198,8 @@ def main(argv) -> int:
         print(f"chip_smoke: paddle_tpu_torch not found beside this script "
               f"({e})", file=sys.stderr)
         return 1
+    if child:
+        return durability_child(argv[1:])
 
     # 1. card
     card = card_line()
@@ -1642,7 +2264,10 @@ def main(argv) -> int:
     # 12. the legacy one-shot prefill, f32 and int8
     legacy = legacy_serve_phase(torch, serve)
 
-    # 13. report
+    # 13. frontend, containment, recovery, durability, watchdog
+    reliability = reliability_phase(torch, serve, serve_q["tokens"])
+
+    # 14. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -1715,8 +2340,8 @@ def main(argv) -> int:
     result = dict(card=card, build_s=build_s, kernel_build=builds,
                   kernels=kernels, serve=serve,
                   serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
-                  serve_legacy=legacy, train=train,
-                  train_layer_norm=train_ln)
+                  serve_legacy=legacy, serve_reliability=reliability,
+                  train=train, train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -1,9 +1,10 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Fourteen flags work here; two
+The names and defaults are paddle_tpu's.  Twenty-seven flags work here; six
 more keep their default only, because the code they switch on is not
-ported yet — setting one of those to anything else raises
-NotImplementedError naming the slice that brings it.  As in paddle_tpu,
+ported yet (or, for ``compile_cache_dir``, has no counterpart) — setting
+one of those to anything else raises NotImplementedError naming the
+slice or the reason.  As in paddle_tpu,
 a flag's value is checked where it is read: `DecodeEngine` raises
 ValueError on a ``kv_quant`` or ``serve_weights`` mode other than "off"
 and "int8".
@@ -36,6 +37,29 @@ _PORTED = {
     "spec_k_min": 1,
     "spec_k_shrink_streak": 2,
     "spec_k_grow_streak": 2,
+    # admission scheduler: "fifo" (arrival order) or "slo"
+    # (inference.frontend.SLOScheduler)
+    "sched_policy": "fifo",
+    # the containment ladder (inference.resilience): a fault-injection
+    # plan, same-step retries and their backoff, failures before a
+    # subsystem degrades, clean steps before the re-enable probe, and
+    # engine rebuilds a supervisor may spend
+    "fault_inject": "",
+    "step_retries": 2,
+    "step_backoff_ms": 0.0,
+    "degrade_after": 3,
+    "degraded_probe_steps": 16,
+    "engine_recoveries": 2,
+    # durable serving (inference.durability): the write-ahead journal's
+    # directory and fsync policy (always | step | never), the snapshot
+    # cadence, journal compaction at restore, the KV sidecar, and the
+    # hung-step watchdog's budget (0 = off)
+    "journal_dir": "",
+    "journal_fsync": "step",
+    "snapshot_interval_steps": 32,
+    "journal_compact": True,
+    "snapshot_kv": True,
+    "step_timeout_ms": 0.0,
 }
 
 # flag -> (default, the later slice that ports what it switches on)
@@ -44,6 +68,14 @@ _LATER = {
     # "auto": kernels K3/K4 run for every call flash_attention_fwd sends
     # them; the TPU's sequence thresholds and forced modes do not carry over
     "use_pallas_attention": ("auto", "attention kernel policy"),
+    # JAX's persistent XLA compile cache: a CUDA graph cannot be
+    # serialized, so a fresh process recaptures (no counterpart yet)
+    "compile_cache_dir": ("", "persistent step-cache (CUDA graphs cannot "
+                              "be serialized)"),
+    # the flight recorder and cost-gated admission: the telemetry plane
+    "flight_window": (64, "telemetry plane (flight recorder)"),
+    "flight_dir": ("", "telemetry plane (flight recorder)"),
+    "sched_cost_admission": (False, "telemetry plane (cost model)"),
 }
 
 _REGISTRY: Dict[str, Any] = dict(_PORTED)

@@ -36,18 +36,30 @@ step runs eagerly.  Both count the JAX package's ``<kind>_compiles`` and
 ``<kind>_retraces`` in the process-wide `decode_stats` (the schema of
 `paddle_tpu_torch.profiler`).  The legacy one-shot prefill
 (``chunked_prefill=False``: `_gpt_prefill`, one graph per power-of-two
-prompt bucket) is the chunked path's greedy oracle, as in JAX.  The
-containment ladder, journal, telemetry plane, schedulers other than
-FIFO and the tensor-parallel mesh are later slices.
+prompt bucket) is the chunked path's greedy oracle, as in JAX.
+
+Admission is delegated to a `frontend.Scheduler` (FIFO or SLO: priority,
+deadlines, preempt/resume); requests carry priority, deadline, SLO
+targets and an ``on_token`` streaming hook.  Every step runs under the
+containment ladder of `inference.resilience` (fault injection, retry,
+degradation, bisect quarantine), with an optional write-ahead journal
+and hung-step watchdog (`inference.durability`).  Disarmed, each fault,
+journal and watchdog hook is one ``is None`` check; every step still
+passes through the ladder's `run_step` and, with observability on, sets
+the two queue gauges.  The telemetry plane (flight recorder, cost
+model, profiling, alerts, ops server) and the tensor-parallel mesh are
+later slices: the port has no hook where JAX calls them.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import heapq
 import itertools
 import threading
 import time
+import weakref
 from collections import Counter, OrderedDict, deque
 from typing import Dict, List, Optional
 
@@ -55,6 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import observability as _obs
 from ..core import flags as _flags
 from ..device import resolve_device
 from ..nn.decode import sample_logits
@@ -63,11 +76,11 @@ from ..ops import paged_attention as pa
 from ..ops.layer_norm import layer_norm
 from ..profiler import DECODE_STAT_COUNTERS, _decode_stat_zero
 from ..quantization.int8 import Q_MAX, quantize_weight
-from .errors import PoolExhausted
+from .errors import FaultInfo, PoolExhausted, StepFault
 
 __all__ = ["KVBlockPool", "Request", "DecodeEngine", "sample_logits",
            "NAN_TOKEN", "decode_stats", "reset_decode_stats",
-           "disable_capture"]
+           "disable_capture", "PRIORITY_INTERACTIVE", "PRIORITY_BATCH"]
 
 # the sampled-token value of a row whose logits were not all finite: the
 # host finishes that slot alone (finish_reason "fault")
@@ -153,6 +166,9 @@ class _GraphMemory:
     def __init__(self):
         self.pool = self.stream = None
         self.capture_s = 0.0  # host seconds spent warming up and capturing
+        # set when the watchdog abandons the engine that owns these
+        # graphs: a late-returning worker must launch nothing
+        self.abandoned = False
 
     def ready(self):
         if self.pool is None:
@@ -236,28 +252,49 @@ class _StepGraph:
         self._generator = generator
         self._seen = set()
         self._graphs: Dict[tuple, _Captured] = {}
+        # a first call of a signature (the compile, or on the card the
+        # warm-up and capture) is in progress
+        self._busy = False
         _stats_add(**{compile_key: 1})
 
     @property
     def captures(self) -> int:
         return len(self._graphs)
 
+    @property
+    def warm(self) -> bool:
+        """Called at least once, and no first call of a signature in
+        flight (the watchdog's `engine_warm`)."""
+        return bool(self._seen) and not self._busy
+
     def __call__(self, *host):
+        if self._memory.abandoned:
+            raise StepFault(
+                "engine abandoned by the hung-step watchdog: its late "
+                "step launches nothing", site="hung", fatal=True)
         sig = tuple((a.shape, a.dtype.str) for a in host)
-        if sig not in self._seen:
+        first = sig not in self._seen
+        if first:
             if self._seen:
                 _stats_add(retraces_after_warmup=1,
                            **{self._retrace_key: 1})
             self._seen.add(sig)
-        if self._device.type != "cuda" or _CAPTURE_OFF[0]:
-            return self.fn(*(torch.from_numpy(np.ascontiguousarray(a)).to(
-                self._device) for a in host))
-        cap = self._graphs.get(sig)
-        if cap is None:
-            cap, out = self._capture(host)
-            self._graphs[sig] = cap
-            return out
-        return cap.replay(host)
+            self._busy = True
+        try:
+            if self._device.type != "cuda" or _CAPTURE_OFF[0]:
+                return self.fn(*(torch.from_numpy(
+                    np.ascontiguousarray(a)).to(self._device)
+                    for a in host))
+            cap = self._graphs.get(sig)
+            if cap is None:
+                self._busy = first = True
+                cap, out = self._capture(host)
+                self._graphs[sig] = cap
+                return out
+            return cap.replay(host)
+        finally:
+            if first:
+                self._busy = False
 
     def _capture(self, host):
         t0 = time.perf_counter()
@@ -272,11 +309,21 @@ class _StepGraph:
             graph = torch.cuda.CUDAGraph()
             if self._generator is not None:
                 graph.register_generator_state(self._generator)
-            graph.capture_begin(pool=mem.pool)
+            # a graph the cyclic collector frees inside a capture destroys
+            # its executable there, which invalidates the capture: hold the
+            # collector off until the capture ends (an engine holds no
+            # cycle of its own, `_EngineRef`, but a caller's cycle can hold
+            # a dead engine and its graphs)
+            gc_on = gc.isenabled()
+            gc.disable()
+            graph.capture_begin(pool=mem.pool,
+                                capture_error_mode="thread_local")
             try:
                 cap.out = self.fn(*cap.inputs)
             finally:
                 graph.capture_end()
+                if gc_on:
+                    gc.enable()
         cur.wait_stream(mem.stream)
         if out is not None:
             out.record_stream(cur)
@@ -476,20 +523,103 @@ def _chain_hash(prev: bytes, tokens) -> bytes:
     return h.digest()
 
 
+# Priority classes (lower value = more urgent; any int works).  Plain
+# `add_request` calls are BATCH: behind interactive traffic under the SLO
+# scheduler, pure arrival order under FIFO.
+PRIORITY_INTERACTIVE = 0
+PRIORITY_BATCH = 10
+
+
+class _EngineRef:
+    """A helper's back-reference to the engine that owns it (scheduler,
+    ladder, journal, watchdog, speculative decoder, drafter), held
+    weakly.  Strong ones would put every engine in reference cycles, and
+    its CUDA graphs and pools would outlive it until the cyclic collector
+    ran, at a moment of its choosing: inside a later engine's serve.
+    Reads give the engine, or None once it is gone."""
+
+    def __set_name__(self, owner, name):
+        self._key = f"_{name}_ref"
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        ref = obj.__dict__.get(self._key)
+        return None if ref is None else ref()
+
+    def __set__(self, obj, engine):
+        obj.__dict__[self._key] = None if engine is None else \
+            weakref.ref(engine)
+
+    def bound(self, obj) -> bool:
+        """Whether ``obj`` was bound to an engine, alive or gone, and not
+        unbound (set to None) since: one scheduler or drafter serves one
+        engine."""
+        return obj.__dict__.get(self._key) is not None
+
+
 class Request:
     """One generation request: queued -> running (slot + pages) -> done.
-    ``finish_reason`` is "eos", "length" or "fault" (the step produced
-    non-finite logits for this request's row)."""
+
+    ``finish_reason`` is "eos", "length", "evicted" (`DecodeEngine.evict`),
+    "cancelled" (`cancel`), "deadline" (its ``deadline_ms`` passed while
+    still queued under the SLO scheduler) or "fault" (containment
+    quarantined it; ``fault_info`` holds the record).
+
+    Scheduling metadata: ``priority`` (lower = more urgent),
+    ``deadline_ms`` (budget from enqueue for the whole request),
+    ``slo_ttft_ms``/``slo_tpot_ms`` (missing one is recorded in
+    ``slo_violations``, never an abort).  ``on_token`` is called with
+    each generated token the moment the engine lands it, from inside the
+    serve loop: it must be cheap; a callback that raises is dropped and
+    recorded in ``fault_info``.
+
+    A preempted or recovered request goes back to "queued" with its
+    generated tokens folded into ``prompt_ids`` for replay;
+    ``generated_ids`` reads the whole generation throughout.  Lifecycle
+    timestamps (``observability.now_ns``) feed the TTFT and TPOT
+    histograms."""
 
     _next_id = itertools.count()
+    # the engine it is queued or running on (`cancel`), held weakly: a
+    # request kept after its serve does not keep the engine's pools alive
+    _engine = _EngineRef()
 
-    def __init__(self, prompt_ids, max_new_tokens=32, eos_token_id=None):
+    def __init__(self, prompt_ids, max_new_tokens=32, eos_token_id=None,
+                 priority=None, deadline_ms=None, slo_ttft_ms=None,
+                 slo_tpot_ms=None, on_token=None):
         self.prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
+        self.priority = PRIORITY_BATCH if priority is None else \
+            int(priority)
+        if deadline_ms is not None and float(deadline_ms) <= 0:
+            raise ValueError(
+                f"deadline_ms must be > 0, got {deadline_ms}")
+        self.deadline_ms = None if deadline_ms is None else \
+            float(deadline_ms)
+        self.slo_ttft_ms = None if slo_ttft_ms is None else \
+            float(slo_ttft_ms)
+        self.slo_tpot_ms = None if slo_tpot_ms is None else \
+            float(slo_tpot_ms)
+        self.on_token = on_token
+        # enqueue + deadline: the instant the request stops being worth
+        # admitting
+        self._deadline_ns: Optional[int] = None
+        # preempt/resume: the original prompt length, generated tokens
+        # folded into the prompt, preemptions, head-of-line skips
+        self.orig_prompt_len = len(self.prompt_ids)
+        self._absorbed = 0
+        self.preemptions = 0
+        self._hol_skips = 0
+        # > 0 while replay recomputes tokens an earlier life already
+        # streamed: `_emit` lands them but never re-fires on_token
+        self._emit_gate = 0
+        self.slo_violations: List[str] = []
         self.output_ids: List[int] = []
         self.state = "queued"
         self.finish_reason: Optional[str] = None
+        self.fault_info: Optional[FaultInfo] = None
         self.slot: Optional[int] = None
         self.pages: List[int] = []
         # prefix cache: the leading ``cached_page_count`` pages are shared
@@ -502,16 +632,47 @@ class Request:
         # how many leading full pages are content-addressed in the pool
         self._reg_pages = 0
         self.request_id = next(Request._next_id)
+        self.trace_id: Optional[str] = None
+        self.t_enqueue_ns: Optional[int] = None
+        self.t_admit_ns: Optional[int] = None
+        self.t_first_token_ns: Optional[int] = None
+        self.t_finish_ns: Optional[int] = None
         self.prefill_chunks = 0
+        self._engine = None  # set by DecodeEngine.add_request
 
     def total_kv_tokens(self) -> int:
         # KV rows ever written: the prompt and every generated token
-        # but the last (its KV is never needed)
+        # but the last (its KV is never needed); invariant under the
+        # replay fold
         return len(self.prompt_ids) + max(self.max_new_tokens - 1, 0)
 
     @property
     def generated_ids(self) -> List[int]:
-        return list(self.output_ids)
+        """Every token this request generated, stable across
+        preemptions and recoveries."""
+        return self.prompt_ids[self.orig_prompt_len:] + self.output_ids
+
+    @property
+    def slo_met(self) -> bool:
+        """Completed ("eos"/"length") with no declared target missed."""
+        return self.state == "done" and \
+            self.finish_reason in ("eos", "length") and \
+            not self.slo_violations
+
+    def cancel(self):
+        """Cancel wherever the request is: a queued request leaves the
+        queue, a running one gives its slot and pages back.
+        ``finish_reason`` reads "cancelled"; a finished request is left
+        alone."""
+        if self.state == "done":
+            return
+        if self._engine is None:
+            raise ValueError("request is on no live engine: never "
+                             "enqueued, or its engine is gone")
+        if self.state == "queued":
+            self._engine._cancel_queued(self)
+        else:
+            self._engine._cancel_running(self)
 
 
 # ---------------------------------------------------------------------------
@@ -860,6 +1021,10 @@ _STAT_KEYS = ("steps", "tokens", "mixed_steps", "prefill_chunks",
               "spec_emitted", "spec_k_shrinks", "spec_k_grows")
 _STAT_SECONDS = ("mixed_step_s", "decode_step_s", "draft_time_s",
                  "verify_time_s")
+# the decode_stats counter each finish reason counts under
+_FINISH_COUNTER = {"eos": "finished_eos", "length": "finished_length",
+                   "evicted": "evicted", "cancelled": "cancelled",
+                   "fault": "finished_fault", "deadline": "deadline_expired"}
 
 
 class DecodeEngine:
@@ -879,8 +1044,23 @@ class DecodeEngine:
     prompt through the mixed steps; it takes no prefix cache, as in JAX.
     On the card every step kind runs as a CUDA graph per signature
     (`_StepGraph`), captured at its first call; `disable_capture` runs
-    them eagerly.  The flags of `core.flags` fill every argument left
-    None."""
+    them eagerly.  ``scheduler`` ("fifo" | "slo" | a `frontend.Scheduler`)
+    orders admission; ``fault_plan`` (a `resilience.FaultPlan` or its
+    spec string) arms fault injection; ``journal_dir`` arms the
+    write-ahead journal and ``step_timeout_ms`` the hung-step watchdog
+    (`inference.durability`).  ``dtype``, when given, must name the
+    weights' dtype (the KV pages take it).  The flags of `core.flags`
+    fill every argument left None.  ``_adopt`` (`resilience.recover`'s
+    handoff) is a retired engine of this configuration whose weights,
+    pools, generator and captured graphs this one takes over
+    (`_take_over`) instead of allocating its own."""
+
+    _next_engine_id = itertools.count()
+    # what a step graph reads: `_take_over` moves them with the graphs
+    _GRAPH_ATTRS = ("_decode_fn", "_mixed_fn", "_ragged_fn",
+                    "_scale_reset_fn")
+    _DEVICE_ATTRS = ("_params", "_k_pages", "_v_pages", "_k_scales",
+                     "_v_scales", "_generator", "_graph_memory")
 
     def __init__(self, model, max_batch_size=4, max_seq_len=None,
                  page_size=None, num_pages=None, sampler="greedy",
@@ -890,10 +1070,24 @@ class DecodeEngine:
                  prefill_q_max=None, prefix_cache=None,
                  cache_generated_pages=None, kv_quant=None,
                  serve_weights=None, ragged_step=None, spec_adaptive_k=None,
-                 device=None):
+                 scheduler=None, fault_plan=None, journal_dir=None,
+                 step_timeout_ms=None, dtype=None, device=None,
+                 _adopt=None):
         self.device = resolve_device(device)
         cfg = model.cfg
-        self._params = _tree_to(model.params(), self.device)
+        if _adopt is not None:
+            if _adopt._abandoned or _adopt._k_pages is None:
+                raise ValueError(
+                    "an abandoned or released engine hands nothing over")
+            for a in self._DEVICE_ATTRS + ("_fp_wrows",):
+                setattr(self, a, getattr(_adopt, a))
+        else:
+            self._params = _tree_to(model.params(), self.device)
+        weight_dtype = _dtype_name(self._params["wte"].dtype)
+        if dtype is not None and _dtype_name(dtype) != weight_dtype:
+            raise ValueError(
+                f"dtype {dtype} differs from the weights' {weight_dtype}: "
+                f"the KV pages take the weights' dtype")
         if kv_quant is None:
             kv_quant = str(_flags.flag("kv_quant"))
         if kv_quant not in ("off", "int8"):
@@ -908,8 +1102,10 @@ class DecodeEngine:
                 f"{serve_weights!r}")
         # the fingerprint's qkv rows, sampled before a weight fold renames
         # the leaf: the prefix-cache root is the same in every mode
-        self._fp_wrows = [blk["qkv_w"][0].float().cpu().numpy().tobytes()
-                          for blk in self._params["blocks"]]
+        if _adopt is None:
+            self._fp_wrows = [
+                blk["qkv_w"][0].float().cpu().numpy().tobytes()
+                for blk in self._params["blocks"]]
         self._num_heads = cfg.num_heads
         self._head_dim = cfg.hidden_size // cfg.num_heads
         self._eps = float(model.ln_f._epsilon)
@@ -936,19 +1132,22 @@ class DecodeEngine:
                             self._page, self._head_dim)
         if self._kv_quant:
             kv_dtype = torch.int8
-        self._k_pages = torch.zeros(shape, dtype=kv_dtype, device=self.device)
-        self._v_pages = torch.zeros(shape, dtype=kv_dtype, device=self.device)
-        # per-page, per-head dequant scales of int8 pages
-        self._k_scales = self._v_scales = None
+        if _adopt is None:
+            self._k_pages = torch.zeros(shape, dtype=kv_dtype,
+                                        device=self.device)
+            self._v_pages = torch.zeros(shape, dtype=kv_dtype,
+                                        device=self.device)
+            # per-page, per-head dequant scales of int8 pages
+            self._k_scales = self._v_scales = None
+            if self._kv_quant:
+                sshape = shape[:3]
+                self._k_scales = torch.zeros(sshape, dtype=torch.float32,
+                                             device=self.device)
+                self._v_scales = torch.zeros(sshape, dtype=torch.float32,
+                                             device=self.device)
         # pages handed out since the last step: their scales zero before
         # any quantized write folds into them (`_flush_fresh_scales`)
         self._fresh_pages: List[int] = []
-        if self._kv_quant:
-            sshape = shape[:3]
-            self._k_scales = torch.zeros(sshape, dtype=torch.float32,
-                                         device=self.device)
-            self._v_scales = torch.zeros(sshape, dtype=torch.float32,
-                                         device=self.device)
 
         self._bt = np.zeros((self._slots, self._pages_per_seq), np.int32)
         self._lens = np.zeros(self._slots, np.int32)
@@ -964,7 +1163,8 @@ class DecodeEngine:
                               temperature=float(temperature),
                               top_k=int(top_k), top_p=float(top_p))
         self._eos = eos_token_id
-        self._generator = torch.Generator(device=self.device)
+        if _adopt is None:
+            self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(seed))
         self._queue: "deque[Request]" = deque()
         self._stats = dict.fromkeys(_STAT_KEYS, 0)
@@ -972,13 +1172,19 @@ class DecodeEngine:
         self._evictions_seen = 0
         # the step trackers, made at each kind's first step: graphs of one
         # engine (its draft model's too) share one memory pool
-        self._graph_memory = _GraphMemory()
+        if _adopt is None:
+            self._graph_memory = _GraphMemory()
         self._decode_fn = self._mixed_fn = self._ragged_fn = None
         self._scale_reset_fn = None
         self._prefill_fns: Dict[int, _StepGraph] = {}
         self._weight_quant = serve_weights == "int8"
         if self._weight_quant:
-            self._params, mats, saved = _quantize_gpt_params(self._params)
+            if _adopt is None:
+                self._params, mats, saved = _quantize_gpt_params(
+                    self._params)
+            else:  # folded already; counted as JAX's rebuilt engine does
+                mats = _adopt._stats["weight_quant_mats"]
+                saved = _adopt._stats["weight_quant_bytes_saved"]
             self._add(weight_quant_mats=mats, weight_quant_bytes_saved=saved)
 
         # the legacy one-shot prefill (chunked_prefill=False) stays the
@@ -1055,6 +1261,86 @@ class DecodeEngine:
             self._q_max = min(self._q_max, max(self._page, window))
         self._q_ragged = max(self._q_max if self._chunked else 1, window)
 
+        # the admission scheduler (inference.frontend)
+        from .frontend import make_scheduler
+
+        if scheduler is None:
+            scheduler = str(_flags.flag("sched_policy"))
+        self._scheduler = make_scheduler(scheduler)
+        self._scheduler.bind(self)
+        # fault injection + the containment ladder (inference.resilience)
+        from .resilience import FaultPlan, ResilienceManager
+
+        if fault_plan is None:
+            fault_plan = FaultPlan.parse(str(_flags.flag("fault_inject")))
+        elif isinstance(fault_plan, str):
+            fault_plan = FaultPlan.parse(fault_plan)
+        self._fault = fault_plan
+        self._resilience = ResilienceManager(self)
+        # what the degradation ladder may flip and its probe restores
+        self._chunked_cfg = self._chunked
+        self._prefix_cache_cfg = self._prefix_cache
+        # RNG-free step counters, JAX's fold counters: the engine step a
+        # fault verdict lands on, and the legacy prefills run
+        self._step_no = 0
+        self._prefill_no = 0
+        self._engine_id = next(DecodeEngine._next_engine_id)
+
+        # durable serving + the hung-step watchdog (inference.durability)
+        if journal_dir is None:
+            journal_dir = str(_flags.flag("journal_dir")) or None
+        if step_timeout_ms is None:
+            step_timeout_ms = float(_flags.flag("step_timeout_ms"))
+        self._journal_dir = journal_dir
+        self._step_timeout_ms = float(step_timeout_ms)
+        # set by the watchdog's abandon path: a step still running in a
+        # worker thread must change nothing when it returns
+        self._abandoned = False
+        self._config_fp: Optional[bytes] = None
+        self._durability = None
+        self._watchdog = None
+        # the resolved construction config: `resilience.recover` rebuilds
+        # this engine from it, `wire_config` journals its serializable
+        # part.  Scheduler, drafter and fault plan instances are reused.
+        self._ctor = dict(
+            model=model, max_batch_size=self._slots,
+            max_seq_len=self._max_seq_len, page_size=self._page,
+            num_pages=self.pool.num_pages,
+            sampler=self._sampling["sampler"],
+            temperature=self._sampling["temperature"],
+            top_k=self._sampling["top_k"], top_p=self._sampling["top_p"],
+            seed=seed, eos_token_id=self._eos, dtype=weight_dtype,
+            spec_decode_k=(self._spec.k if self._spec else 0),
+            drafter=(self._spec.drafter if self._spec else None),
+            chunked_prefill=self._chunked,
+            prefill_chunk_tokens=self._chunk_budget,
+            prefill_q_max=self._q_max, prefix_cache=self._prefix_cache,
+            cache_generated_pages=self._cache_generated,
+            scheduler=self._scheduler, fault_plan=self._fault,
+            journal_dir=self._journal_dir,
+            step_timeout_ms=self._step_timeout_ms,
+            kv_quant=kv_quant, serve_weights=serve_weights,
+            ragged_step=self._ragged,
+            spec_adaptive_k=(self._spec.adaptive
+                             if self._spec is not None else False),
+            device=self.device)
+        if _adopt is not None:
+            if _adopt.config_fingerprint() != self.config_fingerprint():
+                raise ValueError(
+                    "_adopt: the donor's configuration differs")
+            self._take_over(_adopt)
+        if self._journal_dir:
+            from .durability import DurabilityManager
+
+            self._durability = DurabilityManager(self, self._journal_dir)
+        if self._step_timeout_ms > 0:
+            from .durability import StepWatchdog
+
+            self._watchdog = StepWatchdog(self, self._step_timeout_ms)
+        from .durability import set_health
+
+        set_health(self._engine_id, "live", span=False)
+
     def _model_fingerprint(self) -> bytes:
         """The chain-hash root: the embedding's first row, one qkv row
         per block and the architecture dims (paddle_tpu's scheme)."""
@@ -1067,6 +1353,158 @@ class DecodeEngine:
                       self._num_heads, self._head_dim,
                       self._page)).encode())
         return h.digest()
+
+    def config_fingerprint(self) -> bytes:
+        """Digest of everything that fixes this engine's step signatures
+        and numerics: the `_model_fingerprint` weight sample, the
+        architecture dims, every shape-determining constructor knob and
+        the sampling config, hashed as the JAX package hashes them (its
+        dtype strings, its key order), so the same weights and
+        configuration give equal digests in both packages and a journal
+        can move between them.  Gates `adopt_executables` and
+        `durability.restore_from_dir`.  Memoized."""
+        if self._config_fp is None:
+            h = hashlib.blake2b(digest_size=16)
+            p = self._params
+            h.update(p["wte"][0].float().cpu().numpy().tobytes())
+            for row in self._fp_wrows:
+                h.update(row)
+            h.update(str((
+                tuple(int(d) for d in p["wte"].shape), len(p["blocks"]),
+                self._num_heads, self._head_dim, self._eps,
+                self._slots, self._max_seq_len, self._page,
+                self.pool.num_pages, self._q_max,
+                int(self._ctor["prefill_chunk_tokens"]),
+                _dtype_name(self._k_pages.dtype),
+                tuple(sorted(self._sampling.items())),
+                self._spec.k if self._spec else 0,
+                self._chunked_cfg)).encode())
+            if self._ragged:
+                h.update(str(("ragged", self._q_ragged)).encode())
+            if self._weight_quant:
+                h.update(str(("serve_weights", "int8")).encode())
+            self._config_fp = h.digest()
+        return self._config_fp
+
+    def wire_config(self) -> dict:
+        """The serializable part of the resolved constructor config, the
+        journal's config record: every key is one the JAX engine takes
+        too, so either package can rebuild the engine (the model, the
+        scheduler, drafter and fault plan, and the device stay with the
+        process)."""
+        kw = {k: v for k, v in self._ctor.items()
+              if k not in ("model", "scheduler", "drafter", "fault_plan",
+                           "journal_dir", "device")}
+        if kw.get("eos_token_id") is not None:
+            kw["eos_token_id"] = int(kw["eos_token_id"])
+        return kw
+
+    def _trackers(self) -> List[_StepGraph]:
+        """Every live `_StepGraph` of this engine and its speculative
+        decoder: the watchdog's compile detector."""
+        ts = [self._decode_fn, self._mixed_fn, self._ragged_fn,
+              self._scale_reset_fn, *self._prefill_fns.values()]
+        if self._spec is not None:
+            ts += self._spec.trackers()
+        return [t for t in ts if t is not None]
+
+    def adopt_executables(self, donor) -> int:
+        """Graph handoff: take a retired engine's captured step graphs
+        instead of capturing them again (`_take_over`), discarding this
+        engine's own weights and pools; `resilience.recover` hands over
+        through the constructor's ``_adopt`` instead, which allocates
+        none.  Only a fresh engine (no step run yet) adopts, only from a
+        donor with an equal `config_fingerprint` and graphs to give, and
+        never from a donor the watchdog abandoned: its worker may still
+        be in a step that writes those pools.  Returns the graphs'
+        trackers adopted (``exec_handoffs``); 0 leaves the engine to
+        capture its own."""
+        fresh = not any(getattr(self, a) is not None
+                        for a in self._GRAPH_ATTRS) and \
+            not self._prefill_fns and \
+            (self._spec is None or self._spec._verify_fn is None)
+        has = any(getattr(donor, a) is not None
+                  for a in self._GRAPH_ATTRS) or donor._prefill_fns or \
+            (self._spec is not None and donor._spec is not None and
+             donor._spec._verify_fn is not None)
+        if donor is self or donor._abandoned or not fresh or not has or \
+                donor._k_pages is None or \
+                donor.config_fingerprint() != self.config_fingerprint():
+            return 0
+        return self._take_over(donor)
+
+    def _take_over(self, donor) -> int:
+        """Move ``donor``'s step graphs here with what they read: a graph
+        reads the addresses of its engine's weights, pools, scales,
+        generator and graph memory.  The pools and scales are zeroed, the
+        state a rebuilt engine starts from (stale page contents would
+        reach masked attention probabilities), and the donor lets go of
+        all of it.  A draft model's graphs are rebuilt at its rebind, as
+        the JAX drafter's executables are.  Returns the trackers taken,
+        counted as ``exec_handoffs``."""
+        for a in self._GRAPH_ATTRS + self._DEVICE_ATTRS:
+            setattr(self, a, getattr(donor, a))
+        self._prefill_fns = dict(donor._prefill_fns)
+        n = sum(getattr(self, a) is not None for a in self._GRAPH_ATTRS) + \
+            len(self._prefill_fns)
+        if self._spec is not None and donor._spec is not None and \
+                donor._spec._verify_fn is not None:
+            self._spec._verify_fn = donor._spec._verify_fn
+            n += 1
+        for t in (self._k_pages, self._v_pages, self._k_scales,
+                  self._v_scales):
+            if t is not None:
+                t.zero_()
+        donor._release_device_state()
+        if n:
+            _stats_add(exec_handoffs=n)
+        return n
+
+    def _release_device_state(self):
+        """Drop this engine's references to its graphs, pools and
+        weights (a retired engine: recovery hands them over or lets them
+        go, so two recoveries never hold three engines' memory)."""
+        self._decode_fn = self._mixed_fn = self._ragged_fn = None
+        self._scale_reset_fn = None
+        self._prefill_fns = {}
+        self._k_pages = self._v_pages = None
+        self._k_scales = self._v_scales = None
+        self._params = None
+        if self._spec is not None:
+            self._spec._verify_fn = None
+
+    def _abandon_inflight(self):
+        """Watchdog abandonment: a step still running in a worker thread
+        must change nothing visible when it returns, since its requests
+        now belong to the rebuilt engine.  The journal detaches first
+        (the successor owns the directory), the graph memory is marked
+        abandoned so the late step launches nothing (`_StepGraph`
+        raises before staging), and every slot and the queue clear.  The
+        pools stay with this engine: the late worker may still hold
+        them, so the successor allocates its own and captures anew.  The
+        flight recorder's dump here waits for the telemetry plane."""
+        self._abandoned = True
+        self._graph_memory.abandoned = True
+        for t in self._trackers():  # a draft model's graphs too
+            t._memory.abandoned = True
+        dur, self._durability = self._durability, None
+        if dur is not None:
+            try:
+                dur.close()
+            except Exception:
+                pass  # best effort: the hung worker may hold the handle
+        self._watchdog = None
+        _obs.record_span("engine", "abandoned", _obs.now_ns(), 0,
+                         tid=self._engine_id,
+                         args={"step": int(self._step_no)})
+        from .durability import retire_engine_series
+
+        retire_engine_series(self._engine_id)
+        self._by_slot = [None] * self._slots
+        self._active = np.zeros(self._slots, bool)
+        self._queue.clear()
+        self._free_slots = list(range(self._slots))
+        heapq.heapify(self._free_slots)
 
     def decode_stats(self) -> dict:
         """This engine's counters: steps, tokens, mixed_steps,
@@ -1101,7 +1539,7 @@ class DecodeEngine:
         """After each engine step: cached pages the pool recycled since
         the last one (`_observe_step` of the JAX package, its counter
         alone)."""
-        if self._prefix_cache:
+        if self._prefix_cache and not self._abandoned:
             d = self.pool.evictions - self._evictions_seen
             if d:
                 self._evictions_seen = self.pool.evictions
@@ -1172,10 +1610,22 @@ class DecodeEngine:
 
     # -- admission ------------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens=32,
-                    eos_token_id=...) -> Request:
+                    eos_token_id=..., priority=None, deadline_ms=None,
+                    slo_ttft_ms=None, slo_tpot_ms=None,
+                    on_token=None, trace_id=None) -> Request:
         # sentinel default: eos_token_id=None opts out of the engine eos
         req = Request(prompt_ids, max_new_tokens,
-                      self._eos if eos_token_id is ... else eos_token_id)
+                      self._eos if eos_token_id is ... else eos_token_id,
+                      priority=priority, deadline_ms=deadline_ms,
+                      slo_ttft_ms=slo_ttft_ms, slo_tpot_ms=slo_tpot_ms,
+                      on_token=on_token)
+        if trace_id is not None:
+            req.trace_id = str(trace_id)
+        self._validate(req)
+        self._enqueue(req)
+        return req
+
+    def _validate(self, req: Request):
         if not req.prompt_ids:
             raise ValueError("empty prompt")
         if req.max_new_tokens < 1:
@@ -1188,7 +1638,33 @@ class DecodeEngine:
         if self._pages_for(req.total_kv_tokens()) > self.pool.num_pages:
             raise ValueError(
                 "request needs more KV pages than the pool holds")
+
+    def _enqueue(self, req: Request):
+        req._engine = self
+        req.t_enqueue_ns = _obs.now_ns()
+        if req.deadline_ms is not None:
+            req._deadline_ns = req.t_enqueue_ns + \
+                int(req.deadline_ms * 1e6)
         self._queue.append(req)
+        if self._durability is not None:
+            self._durability.on_admit(req)
+
+    def admit_restored(self, req: Request, on_token=None) -> Request:
+        """Admit a request another engine's journal materialized
+        (`durability.adopt_from_dir`): a fresh id in this engine's id
+        space, validated like any admission, journaled here under its
+        restored identity with its streamed watermark."""
+        if req.state == "done":
+            raise ValueError(
+                "admit_restored takes an in-flight materialized "
+                "request, not a finished one")
+        self._validate(req)
+        req.request_id = next(Request._next_id)
+        req.on_token = on_token
+        self._enqueue(req)
+        if self._durability is not None and req._absorbed + req._emit_gate:
+            # the adopted watermark must be durable here too
+            self._durability.on_emit(req)
         return req
 
     def _pages_for(self, tokens: int) -> int:
@@ -1222,29 +1698,35 @@ class DecodeEngine:
         return hit_pages
 
     def _admit(self):
-        """FIFO admission: admit the queue head while it fits."""
-        while self._queue:
-            if not self._admit_one(self._queue[0]):
-                return
+        """Between-steps admission, delegated to the scheduler
+        (`frontend.Scheduler`); every bind goes through `_admit_one`."""
+        self._scheduler.schedule()
 
-    def _capacity_ok(self, req: Request) -> bool:
-        """Would the pool see ``req`` through to completion?  Running
-        requests' pages still to come are reserved; hit pages need no
-        allocation but must not count as evictable capacity."""
+    def _capacity_ok(self, req: Request, extra_pages: int = 0) -> bool:
+        """Would the pool see ``req`` through to completion with
+        ``extra_pages`` more pages reclaimable (the pages a preemption
+        would free)?  Running requests' pages still to come are
+        reserved; hit pages need no allocation but must not count as
+        evictable capacity."""
         total_pages = self._pages_for(req.total_kv_tokens())
         hit_pages = self._probe_prefix(req)
         need = total_pages - len(hit_pages)
         avail = self.pool.free_count + \
-            self.pool.cached_unreferenced_count - \
+            self.pool.cached_unreferenced_count + extra_pages - \
             sum(1 for p in hit_pages if self.pool.refcount(p) == 0)
         return avail - self.pool.reserved >= need
 
     def _admit_one(self, req: Request) -> bool:
+        """Admit one queued request if a slot is free and the pool can
+        see it through; False leaves it queued."""
         if not self._free_slots or not self._capacity_ok(req):
             return False
         total_pages = self._pages_for(req.total_kv_tokens())
         hit_pages = self._probe_prefix(req)
-        self._queue.remove(req)
+        if self._queue and self._queue[0] is req:
+            self._queue.popleft()
+        else:
+            self._queue.remove(req)
         slot = heapq.heappop(self._free_slots)
         try:
             if self._chunked:
@@ -1253,22 +1735,38 @@ class DecodeEngine:
                 self._prefill_into(req, slot, total_pages)
         except PoolExhausted:
             # the pool could not deliver what the capacity probe
-            # promised: unwind the partial claim, stay queued at the head
-            self.pool.release_pages(req.pages)
-            req.pages = []
-            req.cached_page_count = req.cached_prefix_len = 0
-            req.slot = None
-            req.state = "queued"
-            self._release_slot(slot)
-            self._queue.appendleft(req)
+            # promised (or the "pool" fault site fired): backpressure
+            self._unwind_failed_admit(req, slot)
             return False
         return True
+
+    def _unwind_failed_admit(self, req: Request, slot: int):
+        """Roll back a bind that raised `PoolExhausted`: release the
+        partial claim, clear the slot, requeue the request at the head."""
+        self.pool.release_pages(req.pages)
+        req.pages = []
+        req.cached_page_count = req.cached_prefix_len = 0
+        req.slot = None
+        req.state = "queued"
+        self._release_slot(slot)
+        self._queue.appendleft(req)
+
+    def _stamp_admit(self, req: Request):
+        """The admission stamp; a re-admission after a preemption counts
+        a resume instead."""
+        first = req.t_admit_ns is None
+        req.t_admit_ns = _obs.now_ns()
+        if not first:
+            _stats_add(resumes=1)
 
     def _alloc_prompt_pages(self, req: Request, slot: int,
                             total_pages: int, hit_pages=()):
         """Map the cached prefix (refcount+1) and allocate fresh pages
         for the rest of the prompt, reserve the decode tail, and point
-        the slot's block-table row at them."""
+        the slot's block-table row at them.  May raise `PoolExhausted`
+        (organically or at the "pool" fault site)."""
+        if self._fault is not None:
+            self._resilience.fault_point("pool")
         for p in hit_pages:
             self.pool.ref_page(p)
             req.pages.append(p)
@@ -1286,7 +1784,10 @@ class DecodeEngine:
         """Bind the request to a slot; the next mixed steps feed its
         prompt chunk by chunk, starting at the first token past the
         cached prefix."""
+        # alloc before the admit stamp: an unwind must leave the request
+        # looking never admitted
         self._alloc_prompt_pages(req, slot, total_pages, hit_pages)
+        self._stamp_admit(req)
         req.state = "running"
         req.slot = slot
         self._by_slot[slot] = req
@@ -1320,12 +1821,14 @@ class DecodeEngine:
         self._alloc_prompt_pages(req, slot, total_pages)
         if self._active.any():
             self._add(stalled_decode_steps=1)
+        self._stamp_admit(req)
         p_len = len(req.prompt_ids)
         bucket = self._prefill_bucket(p_len)
         ids = np.zeros((1, bucket), np.int32)
         ids[0, :p_len] = req.prompt_ids
         fn = self._prefill_tracker(bucket)
         t0 = time.perf_counter()
+        self._prefill_no += 1
         self._flush_fresh_scales()
         tok = int(self._fetch(fn(ids, np.asarray([p_len], np.int32),
                                  self._bt[slot]))[0])
@@ -1339,9 +1842,12 @@ class DecodeEngine:
         self._last[slot] = max(tok, 0)
         self._active[slot] = True
         if tok < 0:
-            self._finish(slot, "fault")
+            # non-finite logits in the prompt pass: quarantine this
+            # request only, nothing was emitted
+            self._quarantine_slot(slot, "nan_logits")
             return
         self._add(prefills=1, tokens=1)
+        self._stamp_first_token(req)
         self._emit(req, [tok])
         if self._spec is not None:
             self._spec.on_admit(slot, req)
@@ -1376,7 +1882,53 @@ class DecodeEngine:
         return None
 
     def _emit(self, req: Request, toks):
+        """Land generated tokens on the request and fire its streaming
+        callback: the one place ``output_ids`` grows.  The journal's
+        watermark is appended first (write-ahead); ``req._emit_gate``
+        holds back tokens an earlier life already streamed.  A callback
+        that raises (the "host_callback" site) is recorded on
+        ``req.fault_info`` and dropped; generation goes on."""
         req.output_ids.extend(toks)
+        gate = req._emit_gate
+        if gate:
+            skip = min(gate, len(toks))
+            req._emit_gate = gate - skip
+            toks = toks[skip:]
+        if self._durability is not None:
+            self._durability.on_emit(req)
+        cb = req.on_token
+        if cb is None:
+            return
+        for t in toks:
+            try:
+                if self._fault is not None:
+                    self._resilience.fault_point("host_callback")
+                cb(int(t))
+            except Exception as e:  # containment, not policy
+                req.on_token = None
+                if req.fault_info is None:
+                    req.fault_info = FaultInfo(
+                        site="host_callback", step=self._step_no,
+                        recovered=True, message=str(e))
+                break
+
+    def _slo_violation(self, req: Request, kind: str):
+        """One SLO miss ("ttft" | "tpot" | "deadline"): accounting only."""
+        req.slo_violations.append(kind)
+        _stats_add(slo_violations=1)
+
+    def _stamp_first_token(self, req: Request):
+        """Stamp TTFT once per request (a resumed request keeps its
+        stamp) and check a declared TTFT target."""
+        if req.t_first_token_ns is not None:
+            return
+        req.t_first_token_ns = _obs.now_ns()
+        if req.t_enqueue_ns is not None:
+            ttft_s = (req.t_first_token_ns - req.t_enqueue_ns) / 1e9
+            _obs.REQUEST_TTFT.observe(ttft_s)
+            if req.slo_ttft_ms is not None and \
+                    ttft_s * 1e3 > req.slo_ttft_ms:
+                self._slo_violation(req, "ttft")
 
     def _register_prompt_pages(self, req: Request):
         """Prefill complete: content-address every freshly computed full
@@ -1391,13 +1943,16 @@ class DecodeEngine:
         """With ``cache_generated_pages``: content-address each page of
         generated tokens the moment it fills, extending the prompt's
         chain hash over the decode stream."""
-        if not self._cache_generated:
+        if not self._cache_generated or not self._prefix_cache or \
+                req.t_first_token_ns is None:
             return
         full = int(self._lens[slot]) // self._page
         if full <= req._reg_pages:
             return
         toks = req.prompt_ids + req.output_ids
         hashes = req._page_hashes
+        if hashes is None:
+            hashes = req._page_hashes = self._prefix_hashes(req.prompt_ids)
         while len(hashes) < full:
             i = len(hashes)
             prev = hashes[-1] if hashes else self._model_salt
@@ -1414,12 +1969,136 @@ class DecodeEngine:
             self._pages_for(req.total_kv_tokens()) - len(req.pages), 0)
         req.state = "done"
         req.finish_reason = reason
-        self._add(**{f"finished_{reason}": 1})
         req.slot = None
         req.pages = []
         self._release_slot(slot)
+        self._add(**{_FINISH_COUNTER[reason]: 1})
+        req.t_finish_ns = _obs.now_ns()
+        if self._durability is not None:
+            self._durability.on_finish(req)
+        # preemption-stable: tokens folded into the replay prompt count
+        n_out = len(req.output_ids) + req._absorbed
+        if req.t_first_token_ns is not None and n_out > 1:
+            tpot_s = (req.t_finish_ns - req.t_first_token_ns) / 1e9 \
+                / (n_out - 1)
+            _obs.REQUEST_TPOT.observe(tpot_s)
+            if reason in ("eos", "length") and \
+                    req.slo_tpot_ms is not None and \
+                    tpot_s * 1e3 > req.slo_tpot_ms:
+                self._slo_violation(req, "tpot")
+        if reason in ("eos", "length") and req._deadline_ns is not None \
+                and req.t_finish_ns > req._deadline_ns:
+            self._slo_violation(req, "deadline")
         if self._spec is not None:
             self._spec.on_finish(slot, req)
+
+    def evict(self, req: Request):
+        """Cancel a request on the engine's initiative: a queued request
+        leaves the queue, a running one gives its slot and pages back;
+        ``finish_reason`` reads "evicted"."""
+        if req.state == "queued":
+            self._retire_queued(req, "evicted")
+            return
+        if req.state == "running" and req.slot is not None and \
+                0 <= req.slot < self._slots and \
+                self._by_slot[req.slot] is req:
+            self._finish(req.slot, "evicted")
+            return
+        if req.state == "done":
+            return
+        raise ValueError("request is not owned by this engine")
+
+    def preempt(self, req: Request):
+        """Preempt a running request between steps: release its slot and
+        pages and requeue it at the head.  Its generated tokens fold into
+        ``prompt_ids`` (``max_new_tokens`` shrinks one for one) and the
+        next admission replays them as a prompt; with the prefix cache
+        every full page of that replay is registered here first, so the
+        resume maps them and recomputes at most one page.  ``on_token``
+        only ever sees novel tokens."""
+        if req.state != "running" or req.slot is None or \
+                self._by_slot[req.slot] is not req:
+            raise ValueError(
+                f"preempt() is for running requests; this one is "
+                f"{req.state!r}")
+        slot = req.slot
+        total_pages = self._pages_for(req.total_kv_tokens())
+        n_gen = len(req.output_ids)
+        kv_len = int(self._lens[slot])
+        replay_hashes = None
+        if self._prefix_cache and req.t_first_token_ns is not None:
+            # rows below kv_len are final: their full pages can freeze
+            replay_hashes = self._prefix_hashes(
+                req.prompt_ids + req.output_ids)
+            full = min(kv_len // self._page, len(replay_hashes))
+            for i in range(req.cached_page_count, full):
+                self.pool.register_page(req.pages[i], replay_hashes[i])
+            req._reg_pages = max(req._reg_pages, full)
+        req.prompt_ids = req.prompt_ids + req.output_ids
+        req.max_new_tokens -= n_gen
+        req._absorbed += n_gen
+        req.output_ids = []
+        req._page_hashes = replay_hashes
+        req.preemptions += 1
+        self.pool.release_pages(req.pages)
+        self.pool.reserved -= max(total_pages - len(req.pages), 0)
+        req.pages = []
+        req.cached_page_count = 0
+        req.cached_prefix_len = 0
+        req.slot = None
+        req.state = "queued"
+        self._release_slot(slot)
+        if self._spec is not None:
+            self._spec.on_finish(slot, req)
+        self._queue.appendleft(req)
+        _stats_add(preemptions=1)
+
+    def _cancel_running(self, req: Request):
+        if req.state != "running" or req.slot is None or \
+                self._by_slot[req.slot] is not req:
+            raise ValueError("request is not running on this engine")
+        self._finish(req.slot, "cancelled")
+
+    def _retire_queued(self, req: Request, reason: str):
+        """Take a queued request out of the queue for good ("evicted",
+        "cancelled", "deadline", or "fault" from the bisect quarantine)."""
+        try:
+            self._queue.remove(req)
+        except ValueError:
+            raise ValueError(
+                "request is not queued on this engine") from None
+        req.state = "done"
+        req.finish_reason = reason
+        req.t_finish_ns = _obs.now_ns()
+        _stats_add(**{_FINISH_COUNTER[reason]: 1})
+        if self._durability is not None:
+            self._durability.on_finish(req)
+
+    def _cancel_queued(self, req: Request):
+        if req.state != "queued":
+            raise ValueError(
+                f"cancel() is for still-queued requests; this one is "
+                f"{req.state!r} — use DecodeEngine.evict to cancel a "
+                f"running request")
+        self._retire_queued(req, "cancelled")
+
+    def _quarantine_slot(self, slot: int, site: str, message: str = ""):
+        """Containment verdict for one slot: its request finishes
+        "fault" with a `FaultInfo`, every other slot keeps serving."""
+        req = self._by_slot[slot]
+        if req.fault_info is None:
+            req.fault_info = FaultInfo(
+                site=site, step=self._step_no, recovered=False,
+                message=message or "non-finite logits: slot quarantined")
+        else:
+            req.fault_info.history.append(req.fault_info.site)
+            req.fault_info.site = site
+            req.fault_info.recovered = False
+        _obs.record_span("engine", "quarantine", _obs.now_ns(), 0,
+                         tid=self._engine_id,
+                         args={"request": req.request_id, "slot": slot,
+                               "site": site})
+        self._finish(slot, "fault")
 
     def _on_first_token(self, slot: int, req: Request, tok: int) -> bool:
         """The slot's last prompt chunk landed and sampled its first
@@ -1427,12 +2106,13 @@ class DecodeEngine:
         NaN sentinel finishes the slot as "fault" and registers nothing
         (K/V computed under non-finite activations must not be cached)."""
         if tok < 0:
-            self._finish(slot, "fault")
+            self._quarantine_slot(slot, "nan_logits")
             return False
         self._register_prompt_pages(req)
         self._emit(req, [tok])
         self._last[slot] = tok
         self._add(prefills=1)
+        self._stamp_first_token(req)
         reason = self._done(req, tok)
         if reason:
             self._finish(slot, reason)
@@ -1442,6 +2122,8 @@ class DecodeEngine:
         """Ensure pages exist for every KV row the next step writes:
         positions ``lens[slot] .. lens[slot] + writes[slot] - 1`` (one
         row per active slot by default)."""
+        if self._fault is not None:
+            self._resilience.fault_point("pool")
         for slot in range(self._slots):
             if not self._active[slot]:
                 continue
@@ -1551,21 +2233,27 @@ class DecodeEngine:
                     sample_idx[s] = 0
                     sample_mask[s] = True
         self._grow_block_tables(writes=caps)
+        fn = self._ragged_tracker() if self._ragged else self._mixed_tracker()
+        if self._fault is not None:
+            # before the step: an injected raise leaves nothing half done
+            self._resilience.step_fault_point("mixed_step")
+        self._step_no += 1
         self._flush_fresh_scales()
 
         t0 = time.perf_counter()
         if self._ragged:
             # a target at every position: the host picks each slot's
             # span-end row, and keeps NAN_TOKEN where the row faulted
-            toks = self._fetch(self._ragged_tracker()(
-                self._bt, self._lens, tokens, caps))
+            toks = self._fetch(fn(self._bt, self._lens, tokens, caps))
             toks = np.where(sample_mask, toks[np.arange(slots), sample_idx],
                             0)
         else:
-            toks = self._fetch(self._mixed_tracker()(
-                self._bt, self._lens, tokens, caps, sample_idx,
-                sample_mask))
+            toks = self._fetch(fn(self._bt, self._lens, tokens, caps,
+                                  sample_idx, sample_mask))
         dt = time.perf_counter() - t0
+        if self._fault is not None:
+            toks = self._resilience.corrupt_tokens(
+                toks, [s for s in range(slots) if sample_mask[s]])
         n_active = int(self._active.sum())
         if decode_rows:
             self._add(mixed_steps=1, prefill_chunks=len(chunk_of), steps=1,
@@ -1604,7 +2292,9 @@ class DecodeEngine:
         """A decoding slot sampled ``tok``: emit it (or finish the slot
         as "fault" on the NaN sentinel).  Returns the tokens emitted."""
         if tok < 0:
-            self._finish(slot, "fault")
+            # non-finite logits on this row only: quarantine the slot,
+            # never the batch
+            self._quarantine_slot(slot, "nan_logits")
             return 0
         self._lens[slot] += 1
         self._last[slot] = tok
@@ -1617,11 +2307,18 @@ class DecodeEngine:
 
     def _decode_step(self) -> bool:
         self._grow_block_tables()
+        fn = self._decode_tracker()
+        if self._fault is not None:
+            self._resilience.step_fault_point("decode_step")
+        self._step_no += 1
         self._flush_fresh_scales()
         t0 = time.perf_counter()
-        toks = self._fetch(self._decode_tracker()(
-            self._bt, self._lens, self._last, self._active))
+        toks = self._fetch(fn(self._bt, self._lens, self._last,
+                              self._active))
         dt = time.perf_counter() - t0
+        if self._fault is not None:
+            toks = self._resilience.corrupt_tokens(
+                toks, [s for s in range(self._slots) if self._active[s]])
         n_active = int(self._active.sum())
         kv_util = self.pool.utilization()  # before the step's finishes
         self._observe_step()
@@ -1637,18 +2334,65 @@ class DecodeEngine:
 
     def step(self) -> bool:
         """Admit what fits (a legacy engine runs each admitted prompt's
-        one-shot prefill here), then run one batched step: a speculative
-        round with ``spec_decode_k``; else a mixed prefill+decode step
-        while any slot is mid-prefill, and a decode step otherwise — the
-        ragged step in both cases with ``ragged_step``.  Returns False when
-        nothing is left.  Errors propagate, a drafter's too (the
-        containment ladder is a later slice)."""
+        one-shot prefill here), then run one batched step under the
+        containment ladder (`resilience.ResilienceManager.run_step`): a
+        speculative round with ``spec_decode_k``; else a mixed
+        prefill+decode step while any slot is mid-prefill, and a decode
+        step otherwise — the ragged step in both cases with
+        ``ragged_step``.  Returns False when nothing is left.  A fault
+        that survives the ladder raises a fatal `errors.StepFault`; only
+        `resilience.recover` goes on from there.  On the card an
+        exception the fault plan did not inject leaves here unchanged
+        (`resilience.ResilienceManager.contain`).  The journal flushes and
+        snapshots at the step boundary, and the watchdog judges the step
+        (`durability.StepWatchdog`)."""
         self._admit()
+        if not self._abandoned and _obs.enabled():
+            # admission pressure, sampled after the admission pass
+            eid = self._engine_id
+            _obs.QUEUE_DEPTH.set(len(self._queue), engine=eid)
+            _obs.QUEUE_OLDEST_AGE.set(
+                (_obs.now_ns() - min(r.t_enqueue_ns for r in self._queue))
+                / 1e9 if self._queue else 0.0, engine=eid)
         if not self._active.any():
+            if self._durability is not None:
+                self._durability.on_step_boundary()
             return bool(self._queue)
-        if self._spec is not None:
+        wd = self._watchdog
+        if wd is not None:
+            wd.arm()
+            t0 = time.perf_counter()
+        try:
+            out = self._resilience.run_step()
+            if self._durability is not None:
+                self._durability.on_step_boundary()
+        finally:
+            if wd is not None:
+                dt = time.perf_counter() - t0
+                wd.disarm()
+        if wd is not None and wd.classify(dt):
+            # the step completed (its tokens are emitted and journaled)
+            # but ran this slow with nothing to excuse it: hand the
+            # fatal HungStep to the recovery supervision
+            wd.on_hung(dt)
+        return out
+
+    def _step_inner(self) -> bool:
+        """One batched step over the admitted batch: the containment
+        ladder's unit of retry (`step` wraps it).  ``_step_kind`` records
+        the subsystem it runs, "spec", "mixed" (a slot mid-prefill) or
+        "decode", before any of its work: the ladder counts a failure
+        against it."""
+        spec = self._spec is not None and self._resilience.spec_active()
+        prefilling = not spec and self._chunked and self._prefilling_any()
+        self._step_kind = "spec" if spec else \
+            "mixed" if prefilling else "decode"
+        if self._fault is not None:
+            # a deterministic injected stall: SLO metrics see it
+            self._resilience.fault_point("slow_step")
+        if spec:
             return self._spec.step()
-        if self._ragged or self._prefilling_any():
+        if prefilling or self._ragged:
             return self._mixed_step()
         return self._decode_step()
 
@@ -1671,10 +2415,17 @@ class DecodeEngine:
         list per prompt (and, with ``return_meta``, the finish reasons)."""
         reqs = [self.add_request(p, max_new_tokens) for p in prompts]
         self.run()
-        outs = [r.generated_ids for r in reqs]
+        outs = [list(r.generated_ids) for r in reqs]
         if return_meta:
             return outs, [r.finish_reason for r in reqs]
         return outs
+
+
+def _dtype_name(dtype) -> str:
+    """A dtype's numpy name ("float32", "int8", "bfloat16"), as the JAX
+    package prints it: the fingerprint and the journal's config record
+    hash and carry these strings."""
+    return str(dtype).replace("torch.", "")
 
 
 def _tree_to(params: dict, device: torch.device) -> dict:

@@ -33,9 +33,11 @@ Drafters:
   with the target's vocabulary, over its own page pools indexed by the
   engine's block tables and page ids.
 
-A drafter that raises propagates out of `DecodeEngine.step`: the
-containment that JAX applies (a round with zero drafts) comes with the
-resilience slice.
+A drafter that raises costs its round, not the step: the verify runs
+over zero drafts (one target token a slot, a decode step through the
+verify's shapes), and repeated drafter faults degrade speculation off
+(`inference.resilience`).  The ``verify`` fault site guards the verify
+step and ``nan_logits`` corrupts its targets, as in JAX.
 """
 from __future__ import annotations
 
@@ -45,9 +47,10 @@ import numpy as np
 import torch
 
 from ..core import flags as _flags
-from .serving import (_gpt_decode_step, _gpt_mixed_step, _gpt_prefill,
-                      _gpt_ragged_step, _pool_shape, _quantize_gpt_params,
-                      _scale_reset_graph, _StepGraph, _tree_to)
+from .serving import (_EngineRef, _gpt_decode_step, _gpt_mixed_step,
+                      _gpt_prefill, _gpt_ragged_step, _pool_shape,
+                      _quantize_gpt_params, _scale_reset_graph, _StepGraph,
+                      _tree_to)
 
 __all__ = ["Drafter", "PromptLookupDrafter", "DraftModelDrafter",
            "SpeculativeDecoder", "make_drafter"]
@@ -71,10 +74,14 @@ class Drafter:
     round."""
 
     name = "base"
+    # a stateful drafter keeps per-slot state beside the engine's (a draft
+    # model's K/V): once degraded away, speculation stays off, since that
+    # state went stale while it was off
+    stateful = False
+    engine = _EngineRef()
 
     def bind(self, engine, k: int):
-        if getattr(self, "engine", None) is not None and \
-                self.engine is not engine:
+        if Drafter.engine.bound(self) and self.engine is not engine:
             raise ValueError(
                 "drafter is already bound to another engine: construct "
                 "one drafter per DecodeEngine")
@@ -171,6 +178,7 @@ class DraftModelDrafter(Drafter):
     PyTorch and is not one of them)."""
 
     name = "draft_model"
+    stateful = True
 
     def __init__(self, draft_model):
         cfg = draft_model.cfg
@@ -367,6 +375,8 @@ class SpeculativeDecoder:
     ``FLAGS_spec_k_grow_streak`` fully accepted ones: only the window's
     span changes, never a shape."""
 
+    engine = _EngineRef()
+
     def __init__(self, engine, k: int, drafter=None, adaptive=False):
         if k < 1:
             raise ValueError(f"spec_decode_k must be >= 1, got {k}")
@@ -476,7 +486,20 @@ class SpeculativeDecoder:
         pos_before = eng._lens.copy()
 
         t0 = time.perf_counter()
-        drafts = self.drafter.propose(caps)
+        try:
+            if eng._fault is not None:
+                eng._resilience.fault_point("drafter")
+            drafts = self.drafter.propose(caps)
+        except eng._resilience.NONRETRYABLE:
+            raise
+        except Exception as e:
+            # drafter containment: the round verifies zero drafts (all
+            # rejected, one target token a slot: no new shape); repeated
+            # faults degrade speculation off
+            if not eng._resilience.contain(e):
+                raise
+            drafts = np.zeros((slots, self.k), np.int32)
+            eng._resilience.on_drafter_fault(e)
         t_draft = time.perf_counter() - t0
 
         tokens = np.concatenate([eng._last[:, None].astype(np.int32),
@@ -485,10 +508,16 @@ class SpeculativeDecoder:
         if tokens.shape[1] < width:
             # the ragged grid's padding columns sit past every cap
             tokens = np.pad(tokens, ((0, 0), (0, width - tokens.shape[1])))
+        fn = self._verify_tracker()
+        if eng._fault is not None:
+            eng._resilience.step_fault_point("verify")
+        eng._step_no += 1
         t0 = time.perf_counter()
-        targets = eng._fetch(self._verify_tracker()(eng._bt, eng._lens,
-                                                    tokens, caps))
+        targets = eng._fetch(fn(eng._bt, eng._lens, tokens, caps))
         t_verify = time.perf_counter() - t0
+        if eng._fault is not None:
+            targets = eng._resilience.corrupt_tokens(
+                targets, [s for s in range(slots) if caps[s] > 0])
         n_active = int(eng._active.sum())
 
         emitted_total = proposed_total = accepted_total = 0
@@ -503,9 +532,9 @@ class SpeculativeDecoder:
                 m += 1
             emit = [int(t) for t in drafts[s, :m]] + [int(targets[s, m])]
             if any(t < 0 for t in emit):
-                # non-finite logits in this slot's window: finish it
+                # non-finite logits in this slot's window: quarantine it
                 # without emitting; the other slots' rounds stand
-                eng._finish(s, "fault")
+                eng._quarantine_slot(s, "nan_logits")
                 continue
             if req.eos_token_id is not None:
                 for j, t in enumerate(emit):

@@ -3,27 +3,30 @@
     python -m paddle_tpu_torch.tools.serve_profile
         [--kv-quant int8] [--serve-weights int8] [--ragged] [--legacy]
         [--spec-k K [--drafter prompt_lookup|draft_model|self]]
-        [--eager] [--out chiprun_out/serve_profile.json]
+        [--eager] [--runs N] [--no-profile]
+        [--out chiprun_out/serve_profile.json]
 
-Serves the workload of ``chip_smoke.py``'s serve phase (`gpt2_small_serve`:
-GPT-2-small at full width, random weights from seed 0, 8 slots, 64-token
-pages, 16 prompts of 64-512 tokens, half sharing a 128-token prefix, 64
-new tokens each; int8 KV pages and int8 weights with the switches, default
-off; every step through the unified ragged step with ``--ragged``;
-speculative decoding of K tokens a round with ``--spec-k``, drafted by
-prompt lookup, by a ``draft_config()`` model with random weights from
-seed 1, or by GPT-2-small itself; the legacy one-shot prefill with
-``--legacy``) twice: once plain, for the wall time, and once under
-``torch.profiler`` for the breakdown.  The steps run as the engine runs
-them, one captured CUDA graph per step signature (each engine captures
-at its first step of each shape); ``--eager`` runs both serves under
-``disable_capture()`` instead.  Prints, and writes to ``--out``: the wall
-time of each run; the device's busy time (the sum of every kernel's and
-copy's time, one stream so nothing overlaps) and idle share over the
+Serves the workload of ``chip_smoke.py``'s serve phase
+(`gpt2_small_serve`: GPT-2-small at full width, random weights from seed
+0, 8 slots, 64-token pages, 16 prompts of 64-512 tokens, half sharing a
+128-token prefix, 64 new tokens each; int8 KV pages and int8 weights with
+the switches, default off; every step through the unified ragged step with
+``--ragged``; speculative decoding of K tokens a round with ``--spec-k``,
+drafted by prompt lookup, by a ``draft_config()`` model with random
+weights from seed 1, or by GPT-2-small itself; the legacy one-shot prefill
+with ``--legacy``) twice: once plain, for the wall time, and once under
+``torch.profiler`` for the breakdown (``--runs N``: the plain serve N
+times, each on a fresh engine, with every run's tokens/s and host seconds
+a step; ``--no-profile``: no profiled serve). The steps run as the engine
+runs them, one captured CUDA graph per step signature (each engine
+captures at its first step of each shape); ``--eager`` runs both serves
+under ``disable_capture()`` instead. Prints, and writes to ``--out``: the
+wall time of each run; the device's busy time (the sum of every kernel's
+and copy's time, one stream so nothing overlaps) and idle share over the
 profiled run; the kernels and the PyTorch operators that took the most
 device time; the host seconds a step (the serve's wall over its engine
-steps) and the host time in each kind of step.  Needs a CUDA card;
-raises without one.
+steps) and the host time in each kind of step. Needs a CUDA card; raises
+without one.
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ def gpt2_small_serve(device, kv_quant="off", serve_weights="off",
     prompts, and a factory of fresh ``DecodeEngine(max_batch_size=8,
     page_size=64, kv_quant=..., serve_weights=..., ragged_step=...,
     spec_decode_k=..., chunked_prefill=...)`` engines, the other flags
-    at their defaults.
+    at their defaults (keywords given to the factory override these).
     ``drafter`` (with ``spec_decode_k``) is "prompt_lookup", "draft_model"
     (`GPTConfig.draft_config` with random weights from ``SEED + 1``) or
     "self" (the model drafts for itself); each engine gets a drafter of
@@ -93,13 +96,14 @@ def gpt2_small_serve(device, kv_quant="off", serve_weights="off",
     elif spec_decode_k and drafter == "draft_model":
         draft = GPT.random(cfg.draft_config(), seed=SEED + 1, device=device)
 
-    def new_engine():
-        return DecodeEngine(
-            model, max_batch_size=8, page_size=64, kv_quant=kv_quant,
+    def new_engine(**kw):
+        kw = dict(dict(
+            max_batch_size=8, page_size=64, kv_quant=kv_quant,
             serve_weights=serve_weights, ragged_step=ragged_step,
             spec_decode_k=spec_decode_k,
             drafter=None if draft is None else DraftModelDrafter(draft),
-            chunked_prefill=chunked_prefill, device=device)
+            chunked_prefill=chunked_prefill, device=device), **kw)
+        return DecodeEngine(model, **kw)
 
     new_engine().generate(prompts[:2], max_new_tokens=4)
     torch.cuda.synchronize()
@@ -128,6 +132,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--spec-k", type=int, default=0)
     ap.add_argument("--drafter", default="prompt_lookup",
                     choices=("prompt_lookup", "draft_model", "self"))
+    ap.add_argument("--runs", type=int, default=1)
+    ap.add_argument("--no-profile", action="store_true")
     ap.add_argument("--out", default="chiprun_out/serve_profile.json")
     args = ap.parse_args(argv)
 
@@ -135,11 +141,17 @@ def main(argv=None) -> dict:
         _, prompts, new_engine = gpt2_small_serve(
             default_device(), args.kv_quant, args.serve_weights, args.ragged,
             args.spec_k, args.drafter, not args.legacy)
-        wall_plain, st = _serve(new_engine, prompts)
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            wall_prof, _ = _serve(new_engine, prompts)
+        walls = [_serve(new_engine, prompts) for _ in range(args.runs)]
+        wall_plain, st = walls[0]
+        profiled = {}
+        if not args.no_profile:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                wall_prof, _ = _serve(new_engine, prompts)
+            profiled = dict(
+                profiled_host_s_per_step=wall_prof / st["steps"],
+                profiled_wall_s=wall_prof, **breakdown(prof, wall_prof))
 
     decode_steps = st["steps"] - st["mixed_steps"]
     result = dict(
@@ -152,14 +164,15 @@ def main(argv=None) -> dict:
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         wall_s=wall_plain, tokens_per_s=st["tokens"] / wall_plain,
         host_s_per_step=wall_plain / st["steps"],
-        profiled_host_s_per_step=wall_prof / st["steps"],
+        tokens_per_s_runs=[s["tokens"] / w for w, s in walls],
+        host_s_per_step_runs=[w / s["steps"] for w, s in walls],
         mean_mixed_step_ms=st["mixed_step_s"] / max(st["mixed_steps"], 1)
         * 1e3,
         mean_decode_step_ms=st["decode_step_s"] / max(decode_steps, 1) * 1e3,
         **{k: st[k] for k in ("ragged_steps", "spec_steps",
                               "acceptance_rate", "mean_accepted_per_step",
                               "draft_time_s", "verify_time_s")},
-        profiled_wall_s=wall_prof, **breakdown(prof, wall_prof))
+        **profiled)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

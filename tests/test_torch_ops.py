@@ -171,7 +171,15 @@ _FLAG_NAMES = ["chunked_prefill", "prefill_chunk_tokens", "prefix_cache",
                "cache_generated_pages", "kv_quant", "serve_weights",
                "ragged_step", "spec_decode_k", "serve_mesh", "spec_drafter",
                "spec_adaptive_k", "spec_k_min", "spec_k_shrink_streak",
-               "spec_k_grow_streak"]
+               "spec_k_grow_streak", "sched_policy", "fault_inject",
+               "step_retries", "step_backoff_ms", "degrade_after",
+               "degraded_probe_steps", "engine_recoveries", "journal_dir",
+               "journal_fsync", "snapshot_interval_steps", "journal_compact",
+               "snapshot_kv", "step_timeout_ms", "compile_cache_dir",
+               "flight_window", "flight_dir", "sched_cost_admission"]
+# flags the port keeps at their default only
+_LATER_FLAGS = ("serve_mesh", "compile_cache_dir", "flight_window",
+                "flight_dir", "sched_cost_admission")
 
 
 @pytest.mark.parametrize("name", _FLAG_NAMES)
@@ -182,15 +190,20 @@ def test_flag_defaults_match_jax(name):
 
 @pytest.mark.parametrize("name,value", [
     ("kv_quant", "int8"), ("serve_weights", "int8"), ("ragged_step", True),
-    ("spec_decode_k", 4), ("chunked_prefill", False), ("serve_mesh", "mp=2")])
+    ("spec_decode_k", 4), ("chunked_prefill", False), ("serve_mesh", "mp=2"),
+    ("compile_cache_dir", "/tmp/cache"), ("flight_window", 0),
+    ("flight_dir", "/tmp/flight"), ("sched_cost_admission", True)])
 def test_unported_flags_raise(name, value):
-    """serve_mesh refuses a non-default, naming the slice that brings it.
+    """serve_mesh, compile_cache_dir (a CUDA graph cannot be serialized)
+    and the telemetry plane's flight_window, flight_dir and
+    sched_cost_admission refuse a non-default, naming the slice or the
+    reason.
     kv_quant and serve_weights (quantized serving), ragged_step (the
     unified ragged step), spec_decode_k (speculative decoding) and
     chunked_prefill=False (the legacy one-shot prefill) are ported: the
     value is set, and an engine that takes it from the flag alone serves
     with it."""
-    if name != "serve_mesh":
+    if name not in _LATER_FLAGS:
         from paddle_tpu_torch.models.gpt import GPT, GPTConfig
         tm = GPT.random(GPTConfig(vocab_size=64, hidden_size=32,
                                   num_layers=2, num_heads=4,

@@ -321,10 +321,14 @@ for mod in pkgutil.walk_packages(paddle_tpu_torch.__path__,
     importlib.import_module(mod.name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
-# the serving modules this guard must see, the ragged step's and the
-# speculative decoder's among them
+# the serving modules this guard must see: the ragged step's, the
+# speculative decoder's and the serving stack around the engine
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
-                       "paddle_tpu_torch.inference.speculative")
+                       "paddle_tpu_torch.inference.speculative",
+                       "paddle_tpu_torch.inference.frontend",
+                       "paddle_tpu_torch.inference.resilience",
+                       "paddle_tpu_torch.inference.durability",
+                       "paddle_tpu_torch.observability")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)
