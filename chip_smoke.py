@@ -122,7 +122,28 @@ Phases, in order; any failure exits non-zero:
    recovery and durability serve) and the watchdog's beside its one
    stall must leave the ladder's counters (`LADDER_KEYS`) where they
    were and contain nothing (`check_unfaulted`);
-14. report — one JSON line of kernels, the card line, and the last line
+14. telemetry — the serving telemetry plane (`paddle_tpu_torch.
+   observability`): (a) the split f32 serve with JAX's defaults
+   (``flight_window=64``, ``cost_model=True``), disarmed, the recorder
+   alone and the cost model alone, 3 runs each in turns: equal tokens,
+   K1 launched num_layers x steps, no retrace; host ms a step, tokens/s,
+   GC passes, and the hooks' own microseconds printed; (b) a probe every
+   step on the f32 (also through `ServingFrontend`), int8 and ragged
+   serves: each step's time by flight phase, the probes' device/host
+   split and MFU printed; then the whole plane (alerts, the ops server on
+   127.0.0.1:0 scraped every 20 ms during the serve and after it) on the
+   f32 and int8 serves through the frontend and the ragged one: every
+   catalog name in /metrics, probe device seconds within each step's
+   wall, every MFU and HBM-utilisation gauge in (0, 1.05], the ledger's
+   kv_pages and weights equal to the pools' and the parameters' bytes,
+   the residue printed; (c) a capture session with ``FLAGS_profile_dir``:
+   the torch.profiler trace and the merged chrome trace load, the latter
+   with engine, requests and device tracks; (d) the `FAULT_PLAN` serve's
+   window renders the poisoned request through the port's
+   explain_request, and a fatal fault dumps by itself and recovers.
+   Every captured serve of 4-7 and 12 is also held to a twin with the
+   plane disarmed: the same tokens and K1/K2 launches;
+15. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -704,6 +725,8 @@ def drive_serve(torch, new_engine, prompts, cfg, label, want, capture=True):
     rates = [st["tokens"] / wall] + [
         st["tokens"] / serve_once(torch, new_engine, prompts, capture)[2]
         for _ in range(SERVE_RUNS - 1)]
+    if capture:
+        disarmed_twin(torch, new_engine, prompts, label, reqs, counts)
     spec = st["spec_steps"] > 0
     decode_steps = 0 if spec else st["steps"] - st["mixed_steps"]
     summary = dict(
@@ -739,6 +762,34 @@ def drive_serve(torch, new_engine, prompts, cfg, label, want, capture=True):
             / st["spec_steps"] * 1e3)
     summary["tokens"] = [r.generated_ids for r in reqs]
     return eng, st, counts, summary
+
+
+# the telemetry plane disarmed: no flight recorder and no cost model (the
+# profiling plane and the alerts are off by default); every serve of
+# phases 4-7 and 12 is held to such a twin, and phase 14 measures the
+# difference
+DISARMED = dict(flight_window=0, cost_model=False)
+
+
+def disarmed_twin(torch, new_engine, prompts, label, reqs, counts):
+    """The serve again on a fresh engine with the telemetry plane
+    disarmed (`DISARMED`): its greedy tokens must equal the armed serve's
+    request by request, and its K1/K2 launches the armed serve's
+    (``counts``)."""
+    reset_counts()
+    twin, twin_reqs, _ = serve_once(
+        torch, lambda: new_engine(**DISARMED), prompts)
+    got = read_counts()
+    if twin._flight is not None or twin._cost is not None:
+        fail(f"{label}: the disarmed twin armed the telemetry plane")
+    if [r.generated_ids for r in twin_reqs] != \
+            [r.generated_ids for r in reqs]:
+        fail(f"{label}: the greedy tokens differ between the serve with "
+             f"the telemetry plane armed and disarmed")
+    for k in ("paged_attention", "paged_attention_q"):
+        if got[k] != counts[k]:
+            fail(f"{label}: {k} launches {counts[k]} armed, {got[k]} "
+                 f"disarmed")
 
 
 def printable(summary):
@@ -2176,6 +2227,584 @@ def reliability_phase(torch, serve, int8_tokens):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the telemetry plane
+# ---------------------------------------------------------------------------
+TELEMETRY_ROOT = Path("build") / "chip_smoke_telemetry"
+# a window that keeps every record of one serve (the default keeps 64)
+FULL_WINDOW = 1024
+# the HBM ledger audits this often in the full-plane serves (default 128)
+LEDGER_STEPS = 16
+CAPTURE_STEPS = 4
+# the ops server's endpoints, scraped during and after the serves (the
+# engine's own id is added to the engine-scoped ones: an earlier engine
+# may still live)
+OPS_PATHS = ("/metrics", "/statusz", "/statusz?format=text", "/flightz",
+             "/healthz", "/readyz", "/alertz", "/profilez", "/tracez")
+# the poller's pause between scrapes (a scrape renders the whole catalog,
+# the flight window or the trace: a tighter loop starves the engine
+# thread of the interpreter)
+POLL_S = 0.02
+
+
+def ops_path(path, engine_id):
+    if not path.startswith(("/statusz", "/flightz", "/profilez")):
+        return path
+    return path + ("&" if "?" in path else "?") + f"engine={engine_id}"
+# the gauges that are shares of a ceiling: each lies in (0, MAX_SHARE]
+SHARE_GAUGES = ("paddle_phase_mfu", "paddle_phase_hbm_util",
+                "paddle_phase_mfu_measured")
+MAX_SHARE = 1.05
+
+
+def hook_cost_us(new_engine, prompts, iters=2000):
+    """Host microseconds a step of the flight recorder's and the cost
+    model's hooks, alone: an armed engine paused mid-serve (8 slots
+    decoding) runs each hook sequence ``iters`` times, no step between."""
+    eng = new_engine()
+    for p in prompts[:8]:
+        eng.add_request(p, max_new_tokens=40)
+    while eng._prefilling_any() or eng._queue:
+        eng.step()
+    for _ in range(3):  # decode steps: every profile the hooks read
+        eng.step()
+    fr, cm = eng._flight, eng._cost
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fr.begin_step()
+        with eng._excl_phase("admit"):
+            pass
+        fr.note_batch()
+        with eng._phase("cache"):
+            pass
+        with eng._phase("decode"):
+            pass
+        fr.add_phase("fetch", 1e-4)
+        with eng._excl_phase("emit"):
+            for s in range(eng._slots):
+                fr.note_emit(s, 1)
+        fr.end_step()
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        fr.begin_step()
+        cm.note_step_begin(fr)
+        rec = fr.end_step()
+        cm.observe(rec)
+    t2 = time.perf_counter()
+    for _ in range(iters):
+        fr.begin_step()
+        fr.end_step()
+    t3 = time.perf_counter()
+    empty = (t3 - t2) / iters * 1e6
+    return dict(flight_us=(t1 - t0) / iters * 1e6,
+                cost_us=(t2 - t1) / iters * 1e6 - empty,
+                empty_record_us=empty)
+
+
+def default_on_cost(torch, new_engine, prompts, cfg, want_tokens):
+    """(a) The split f32 captured serve with JAX's defaults
+    (``flight_window=64``, ``cost_model=True``) and disarmed (`DISARMED`),
+    and with the flight recorder or the cost model alone, `SERVE_RUNS`
+    each in turns: equal greedy tokens, K1 launched num_layers x steps in
+    every arm, no retrace once warm.  Host ms a step, tokens/s and the
+    garbage collector's passes and seconds of every run, and the hooks'
+    own host microseconds a step (`hook_cost_us`)."""
+    import gc
+
+    from paddle_tpu_torch.inference import serving
+
+    arms = dict(armed={}, disarmed=DISARMED,
+                flight_only=dict(cost_model=False),
+                cost_only=dict(flight_window=0))
+    out = {arm: dict(host_ms_per_step=[], tokens_per_s=[], gc_passes=[],
+                     gc_s=[]) for arm in arms}
+    gcs = dict(n=0, s=0.0, t0=0.0)
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gcs["t0"] = time.perf_counter()
+        else:
+            gcs["n"] += 1
+            gcs["s"] += time.perf_counter() - gcs["t0"]
+
+    serving.reset_decode_stats()
+    gc.callbacks.append(on_gc)
+    try:
+        for run in range(SERVE_RUNS):
+            for arm, kw in arms.items():
+                reset_counts()
+                gcs.update(n=0, s=0.0)
+                eng, reqs, wall = serve_once(
+                    torch, lambda: new_engine(**kw), prompts)
+                counts = read_counts()
+                st = eng.decode_stats()
+                if [r.generated_ids for r in reqs] != want_tokens:
+                    fail(f"telemetry {arm}: greedy tokens differ from the "
+                         f"serve's")
+                if counts["paged_attention"] != \
+                        cfg.num_layers * st["steps"]:
+                    fail(f"telemetry {arm}: K1 launches "
+                         f"{counts['paged_attention']} != num_layers x "
+                         f"steps ({st['steps']})")
+                if (eng._flight is None) != ("flight_window" in kw) or \
+                        (eng._cost is None) != ("cost_model" in kw):
+                    fail(f"telemetry {arm}: armed flight "
+                         f"{eng._flight is not None}, cost "
+                         f"{eng._cost is not None}")
+                o = out[arm]
+                o["host_ms_per_step"].append(wall / st["steps"] * 1e3)
+                o["tokens_per_s"].append(st["tokens"] / wall)
+                o["gc_passes"].append(gcs["n"])
+                o["gc_s"].append(gcs["s"])
+                o["steps"] = st["steps"]
+    finally:
+        gc.callbacks.remove(on_gc)
+    retraces = retrace_counts(serving.decode_stats())
+    if any(retraces.values()):
+        fail(f"telemetry: a step retraced after warm-up: {retraces}")
+    for arm in arms:
+        for k in ("host_ms_per_step", "tokens_per_s"):
+            out[arm][k + "_median"] = statistics.median(out[arm][k])
+    base = out["disarmed"]["host_ms_per_step_median"]
+    for arm in arms:
+        out[arm]["minus_disarmed_host_ms_per_step"] = \
+            out[arm]["host_ms_per_step_median"] - base
+    out["hooks"] = hook_cost_us(new_engine, prompts)
+    print(f"telemetry (a) default-on cost, split f32 captured serve, "
+          f"{SERVE_RUNS} runs an arm in turns; host ms a step, tokens/s, "
+          f"GC passes (seconds):", flush=True)
+    for arm, o in out.items():
+        if arm == "hooks":
+            continue
+        print(f"  {arm:>11}: {o['host_ms_per_step']} (median "
+              f"{o['host_ms_per_step_median']:.4f}, "
+              f"{o['minus_disarmed_host_ms_per_step']:+.4f} against "
+              f"disarmed); {o['tokens_per_s']} (median "
+              f"{o['tokens_per_s_median']:.1f}); GC {o['gc_passes']} "
+              f"({[round(x, 4) for x in o['gc_s']]})", flush=True)
+    print(f"  hooks alone, host us a step: "
+          f"{json.dumps({k: round(v, 2) for k, v in out['hooks'].items()})}"
+          f"; tokens equal, K1 {cfg.num_layers} x steps in every arm, no "
+          f"retrace", flush=True)
+    return out
+
+
+def _get(base, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + path, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def serve_breakdown(eng, kernel_launches, wall):
+    """Per-phase host milliseconds a step, the probes' device/host split,
+    the serve's wall a step outside every step's record (between steps),
+    and the roofline (predicted) and probed (measured) MFU of the decode
+    and mixed steps, from one engine's sealed flight records."""
+    recs = [r for r in eng._flight.records() if r.get("kind") == "step"]
+    phases = {}
+    for r in recs:
+        for k, v in r["phases"].items():
+            phases[k] = phases.get(k, 0.0) + v
+    n = len(recs)
+    cost, prof = eng._cost, eng._profiling
+    probed = [r for r in recs if "probe" in r]
+    roof, meas = {}, {}
+    for r in recs:
+        for ph, (mfu, hbm) in cost.roofline(r).items():
+            roof.setdefault(ph, []).append((mfu, hbm))
+    for r in probed:
+        for kind, dev in r["probe"]["device"].items():
+            if kind in ("decode", "mixed", "ragged") and dev > 0:
+                p = cost.profile_for(kind)
+                meas.setdefault(kind, []).append(
+                    (p.flops / dev / cost.peaks["flops"],
+                     p.bytes_accessed / dev / cost.peaks["bytes_per_s"]))
+    mean = statistics.mean
+    out = dict(
+        steps=n, wall_ms_per_step=sum(r["dur_s"] for r in recs) / n * 1e3,
+        serve_wall_ms_per_step=wall / n * 1e3,
+        between_steps_ms=(wall - sum(r["dur_s"] for r in recs)) / n * 1e3,
+        phase_ms_per_step={k: v / n * 1e3 for k, v in
+                           sorted(phases.items())},
+        probed_steps=len(probed),
+        device_ms_per_step=(mean(r["probe"]["device_s"] for r in probed)
+                            * 1e3 if probed else None),
+        host_ms_per_step=(mean(r["probe"]["host_s"] for r in probed)
+                          * 1e3 if probed else None),
+        mfu_roofline={k: mean(m for m, _ in v) for k, v in roof.items()},
+        hbm_util_roofline={k: mean(h for _, h in v)
+                           for k, v in roof.items()},
+        mfu_measured={k: mean(m for m, _ in v) for k, v in meas.items()},
+        hbm_util_measured={k: mean(h for _, h in v)
+                           for k, v in meas.items()},
+        profile_flops={k: cost.profile_for(k).flops
+                       for k in ("decode", "mixed", "ragged")},
+        peaks=dict(cost.peaks), launches=kernel_launches,
+        probe_clock=prof.clock if prof is not None else None)
+    return out
+
+
+def plane_serve(torch, label, eng, prompts, want_tokens, frontend):
+    """One serve of ``prompts`` through `ServingFrontend` or
+    ``engine.run``: ``(tokens, wall seconds)``; the engine never
+    rebuilt."""
+    if frontend:
+        fe, _, toks, _, _, wall = stream_serve(torch, eng, prompts)
+        if fe.engine is not eng:
+            fail(f"{label}: the engine was rebuilt")
+        return toks, wall
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, max_new_tokens=len(want_tokens[0]))
+            for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    return [r.generated_ids for r in reqs], time.perf_counter() - t0
+
+
+def breakdown_serve(torch, label, new_engine, prompts, cfg, want_tokens,
+                    kernel, frontend=False):
+    """Where a serve's time goes, from its flight records and a probe on
+    every step (no ops server polling it): `serve_breakdown` of a serve
+    held to its tokens and its kernel's num_layers x steps launches."""
+    eng = new_engine(profile=True, profile_sample_steps=1,
+                     flight_window=FULL_WINDOW)
+    before = ladder_counts()
+    reset_counts()
+    toks, wall = plane_serve(torch, label, eng, prompts, want_tokens,
+                             frontend)
+    counts = read_counts()
+    check_unfaulted(label, before, [eng])
+    st = eng.decode_stats()
+    if toks != want_tokens:
+        fail(f"{label}: tokens differ from the serve's")
+    if counts[kernel] != cfg.num_layers * st["steps"]:
+        fail(f"{label}: {kernel} launches {counts[kernel]} != num_layers "
+             f"x steps ({st['steps']})")
+    b = serve_breakdown(eng, counts[kernel], wall)
+    b["tokens_per_s"] = st["tokens"] / wall
+    print(f"{label}: tokens/s {b['tokens_per_s']:.1f}; per step (ms): "
+          f"serve wall {b['serve_wall_ms_per_step']:.4f}, in the step "
+          f"records {b['wall_ms_per_step']:.4f}, between steps "
+          f"{b['between_steps_ms']:.4f}; phases "
+          f"{json.dumps({k: round(v, 4) for k, v in b['phase_ms_per_step'].items()})}; "
+          f"probes ({b['probe_clock']}) device {b['device_ms_per_step']:.4f}"
+          f" / host {b['host_ms_per_step']:.4f}; MFU roofline "
+          f"{json.dumps(b['mfu_roofline'])}, measured "
+          f"{json.dumps(b['mfu_measured'])}; HBM util roofline "
+          f"{json.dumps(b['hbm_util_roofline'])}, measured "
+          f"{json.dumps(b['hbm_util_measured'])}", flush=True)
+    return b
+
+
+def full_plane_check(torch, label, new_engine, prompts, cfg, want_tokens,
+                     kernel, frontend=True):
+    """(b) The serve with the whole plane armed (profiling every step,
+    the alerts, the ops server on 127.0.0.1:0), through `ServingFrontend`
+    (or ``engine.run``): every endpoint scraped during the serve and
+    after it; every ported catalog name in /metrics; probe device
+    seconds within each step's wall; every share gauge in (0, 1.05];
+    the ledger's kv_pages and weights equal to the pools' and the
+    parameters' bytes; the residue printed; the tokens equal the serve's
+    and the kernel launched num_layers x steps."""
+    import threading
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.inference import serving
+
+    port = obs.start_ops_server(port=0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{port}"
+    obs.reset()
+    for name in SHARE_GAUGES:  # this serve's phases only
+        obs.registry._metrics[name].clear()
+    serving.reset_decode_stats()
+    flags.set_flags({"cost_ledger_interval_steps": LEDGER_STEPS})
+    try:
+        eng = new_engine(profile=True, profile_sample_steps=1, alerts=True,
+                         flight_window=FULL_WINDOW)
+    finally:
+        flags.set_flags({"cost_ledger_interval_steps": 128})
+    during, stop = {}, threading.Event()
+
+    def poll():
+        i = 0
+        while not stop.is_set():
+            p = OPS_PATHS[i % len(OPS_PATHS)]
+            during.setdefault(p, []).append(
+                _get(base, ops_path(p, eng._engine_id))[0])
+            i += 1
+            time.sleep(POLL_S)
+
+    before = ladder_counts()
+    reset_counts()
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        toks, wall = plane_serve(torch, label, eng, prompts, want_tokens,
+                                 frontend)
+    finally:
+        stop.set()
+        poller.join(timeout=60)
+    counts = read_counts()
+    check_unfaulted(label, before, [eng])
+    st = eng.decode_stats()
+    if toks != want_tokens:
+        fail(f"{label}: tokens differ from the serve's")
+    if counts[kernel] != cfg.num_layers * st["steps"]:
+        fail(f"{label}: {kernel} launches {counts[kernel]} != num_layers "
+             f"x steps ({st['steps']})")
+    after = {p: _get(base, ops_path(p, eng._engine_id)) for p in OPS_PATHS}
+    if set(during) != set(OPS_PATHS):
+        fail(f"{label}: endpoints not scraped during the serve: "
+             f"{sorted(set(OPS_PATHS) - set(during))}")
+    for p, (code, body) in after.items():
+        codes = set(during[p]) | {code}
+        if not codes <= {200, 503}:
+            fail(f"{label}: {p} answered {sorted(codes)}")
+        if not p.startswith("/metrics") and "format=text" not in p:
+            json.loads(body)
+    metrics = after["/metrics"][1]
+    missing = [n for n in obs.registry._metrics
+               if f"# TYPE {n} " not in metrics]
+    if missing:
+        fail(f"{label}: catalog names missing from /metrics: {missing}")
+    for r in eng._flight.records():
+        pr = r.get("probe")
+        if pr is not None and not 0 < pr["device_s"] <= r["dur_s"]:
+            fail(f"{label}: step {r['step']} probe device "
+                 f"{pr['device_s']} s against a wall of {r['dur_s']} s")
+    if eng._profiling.clock != "cuda_event":
+        fail(f"{label}: the probes read {eng._profiling.clock}")
+    snap = obs.snapshot()
+    shares = {}
+    for name in SHARE_GAUGES:
+        series = snap[name]["series"]
+        if not series:
+            fail(f"{label}: {name} has no series")
+        for s in series:
+            v = s["value"]
+            shares[f"{name}{{phase={s['labels']['phase']}}}"] = v
+            if not 0 < v <= MAX_SHARE:
+                fail(f"{label}: {name} {s['labels']} = {v}, outside "
+                     f"(0, {MAX_SHARE}]")
+    led = eng._cost.hbm_ledger()
+    cats = led["categories"]
+    pools = sum(t.numel() * t.element_size()
+                for t in (eng._k_pages, eng._v_pages))
+    params = [v for k, v in eng._params.items() if k != "blocks"
+              and v is not None] + \
+        [v for b in eng._params["blocks"] for v in b.values()]
+    weights = sum(t.numel() * t.element_size() for t in params)
+    got_w = cats["weights"] + cats["weights_int8"] + cats["weight_scales"]
+    if cats["kv_pages"] != pools or got_w != weights:
+        fail(f"{label}: ledger kv_pages {cats['kv_pages']} (pools {pools}),"
+             f" weights {got_w} (parameters {weights})")
+    if led["unattributed_bytes"] is None:
+        fail(f"{label}: no audit measured the ledger's residue")
+    z = json.loads(after["/statusz"][1])
+    out = dict(
+        wall_s=wall, tokens_per_s=st["tokens"] / wall, steps=st["steps"],
+        breakdown=serve_breakdown(eng, counts[kernel], wall),
+        shares=shares,
+        ledger=led, statusz_keys=sorted(z),
+        scrapes_during=sum(len(v) for v in during.values()),
+        alerts_firing=eng._alerts.firing(),
+        profile_probes=serving.decode_stats()["profile_probes"],
+        flight_records=serving.decode_stats()["flight_records"])
+    b = out["breakdown"]
+    print(f"{label}: {out['scrapes_during']} scrapes of "
+          f"{len(OPS_PATHS)} endpoints during the serve, all answered; "
+          f"{len(obs.registry._metrics)} catalog names in /metrics; "
+          f"tokens equal, {kernel} {counts[kernel]} = {cfg.num_layers} x "
+          f"{st['steps']}; tokens/s {out['tokens_per_s']:.1f}; per step "
+          f"(ms): wall {b['wall_ms_per_step']:.4f}, "
+          f"{json.dumps({k: round(v, 4) for k, v in b['phase_ms_per_step'].items()})}; "
+          f"probes ({b['probe_clock']}) device "
+          f"{b['device_ms_per_step']:.4f} / host "
+          f"{b['host_ms_per_step']:.4f} ms a step; MFU roofline "
+          f"{json.dumps(b['mfu_roofline'])}, measured "
+          f"{json.dumps(b['mfu_measured'])}; HBM util roofline "
+          f"{json.dumps(b['hbm_util_roofline'])}, measured "
+          f"{json.dumps(b['hbm_util_measured'])}; gauges "
+          f"{json.dumps(shares)}; ledger {json.dumps(cats)}, "
+          f"unattributed residue {led['unattributed_bytes']} of "
+          f"{led['total_live_bytes']} allocated bytes; alerts firing "
+          f"{out['alerts_firing']}", flush=True)
+    return out
+
+
+def capture_session_check(torch, new_engine, prompts):
+    """(c) ``FLAGS_profile_dir`` set and a bounded capture of
+    `CAPTURE_STEPS` steps: the torch.profiler trace and the merged chrome
+    trace are written and load as JSON, the merged one with engine,
+    requests and device tracks."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.observability import profiling
+
+    d = TELEMETRY_ROOT / "profile"
+    flags.set_flags({"profile_dir": str(d)})
+    try:
+        eng = new_engine(profile=True, profile_sample_steps=100000)
+        # the graphs are captured before the session: it traces replays
+        eng.generate(prompts[:4], 16)
+        torch.cuda.synchronize()
+        obs.clear_spans()
+        profiling.request_capture(CAPTURE_STEPS, engine=eng)
+        eng.generate(prompts[4:8], 16)
+        torch.cuda.synchronize()
+    finally:
+        flags.set_flags({"profile_dir": ""})
+    st = eng._profiling.capture_status()
+    if st["captures_completed"] != 1 or \
+            st["captured_steps"] != CAPTURE_STEPS or st["torch_trace"]:
+        fail(f"capture session: {st}")
+    path = Path(st["trace_path"])
+    torch_trace = json.loads((path / "torch_trace.json").read_text())
+    merged = json.loads((path / "merged_trace.json").read_text())
+    tracks = {e["args"]["name"] for e in merged["traceEvents"]
+              if e.get("ph") == "M"}
+    if not {"engine", "requests", "device"} <= tracks:
+        fail(f"capture session: merged trace tracks {sorted(tracks)}")
+    device_spans = [e for e in merged["traceEvents"] if e.get("ph") == "X"
+                    and e.get("name") in ("decode", "mixed")
+                    and e.get("args", {}).get("clock") == "cuda_event"]
+    if len(device_spans) != CAPTURE_STEPS:
+        fail(f"capture session: {len(device_spans)} device spans for "
+             f"{CAPTURE_STEPS} captured steps")
+    kernels = [e for e in torch_trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"]
+    out = dict(trace_path=str(path), tracks=sorted(tracks),
+               torch_trace_events=len(torch_trace.get("traceEvents", [])),
+               torch_trace_kernel_events=len(kernels),
+               device_spans=len(device_spans))
+    print(f"telemetry (c) capture session: {CAPTURE_STEPS} steps; "
+          f"torch.profiler trace {out['torch_trace_events']} events "
+          f"({len(kernels)} kernels), merged trace tracks "
+          f"{sorted(tracks)}, {len(device_spans)} device spans", flush=True)
+    return out
+
+
+def black_box_check(torch, new_engine, prompts, want_tokens):
+    """(d) The `FAULT_PLAN` serve with ``flight_dir`` set: the window it
+    leaves (a dump of every record of the serve) renders the poisoned
+    request's timeline through the port's ``explain_request``; and a
+    fatal fault (a step failing past its retries) dumps by itself, and
+    the serve recovers with the clean tokens."""
+    import subprocess
+
+    from paddle_tpu_torch.inference import resilience
+
+    d = TELEMETRY_ROOT / "flight"
+    victim = 5
+    plan = FAULT_PLAN.format(poison=poison_token(prompts, victim,
+                                                 want_tokens))
+    eng = new_engine(fault_plan=plan, flight_dir=str(d),
+                     flight_window=FULL_WINDOW)
+    reqs = [eng.add_request(p, max_new_tokens=len(want_tokens[0]))
+            for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    bad = reqs[victim]
+    if bad.finish_reason != "fault":
+        fail(f"black box: the poisoned request finished "
+             f"{bad.finish_reason!r}")
+    path = eng._flight.dump("manual")
+    res = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.explain_request",
+         str(Path(path).resolve()), "--request", str(bad.request_id)],
+        capture_output=True, text=True, timeout=120,
+        cwd=Path(__file__).resolve().parent)
+    text = res.stdout
+    if res.returncode != 0 or "quarantine" not in text or \
+            "finished: fault" not in text or \
+            f"request {bad.request_id}" not in text:
+        fail(f"black box: explain_request did not render the poisoned "
+             f"request: rc {res.returncode}, {res.stderr[-500:]}")
+    # a fatal fault: the escaping StepFault leaves its window by itself
+    fatal = new_engine(fault_plan="step@3;step@6-16", flight_dir=str(d))
+    freqs = [fatal.add_request(p, max_new_tokens=len(want_tokens[0]))
+             for p in prompts]
+    new, recoveries = resilience.serve_with_recovery(fatal,
+                                                     max_recoveries=4)
+    torch.cuda.synchronize()
+    dumps = sorted(d.glob(f"flight_eng{fatal._engine_id}_*_fault.json"))
+    if not recoveries or not dumps or \
+            [r.generated_ids for r in freqs] != want_tokens:
+        fail(f"black box: fatal fault: {recoveries} recoveries, dumps "
+             f"{[p.name for p in dumps]}, tokens clean "
+             f"{[r.generated_ids for r in freqs] == want_tokens}")
+    window = json.loads(dumps[0].read_text())
+    kinds = sorted({ev["kind"] for rec in window["records"]
+                    for ev in rec.get("events", [])})
+    out = dict(dump=str(path), explain_lines=len(text.splitlines()),
+               fatal_dump=str(dumps[0]), fatal_events=kinds,
+               recoveries=recoveries)
+    print(f"telemetry (d) black box: {plan}: request {victim}'s timeline "
+          f"rendered from {Path(path).name} ({out['explain_lines']} "
+          f"lines, quarantine and finish found); the fatal "
+          f"step@3;step@6-16 serve "
+          f"dumped {dumps[0].name} (events {kinds}) and recovered "
+          f"{recoveries}x with the clean tokens", flush=True)
+    print("\n".join("  " + ln for ln in text.splitlines()[:6]), flush=True)
+    return out
+
+
+def telemetry_phase(torch, serve, int8_tokens, ragged_tokens):
+    """Phase 14: (a) the default-on cost, (b) the full plane on the f32,
+    int8 (both through `ServingFrontend`) and ragged serves, each held to
+    the tokens of its serve in phases 4-6, (c) a capture session, (d)
+    the black box."""
+    import shutil
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.tools import serve_profile
+
+    shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
+    model, prompts, new_engine = serve_profile.gpt2_small_serve("cuda")
+    cfg = model.cfg
+    clean = serve["tokens"]
+    out = dict(default_on_cost=default_on_cost(torch, new_engine, prompts,
+                                               cfg, clean))
+    _, _, new_q = serve_profile.gpt2_small_serve(
+        "cuda", kv_quant="int8", serve_weights="int8")
+    _, _, new_r = serve_profile.gpt2_small_serve("cuda", ragged_step=True)
+    out["breakdown"] = dict(
+        f32=breakdown_serve(torch, "telemetry (b) f32 breakdown",
+                            new_engine, prompts, cfg, clean,
+                            "paged_attention"),
+        f32_frontend=breakdown_serve(
+            torch, "telemetry (b) f32 breakdown through the frontend",
+            new_engine, prompts, cfg, clean, "paged_attention",
+            frontend=True),
+        int8=breakdown_serve(torch, "telemetry (b) int8 breakdown", new_q,
+                             prompts, cfg, int8_tokens, "paged_attention_q"),
+        ragged=breakdown_serve(torch, "telemetry (b) ragged f32 breakdown",
+                               new_r, prompts, cfg, ragged_tokens,
+                               "paged_attention"))
+    try:
+        out["full_plane_f32"] = full_plane_check(
+            torch, "telemetry (b) f32 through the frontend", new_engine,
+            prompts, cfg, clean, "paged_attention")
+        out["full_plane_int8"] = full_plane_check(
+            torch, "telemetry (b) int8 through the frontend", new_q,
+            prompts, cfg, int8_tokens, "paged_attention_q")
+        out["full_plane_ragged"] = full_plane_check(
+            torch, "telemetry (b) ragged f32", new_r, prompts, cfg,
+            ragged_tokens, "paged_attention", frontend=False)
+    finally:
+        obs.stop_ops_server()
+    out["capture_session"] = capture_session_check(torch, new_engine,
+                                                   prompts)
+    out["black_box"] = black_box_check(torch, new_engine, prompts, clean)
+    return out
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -2267,7 +2896,11 @@ def main(argv) -> int:
     # 13. frontend, containment, recovery, durability, watchdog
     reliability = reliability_phase(torch, serve, serve_q["tokens"])
 
-    # 14. report
+    # 14. the telemetry plane
+    telemetry = telemetry_phase(torch, serve, serve_q["tokens"],
+                                ragged["f32"]["tokens"])
+
+    # 15. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -2341,6 +2974,7 @@ def main(argv) -> int:
                   kernels=kernels, serve=serve,
                   serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
                   serve_legacy=legacy, serve_reliability=reliability,
+                  telemetry=telemetry,
                   train=train, train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -1,10 +1,10 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Twenty-seven flags work here; six
-more keep their default only, because the code they switch on is not
-ported yet (or, for ``compile_cache_dir``, has no counterpart) — setting
-one of those to anything else raises NotImplementedError naming the
-slice or the reason.  As in paddle_tpu,
+The names and defaults are paddle_tpu's.  Forty-two flags work here;
+four more keep their default only, because the code they switch on is
+not ported yet (or, for ``compile_cache_dir``, has no counterpart) —
+setting one of those to anything else raises NotImplementedError naming
+the slice or the reason.  As in paddle_tpu,
 a flag's value is checked where it is read: `DecodeEngine` raises
 ValueError on a ``kv_quant`` or ``serve_weights`` mode other than "off"
 and "int8".
@@ -60,6 +60,30 @@ _PORTED = {
     "journal_compact": True,
     "snapshot_kv": True,
     "step_timeout_ms": 0.0,
+    # the telemetry plane (observability): the flight recorder's ring
+    # and dump directory, the cost observatory (profiles, calibrated
+    # prediction, HBM ledger, roofline) and its admission gate, the
+    # roofline peaks (0 = autodetect), the ledger audit cadence, the
+    # ops server (0 = off, -1 = alerts without the listener) and the
+    # alert cadence, the profiling plane's probes and capture traces,
+    # and the periodic metrics reporter (0 = off)
+    "flight_window": 64,
+    "flight_dir": "",
+    "cost_model": True,
+    "sched_cost_admission": False,
+    "peak_flops": 0.0,
+    "peak_hbm_gbps": 0.0,
+    "peak_ici_gbps": 0.0,
+    # the CUDA-graph pool's bytes, measured at each capture, stand for
+    # XLA's temp scratch: the port has no extra compile to arm
+    "cost_memory_analysis": False,
+    "cost_ledger_interval_steps": 128,
+    "ops_port": 0,
+    "alert_interval_steps": 32,
+    "profile": False,
+    "profile_sample_steps": 64,
+    "profile_dir": "",
+    "metrics_report_interval_s": 0.0,
 }
 
 # flag -> (default, the later slice that ports what it switches on)
@@ -72,10 +96,8 @@ _LATER = {
     # serialized, so a fresh process recaptures (no counterpart yet)
     "compile_cache_dir": ("", "persistent step-cache (CUDA graphs cannot "
                               "be serialized)"),
-    # the flight recorder and cost-gated admission: the telemetry plane
-    "flight_window": (64, "telemetry plane (flight recorder)"),
-    "flight_dir": ("", "telemetry plane (flight recorder)"),
-    "sched_cost_admission": (False, "telemetry plane (cost model)"),
+    # trace ids minted by the fleet router
+    "fleet_trace": (False, "fleet serving"),
 }
 
 _REGISTRY: Dict[str, Any] = dict(_PORTED)

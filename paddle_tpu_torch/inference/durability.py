@@ -27,9 +27,11 @@ a hung-step watchdog (counterpart: paddle_tpu/inference/durability.py).
 The journal, snapshot and sidecar keep the JAX package's bytes: the same
 record keys, crc framing, file names and npz keys, so either package
 reads the other's directory.  A snapshot of a sampling engine adds one
-key, ``rng`` (the generator state), which JAX's reader ignores; a JAX
-journal's telemetry-plane constructor keys are dropped at restore
-(`_engine_kwargs`).  With ``FLAGS_journal_dir`` unset and
+key, ``rng`` (the generator state), which JAX's reader ignores.  The
+telemetry plane's constructor keys (flight recorder, cost model and its
+calibration, profiling, alerts) restore with the rest of the config, a
+snapshot carries the cost model's calibration, and a restore or an
+adoption lands as an event in the engine's flight record.  With ``FLAGS_journal_dir`` unset and
 ``FLAGS_step_timeout_ms`` zero, every hook is one ``is None`` check.
 """
 from __future__ import annotations
@@ -55,19 +57,10 @@ __all__ = ["RequestWire", "SnapshotWire", "DurabilityManager",
            "KV_PAGES_NAME"]
 
 
-# constructor keys a JAX journal's config record may carry for the
-# telemetry plane (flight recorder, cost model, profiling, alerts): they
-# change no token, and the port has no such subsystem yet
-_TELEMETRY_CFG = ("flight_window", "flight_dir", "cost_model",
-                  "cost_calibration", "profile", "profile_sample_steps",
-                  "alerts")
-
-
 def _engine_kwargs(cfg: dict) -> dict:
     """The port engine's keyword arguments from a journal's config
-    record (either package's): telemetry-plane keys dropped, a mesh
-    refused."""
-    kw = {k: v for k, v in cfg.items() if k not in _TELEMETRY_CFG}
+    record (either package's); a mesh is refused."""
+    kw = dict(cfg)
     mesh = kw.pop("serve_mesh", None)
     if mesh:
         raise NotImplementedError(
@@ -358,10 +351,15 @@ def retire_engine_series(engine_id: int) -> int:
     for the engine it replaced and `DecodeEngine._abandon_inflight`
     for the engine the watchdog abandoned, so a retired engine id
     leaves the scrape surface (and `statusz` output) instead of
-    reading stale levels forever.  Returns the series count removed
-    (the ops-plane and profiling registries the JAX package also
-    clears here wait for the telemetry plane)."""
+    reading stale levels forever.  The engine also leaves the ops
+    registry (`/statusz`, `/healthz`, `/readyz`) and the profiling
+    plane's capture registry (an in-flight capture's trace stops).
+    Returns the series count removed."""
     clear_health(engine_id)
+    from ..observability import opsserver, profiling
+
+    opsserver.deregister_engine(engine_id)
+    profiling.deregister(engine_id)
     return _obs.registry.retire_label("engine", engine_id)
 
 
@@ -508,6 +506,8 @@ class DurabilityManager:
         from .serving import _stats_add
 
         wire = EngineSnapshot(self.engine).to_wire(journal_pos=self.seq)
+        if self.engine._cost is not None:
+            wire.cost = self.engine._cost.calibration_wire()
         if self.snapshot_kv:
             wire.kv = self._write_kv_sidecar()
         data = _frame(wire.to_obj())
@@ -861,6 +861,9 @@ def restore_from_dir(journal_dir: str, model, scheduler=None,
         # and a sampling engine's generator from the snapshot's state
         eng._step_no = snap.step_no
         eng._prefill_no = snap.prefill_no
+        if snap.cost and eng._cost is not None:
+            # newer than the cfg record's calibration (written once)
+            eng._cost.load_calibration(snap.cost)
         if snap.rng is not None and eng._sampling["sampler"] != "greedy":
             import torch
 
@@ -912,6 +915,10 @@ def restore_from_dir(journal_dir: str, model, scheduler=None,
               **({"compacted_bytes": comp["bytes_after"],
                   "journal_bytes_before": comp["bytes_before"]}
                  if comp else {})})
+    if eng._flight is not None:
+        eng._flight.event("restore", requests=len(reqs),
+                          journal_events=len(events),
+                          snapshot=snap is not None)
     return eng, reqs
 
 
@@ -1003,6 +1010,9 @@ def adopt_from_dir(journal_dir: str, engine,
         tid=engine._engine_id,
         args={"requests": len(reqs), "journal_events": len(events),
               "donor": journal_dir})
+    if engine._flight is not None:
+        engine._flight.event("adopt", requests=len(reqs),
+                             donor=journal_dir)
     return reqs, meta
 
 

@@ -25,8 +25,9 @@ everything first, and a fault that survives the containment ladder
 rebuilds the engine (`resilience.recover`) with every stream intact.
 With the watchdog armed (``step_timeout_ms``) a worker still stuck past
 the budget is abandoned and the engine rebuilt from the pre-step
-snapshot.  The ops-plane registry and ``debug_dump`` wait for the
-telemetry plane.
+snapshot.  A frontend registers with the ops plane
+(`observability.opsserver`), whose ``/statusz`` then serves its
+`ServingFrontend.debug_dump`, and follows each engine generation there.
 """
 from __future__ import annotations
 
@@ -431,6 +432,10 @@ class ServingFrontend:
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._closing = False
         self._closed = False
+        # ops plane: /statusz serves this frontend's debug_dump
+        from ..observability import opsserver as _opsserver
+
+        _opsserver.register_frontend(self)
 
     # -- lifecycle -----------------------------------------------------------
     async def start(self):
@@ -461,6 +466,9 @@ class ServingFrontend:
             return
         if self._driver is None:
             self._closed = True
+            from ..observability import opsserver as _opsserver
+
+            _opsserver.deregister_frontend(self)
             return
         self._closing = True  # reject new submissions from here on
         if not drain:
@@ -483,6 +491,9 @@ class ServingFrontend:
         self._kick()
         await self._driver
         self._closed = True
+        from ..observability import opsserver as _opsserver
+
+        _opsserver.deregister_frontend(self)
 
     # -- submission / cancellation -------------------------------------------
     async def submit(self, prompt_ids, max_new_tokens: int = 32,
@@ -577,6 +588,44 @@ class ServingFrontend:
         # backpressure (and submitters waiting on the queue bound)
         if self._drained is not None:
             self._drained.set()
+
+    # -- live introspection ---------------------------------------------------
+    def debug_dump(self, flight_records: int = 8) -> dict:
+        """Consistent live JSON snapshot of the whole serving stack:
+        the frontend's own state (queue bound, open streams with their
+        buffered-token counts, pending control actions, recovery
+        budget spent) wrapping `DecodeEngine.statusz` — queue, slots,
+        degraded modes, health, cache occupancy, SLO burn, and the
+        last ``flight_records`` flight records.  Synchronous and
+        read-only: callable MID-SERVE from any thread (an operator
+        shell, a health endpoint) without perturbing the driver or the
+        outputs."""
+        streams = {}
+        for _ in range(8):
+            try:
+                for req, s in self._streams.items():
+                    streams[req.request_id] = {
+                        "state": req.state,
+                        "pending_tokens": s.pending,
+                    }
+                break
+            except RuntimeError:  # resized mid-iteration: retry
+                streams = {}
+        return {
+            "frontend": {
+                "closing": self._closing,
+                "closed": self._closed,
+                "driver_alive": self._driver is not None
+                and not self._driver.done(),
+                "max_queue_depth": self.max_queue_depth,
+                "stream_buffer": self.stream_buffer,
+                "open_streams": streams,
+                "pending_control": len(self._control),
+                "recoveries": self._recoveries,
+            },
+            "engine": self.engine.statusz(
+                flight_records=flight_records),
+        }
 
     # -- driver --------------------------------------------------------------
     def _apply_control(self):
@@ -698,6 +747,10 @@ class ServingFrontend:
         self._recoveries += 1
         self.engine = resilience.recover(self.engine, snapshot=snapshot,
                                          fault=fault)
+        # follow the engine generation in the ops registry
+        from ..observability import opsserver as _opsserver
+
+        _opsserver.register_frontend(self)
         return True
 
     async def _drive(self):

@@ -67,9 +67,10 @@ pools:
 Everything here is host-side control between steps.  With no plan
 armed each fault hook in the serve loop is one ``is None`` check; the
 step itself still runs inside `ResilienceManager.run_step`'s ``try``,
-which clears the failure counters after it.  The flight recorder's
-events and the cost model's calibration hand-over wait for the
-telemetry plane.
+which clears the failure counters after it.  Every rung lands as an
+event in the engine's flight record (retry, degrade, degrade_end,
+quarantine, recovery), and `recover` hands the dead engine's live
+cost-model calibration to its successor.
 """
 from __future__ import annotations
 
@@ -382,6 +383,9 @@ class ResilienceManager:
         _obs.record_span("engine", "degrade:spec_off", _obs.now_ns(), 0,
                          tid=eng._engine_id,
                          args={"error": str(err)[:200]})
+        if eng._flight is not None:
+            eng._flight.event("degrade", mode="spec_off",
+                              error=str(err)[:120])
         return True
 
     def _maybe_degrade_legacy(self, err: Exception) -> bool:
@@ -414,6 +418,9 @@ class ResilienceManager:
         _obs.record_span("engine", "degrade:legacy_prefill",
                          _obs.now_ns(), 0, tid=eng._engine_id,
                          args={"error": str(err)[:200]})
+        if eng._flight is not None:
+            eng._flight.event("degrade", mode="legacy_prefill",
+                              error=str(err)[:120])
         return True
 
     def _note_success(self):
@@ -436,12 +443,16 @@ class ResilienceManager:
             self.spec_disabled = False
             _obs.DEGRADED_MODE.set(0, engine=eng._engine_id,
                                    mode="spec_off")
+            if eng._flight is not None:
+                eng._flight.event("degrade_end", mode="spec_off")
         if self.legacy_mode:
             eng._chunked = eng._chunked_cfg
             eng._prefix_cache = eng._prefix_cache_cfg
             self.legacy_mode = False
             _obs.DEGRADED_MODE.set(0, engine=eng._engine_id,
                                    mode="legacy_prefill")
+            if eng._flight is not None:
+                eng._flight.event("degrade_end", mode="legacy_prefill")
         if not (self.spec_disabled or self.legacy_mode):
             from .durability import set_health
 
@@ -460,6 +471,9 @@ class ResilienceManager:
         self.backoff_ticks += ticks
         _stats_add(step_retries=1)
         _obs.STEP_RETRIES.inc()
+        fl = self.engine._flight
+        if fl is not None:
+            fl.event("retry", attempt=attempt, ticks=ticks)
         base_ms = float(_flags.flag("step_backoff_ms"))
         if base_ms > 0:
             time.sleep(ticks * base_ms / 1e3)
@@ -564,6 +578,11 @@ class ResilienceManager:
                 args={"request": suspect.request_id,
                       "site": suspect.fault_info.site,
                       "bisected": len(removed)})
+            if eng._flight is not None:
+                eng._flight.event("quarantine",
+                                  request=suspect.request_id,
+                                  site=suspect.fault_info.site,
+                                  bisected=len(removed))
             self._note_success()
             return out
 
@@ -667,6 +686,10 @@ def recover(engine, snapshot: Optional[EngineSnapshot] = None,
         obj = kw.get(key)
         if obj is not None and hasattr(obj, "engine"):
             obj.engine = None  # unbind: bind() rebuilds per-engine state
+    if engine._cost is not None:
+        # the dead engine's LIVE calibration: the successor's predictor
+        # starts warm, like its graphs
+        kw["cost_calibration"] = engine._cost.calibration_wire()
     donor = engine if handoff and not engine._abandoned and \
         engine._k_pages is not None else None
     if donor is None and not engine._abandoned:
@@ -716,6 +739,9 @@ def recover(engine, snapshot: Optional[EngineSnapshot] = None,
                      tid=new._engine_id,
                      args={"from_engine": snap.engine_id,
                            "requests": n_readmitted, "site": site})
+    if new._flight is not None:
+        new._flight.event("recovery", from_engine=snap.engine_id,
+                          requests=n_readmitted, site=site)
     set_health(new._engine_id, "live")
     retire_engine_series(engine._engine_id)
     return new

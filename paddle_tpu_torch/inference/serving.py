@@ -45,16 +45,27 @@ containment ladder of `inference.resilience` (fault injection, retry,
 degradation, bisect quarantine), with an optional write-ahead journal
 and hung-step watchdog (`inference.durability`).  Disarmed, each fault,
 journal and watchdog hook is one ``is None`` check; every step still
-passes through the ladder's `run_step` and, with observability on, sets
-the two queue gauges.  The telemetry plane (flight recorder, cost
-model, profiling, alerts, ops server) and the tensor-parallel mesh are
-later slices: the port has no hook where JAX calls them.
+passes through the ladder's `run_step`.
+
+The telemetry plane hooks in where the JAX engine's does
+(`paddle_tpu_torch.observability`): the flight recorder
+(``flight_window``, ``flight_dir``) records each step's batch, phase
+times, events, pool and SLO burn; the cost observatory (``cost_model``)
+counts each step signature's work at its first call, predicts step
+cost, gates admission with ``FLAGS_sched_cost_admission`` and keeps the
+HBM ledger; the profiling plane (``profile``) brackets sampled
+dispatches with CUDA events; the alert engine (``alerts``) and the ops
+server (``FLAGS_ops_port``) read what the engine publishes between
+steps.  No hook reads a device tensor: they read the host mirrors
+(``_lens``, ``_prefill_pos``, ``_active``, the pool allocator).  The
+tensor-parallel mesh is a later slice.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
 import hashlib
+import os
 import heapq
 import itertools
 import threading
@@ -69,6 +80,7 @@ import torch.nn.functional as F
 
 from .. import observability as _obs
 from ..core import flags as _flags
+from ..observability import costmodel as _costmodel
 from ..device import resolve_device
 from ..nn.decode import sample_logits
 from ..nn.functional.attention import _sdpa_reference
@@ -85,6 +97,9 @@ __all__ = ["KVBlockPool", "Request", "DecodeEngine", "sample_logits",
 # the sampled-token value of a row whose logits were not all finite: the
 # host finishes that slot alone (finish_reason "fault")
 NAN_TOKEN = -1
+
+# the reusable no-op a disarmed flight recorder's phase sites enter
+_NULL_CTX = contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +181,9 @@ class _GraphMemory:
     def __init__(self):
         self.pool = self.stream = None
         self.capture_s = 0.0  # host seconds spent warming up and capturing
+        # bytes the captures grew the caching allocator's reserve by: the
+        # graphs' pool (the HBM ledger's temp_scratch)
+        self.pool_bytes = 0
         # set when the watchdog abandons the engine that owns these
         # graphs: a late-returning worker must launch nothing
         self.abandoned = False
@@ -241,10 +259,22 @@ class _StepGraph:
     engine's shared pool; later calls copy their inputs in and replay.
     ``generator`` (an engine that samples) is registered with each
     graph, so a replay advances it as the eager step would.  A capture
-    or replay that raises propagates: nothing falls back to eager."""
+    or replay that raises propagates: nothing falls back to eager.
 
-    def __init__(self, fn, compile_key, device, memory, generator=None):
+    ``site`` is the JAX tracker's site label.  With the cost observatory
+    armed, the first call of each signature (the eager call on the CPU,
+    the warm-up before a capture on the card) is counted
+    (`costmodel.count_executable`) and its profile key stamped as
+    ``cost_sig``; ``cost`` is ``(tensors, bytes_of)``: the bound tensors
+    the signature keys by besides the inputs, and a function of the host
+    inputs giving the profile's bytes."""
+
+    def __init__(self, fn, compile_key, device, memory, generator=None,
+                 site=None, cost=None):
         self.fn = fn
+        self.site = site or compile_key
+        self.cost_sig = None
+        self._cost = cost
         self.compile_key = compile_key
         self._retrace_key = compile_key.replace("_compiles", "_retraces")
         self._device = device
@@ -282,9 +312,13 @@ class _StepGraph:
             self._busy = True
         try:
             if self._device.type != "cuda" or _CAPTURE_OFF[0]:
-                return self.fn(*(torch.from_numpy(
-                    np.ascontiguousarray(a)).to(self._device)
-                    for a in host))
+                def run():
+                    return self.fn(*(torch.from_numpy(
+                        np.ascontiguousarray(a)).to(self._device)
+                        for a in host))
+                if first:
+                    return self._counted(host, run)
+                return run()
             cap = self._graphs.get(sig)
             if cap is None:
                 self._busy = first = True
@@ -296,15 +330,29 @@ class _StepGraph:
             if first:
                 self._busy = False
 
+    def _counted(self, host, run):
+        """``run()``, counted into a cost profile when the observatory
+        is armed (the first call of a signature)."""
+        if not _costmodel.enabled():
+            return run()
+        tensors, bytes_of = self._cost or ((), None)
+        key, out = _costmodel.count_executable(
+            self.site, (*host, *tensors), run,
+            None if bytes_of is None else (lambda: bytes_of(host)))
+        if key is not None:
+            self.cost_sig = key
+        return out
+
     def _capture(self, host):
         t0 = time.perf_counter()
         mem = self._memory.ready()
+        reserved = torch.cuda.memory_reserved(self._device)
         cur = torch.cuda.current_stream(self._device)
         cap = _Captured(host, self._device)
         cap.load(host)
         mem.stream.wait_stream(cur)
         with torch.cuda.stream(mem.stream):
-            out = self.fn(*cap.inputs)
+            out = self._counted(host, lambda: self.fn(*cap.inputs))
             before = [w.captured for w in _LAUNCH_COUNTED]
             graph = torch.cuda.CUDAGraph()
             if self._generator is not None:
@@ -331,6 +379,9 @@ class _StepGraph:
         cap.launch_counts = tuple(
             (w, w.captured - b) for w, b in zip(_LAUNCH_COUNTED, before)
             if w.captured > b)
+        grown = max(torch.cuda.memory_reserved(self._device) - reserved, 0)
+        mem.pool_bytes += grown
+        _costmodel.note_temp_bytes(self.cost_sig, grown)
         mem.capture_s += time.perf_counter() - t0
         return cap, out
 
@@ -638,6 +689,9 @@ class Request:
         self.t_first_token_ns: Optional[int] = None
         self.t_finish_ns: Optional[int] = None
         self.prefill_chunks = 0
+        # SLO burn kinds already counted past 1.0 (the flight recorder's
+        # paddle_slo_burn_exceeded_total counts each kind once)
+        self._burn_noted = set()
         self._engine = None  # set by DecodeEngine.add_request
 
     def total_kv_tokens(self) -> int:
@@ -651,6 +705,34 @@ class Request:
         """Every token this request generated, stable across
         preemptions and recoveries."""
         return self.prompt_ids[self.orig_prompt_len:] + self.output_ids
+
+    def slo_burn(self, now_ns: int) -> Dict[str, float]:
+        """Fraction of each declared latency budget consumed as of
+        ``now_ns`` (the flight recorder samples it every step):
+        ``ttft`` — elapsed since enqueue / ``slo_ttft_ms`` while the
+        first token is pending; ``tpot`` — observed per-token latency /
+        ``slo_tpot_ms`` once two tokens exist; ``deadline`` — elapsed /
+        the ``deadline_ms`` budget while unfinished.  1.0 = the budget
+        is spent.  Empty for a request that declared no targets."""
+        out: Dict[str, float] = {}
+        if self.t_enqueue_ns is None:
+            return out
+        if self.slo_ttft_ms is not None and \
+                self.t_first_token_ns is None:
+            out["ttft"] = ((now_ns - self.t_enqueue_ns) / 1e6) \
+                / self.slo_ttft_ms
+        if self.slo_tpot_ms is not None and \
+                self.t_first_token_ns is not None:
+            n_out = len(self.output_ids) + self._absorbed
+            if n_out > 1:
+                tpot_ms = (now_ns - self.t_first_token_ns) / 1e6 \
+                    / (n_out - 1)
+                out["tpot"] = tpot_ms / self.slo_tpot_ms
+        if self._deadline_ns is not None and self.state != "done":
+            budget = self._deadline_ns - self.t_enqueue_ns
+            if budget > 0:
+                out["deadline"] = (now_ns - self.t_enqueue_ns) / budget
+        return out
 
     @property
     def slo_met(self) -> bool:
@@ -673,6 +755,16 @@ class Request:
             self._engine._cancel_queued(self)
         else:
             self._engine._cancel_running(self)
+
+
+def _req_span_args(req: "Request", **extra) -> dict:
+    """Span args of a request-carrying span: its id, and its fleet trace
+    id when it has one."""
+    args = {"request": req.request_id}
+    if req.trace_id is not None:
+        args["trace"] = req.trace_id
+    args.update(extra)
+    return args
 
 
 # ---------------------------------------------------------------------------
@@ -996,12 +1088,15 @@ def _reset_kv_scales(k_scales, v_scales, fresh_idx):
     v_scales.index_fill_(2, fresh_idx, 0.0)
 
 
-def _scale_reset_graph(k_scales, v_scales, device, memory) -> "_StepGraph":
+def _scale_reset_graph(k_scales, v_scales, device, memory,
+                       owner="DecodeEngine") -> "_StepGraph":
     """The `_StepGraph` of one pool pair's `_reset_kv_scales`
     (``kv_quant_compiles``): a draft model's pools get their own, as
     their layer count may differ from the target's."""
     return _StepGraph(lambda idx: _reset_kv_scales(k_scales, v_scales, idx),
-                      "kv_quant_compiles", device, memory)
+                      "kv_quant_compiles", device, memory,
+                      site=f"{owner} scale reset (_reset_kv_scales)",
+                      cost=((k_scales,), None))
 
 
 def _pool_shape(layers, heads, num_pages, page, head_dim):
@@ -1049,7 +1144,12 @@ class DecodeEngine:
     spec string) arms fault injection; ``journal_dir`` arms the
     write-ahead journal and ``step_timeout_ms`` the hung-step watchdog
     (`inference.durability`).  ``dtype``, when given, must name the
-    weights' dtype (the KV pages take it).  The flags of `core.flags`
+    weights' dtype (the KV pages take it).  The telemetry plane:
+    ``flight_window`` (0 = no flight recorder) and ``flight_dir`` (its
+    dump directory, default ``<journal_dir>/flight``), ``cost_model``
+    (seeded by ``cost_calibration``), ``alerts`` (True = the default
+    rules, a rule sequence = a custom table), ``profile`` and
+    ``profile_sample_steps``.  The flags of `core.flags`
     fill every argument left None.  ``_adopt`` (`resilience.recover`'s
     handoff) is a retired engine of this configuration whose weights,
     pools, generator and captured graphs this one takes over
@@ -1072,7 +1172,9 @@ class DecodeEngine:
                  serve_weights=None, ragged_step=None, spec_adaptive_k=None,
                  scheduler=None, fault_plan=None, journal_dir=None,
                  step_timeout_ms=None, dtype=None, device=None,
-                 _adopt=None):
+                 flight_window=None, flight_dir=None, cost_model=None,
+                 cost_calibration=None, alerts=None, profile=None,
+                 profile_sample_steps=None, _adopt=None):
         self.device = resolve_device(device)
         cfg = model.cfg
         if _adopt is not None:
@@ -1285,6 +1387,12 @@ class DecodeEngine:
         self._step_no = 0
         self._prefill_no = 0
         self._engine_id = next(DecodeEngine._next_engine_id)
+        # FLAGS_metrics_report_interval_s > 0: the periodic reporter
+        _obs.maybe_start_reporter()
+        if self._weight_quant:
+            _obs.WEIGHT_QUANT_SAVED_BYTES.set(
+                self._stats["weight_quant_bytes_saved"],
+                engine=self._engine_id)
 
         # durable serving + the hung-step watchdog (inference.durability)
         if journal_dir is None:
@@ -1329,6 +1437,9 @@ class DecodeEngine:
                 raise ValueError(
                     "_adopt: the donor's configuration differs")
             self._take_over(_adopt)
+        self._init_telemetry(flight_window, flight_dir, cost_model,
+                             cost_calibration, alerts, profile,
+                             profile_sample_steps)
         if self._journal_dir:
             from .durability import DurabilityManager
 
@@ -1340,6 +1451,89 @@ class DecodeEngine:
         from .durability import set_health
 
         set_health(self._engine_id, "live", span=False)
+        from ..observability import opsserver as _opsserver
+
+        _opsserver.register_engine(self)
+        _opsserver.maybe_start_ops_server()
+
+    def _init_telemetry(self, flight_window, flight_dir, cost_model,
+                        cost_calibration, alerts, profile,
+                        profile_sample_steps):
+        """Arm the telemetry plane as JAX resolves it (an explicit
+        argument wins over its flag), before the journal's config record
+        snapshots `wire_config`."""
+        # the flight recorder: a bounded ring of per-step records
+        # (flight_window=0 turns it off); dumps default beside the journal
+        if flight_window is None:
+            flight_window = int(_flags.flag("flight_window"))
+        if flight_dir is None:
+            flight_dir = str(_flags.flag("flight_dir")) or None
+        self._flight = None
+        if int(flight_window) > 0:
+            from ..observability.flight import FlightRecorder
+
+            fdir = flight_dir or (
+                os.path.join(self._journal_dir, "flight")
+                if self._journal_dir else None)
+            self._flight = FlightRecorder(self, window=int(flight_window),
+                                          flight_dir=fdir)
+        self._ctor["flight_window"] = int(flight_window)
+        self._ctor["flight_dir"] = flight_dir
+        # the cost observatory; an explicit opt-in against a disabled
+        # flag arms profile counting too
+        if cost_model is not None and bool(cost_model) and \
+                not bool(_flags.flag("cost_model")):
+            _costmodel._force_enable()
+        if cost_model is None:
+            cost_model = bool(_flags.flag("cost_model"))
+        self._cost = None
+        if bool(cost_model):
+            self._cost = _costmodel.CostModel(
+                self, calibration=cost_calibration)
+        self._cost_admission = self._cost is not None and \
+            bool(_flags.flag("sched_cost_admission"))
+        self._ctor["cost_model"] = bool(cost_model)
+        self._ctor["cost_calibration"] = None
+        # the profiling plane
+        from ..observability import profiling as _profiling_mod
+
+        if profile is not None and bool(profile) and \
+                not bool(_flags.flag("profile")):
+            _profiling_mod._force_enable()
+        if profile is None:
+            profile = bool(_flags.flag("profile"))
+        self._profiling = None
+        if bool(profile):
+            self._profiling = _profiling_mod.Profiler(
+                self, sample_steps=profile_sample_steps)
+        self._ctor["profile"] = bool(profile)
+        self._ctor["profile_sample_steps"] = (
+            self._profiling.sample_steps
+            if self._profiling is not None else profile_sample_steps)
+        # the alert engine: armed by FLAGS_ops_port or an explicit alerts=
+        from ..observability import alerts as _alerts_mod
+
+        if alerts is None:
+            alerts = int(_flags.flag("ops_port")) != 0
+        self._alerts = None
+        if alerts is not False and alerts != 0:
+            rules = None if alerts is True else alerts
+            self._alerts = _alerts_mod.AlertEngine(self, rules=rules)
+            self._ctor["alerts"] = tuple(self._alerts.rules)
+        else:
+            self._ctor["alerts"] = False
+
+    def _phase(self, name: str):
+        """Context manager timing a leaf flight-recorder phase (a step
+        dispatch, the fetch, cache work); a no-op with the recorder off."""
+        fr = self._flight
+        return fr.phase(name) if fr is not None else _NULL_CTX
+
+    def _excl_phase(self, name: str):
+        """Like `_phase` for the composite host phases (admit, draft,
+        emit): recorded exclusive of the leaf phases inside them."""
+        fr = self._flight
+        return fr.exclusive_phase(name) if fr is not None else _NULL_CTX
 
     def _model_fingerprint(self) -> bytes:
         """The chain-hash root: the embedding's first row, one qkv row
@@ -1397,6 +1591,11 @@ class DecodeEngine:
                            "journal_dir", "device")}
         if kw.get("eos_token_id") is not None:
             kw["eos_token_id"] = int(kw["eos_token_id"])
+        if kw.get("alerts"):
+            kw["alerts"] = [r.to_wire() for r in kw["alerts"]]
+        if self._cost is not None:
+            # the LIVE calibration: a rebuilt engine predicts warm
+            kw["cost_calibration"] = self._cost.calibration_wire()
         return kw
 
     def _trackers(self) -> List[_StepGraph]:
@@ -1482,7 +1681,8 @@ class DecodeEngine:
         raises before staging), and every slot and the queue clear.  The
         pools stay with this engine: the late worker may still hold
         them, so the successor allocates its own and captures anew.  The
-        flight recorder's dump here waits for the telemetry plane."""
+        alert engine evaluates once more and the flight recorder dumps
+        its window first: the last consistent look at the engine."""
         self._abandoned = True
         self._graph_memory.abandoned = True
         for t in self._trackers():  # a draft model's graphs too
@@ -1494,6 +1694,19 @@ class DecodeEngine:
             except Exception:
                 pass  # best effort: the hung worker may hold the handle
         self._watchdog = None
+        if self._alerts is not None:
+            try:
+                self._alerts.evaluate()
+            except Exception:
+                pass  # best effort: recovery must not wait on an alert
+        fl = self._flight
+        if fl is not None:
+            fl.event("abandon", step=int(self._step_no))
+            fl.end_step()
+            try:
+                fl.dump("abandoned")
+            except Exception:
+                pass
         _obs.record_span("engine", "abandoned", _obs.now_ns(), 0,
                          tid=self._engine_id,
                          args={"step": int(self._step_no)})
@@ -1535,45 +1748,123 @@ class DecodeEngine:
                 self._stats[k] += v
         _stats_add(**{k: v for k, v in deltas.items() if k in _STATS})
 
-    def _observe_step(self):
-        """After each engine step: cached pages the pool recycled since
-        the last one (`_observe_step` of the JAX package, its counter
-        alone)."""
-        if self._prefix_cache and not self._abandoned:
+    def _observe_step(self, t0_ns: int, dt: float, n_active: int,
+                      name: str, extra_args=None, observe_hist=True):
+        """Per-step observability: a step span on this engine's trace
+        lane, the step-latency histogram (``observe_hist=False`` for a
+        speculative round's chunk step, which the round observes), the
+        pool and occupancy gauges, and the cached pages the pool
+        recycled since the last step.  Nothing on an abandoned
+        engine."""
+        if self._abandoned:
+            return
+        args = {"step": self._step_no, "active": n_active}
+        if extra_args:
+            args.update(extra_args)
+        _obs.record_span("engine", name, t0_ns, int(dt * 1e9),
+                         tid=self._engine_id, args=args)
+        if observe_hist:
+            _obs.STEP_SECONDS.observe(dt)
+        eid = self._engine_id
+        _obs.KV_FREE_PAGES.set(self.pool.free_count, engine=eid)
+        _obs.KV_UTIL.set(self.pool.utilization(), engine=eid)
+        _obs.SLOT_OCCUPANCY.set(n_active / self._slots, engine=eid)
+        _obs.KV_QUANT_BYTES_PER_TOKEN.set(
+            self._kv_byte_occupancy()["bytes_per_token"], engine=eid)
+        if self._prefix_cache:
+            _obs.PREFIX_CACHED_PAGES.set(self.pool.cached_count,
+                                         engine=eid)
             d = self.pool.evictions - self._evictions_seen
             if d:
                 self._evictions_seen = self.pool.evictions
                 self._add(prefix_evictions=d)
+                _obs.PREFIX_EVICTIONS.inc(d)
 
-    def _tracker(self, step, compile_key) -> _StepGraph:
+    def _dispatch(self, kind: str, fn, *host):
+        """One step dispatch (a graph replay, a capture, or an eager
+        step), bracketed by the profiling plane's probe on a sampled
+        step.  The probe's events are read after the step's fetch."""
+        prof = self._profiling
+        if prof is None:
+            return fn(*host)
+        p = prof.probe_begin(kind, _obs.now_ns())
+        out = fn(*host)
+        prof.probe_end(p)
+        return out
+
+    def _cost_dims(self, params=None, pages=None, num_heads=None) -> dict:
+        """`costmodel.analytical_gpt_cost`'s model dimensions for this
+        engine (or a draft model's ``params``, ``pages`` and heads)."""
+        p = self._params if params is None else params
+        quant = any(k.endswith("_q") for k in p["blocks"][0])
+        kv = self._k_pages if pages is None else pages
+        return dict(layers=len(p["blocks"]),
+                    hidden=int(p["wte"].shape[1]),
+                    vocab=int(p["wte"].shape[0]),
+                    num_heads=num_heads or self._num_heads,
+                    weight_bytes=1 if quant else p["wte"].element_size(),
+                    kv_bytes=kv.element_size())
+
+    def _site(self, what: str, fn: str) -> str:
+        """The JAX tracker's site label of a step (its ``_q`` variant
+        over int8 pages)."""
+        return f"{what} ({fn}{'_q' if self._kv_quant else ''})"
+
+    def _tracker(self, step, compile_key, site=None, params=None,
+                 pools=None, dims=None) -> _StepGraph:
         """A `_StepGraph` of ``step`` over this engine's weights, pools,
-        generator and sampling."""
-        params, kp, vp, gen = (self._params, self._k_pages, self._v_pages,
-                               self._generator)
-        kw = self._step_kwargs()
-        sampled = self._sampling["sampler"] != "greedy"
+        generator and sampling (or a draft model's ``params`` and
+        ``pools``).  Its cost profile's bytes are the analytical GPT
+        stream at the call's rows, query width and mean KV length."""
+        params = self._params if params is None else params
+        kp, vp, kw = (self._k_pages, self._v_pages, self._step_kwargs()) \
+            if pools is None else pools
+        gen = self._generator
+        sampled = self._sampling["sampler"] != "greedy" and pools is None
+        dims = self._cost_dims() if dims is None else dims
+
+        def bytes_of(host):
+            if compile_key == "prefill_compiles" or \
+                    (compile_key == "draft_compiles" and len(host) == 3):
+                batch, q = host[0].shape
+                kv_len = int(host[1][0])
+            else:
+                lens = host[1]
+                toks = host[2]
+                batch = toks.shape[0]
+                q = toks.shape[1] if toks.ndim == 2 else 1
+                kv_len = int(lens.mean()) + q
+            return _costmodel.analytical_gpt_cost(
+                batch=batch, q=q, kv_len=max(kv_len, 1),
+                **dims)["bytes_accessed"]
+
         return _StepGraph(lambda *inputs: step(params, kp, vp, *inputs, gen,
                                                **kw),
                           compile_key, self.device, self._graph_memory,
-                          gen if sampled else None)
+                          gen if sampled else None, site=site,
+                          cost=((params, kp, vp), bytes_of))
 
     def _decode_tracker(self) -> _StepGraph:
         if self._decode_fn is None:
-            self._decode_fn = self._tracker(_gpt_decode_step,
-                                            "decode_compiles")
+            self._decode_fn = self._tracker(
+                _gpt_decode_step, "decode_compiles",
+                self._site("DecodeEngine decode step", "_gpt_decode_step"))
         return self._decode_fn
 
     def _mixed_tracker(self) -> _StepGraph:
         if self._mixed_fn is None:
-            self._mixed_fn = self._tracker(_gpt_mixed_step, "mixed_compiles")
+            self._mixed_fn = self._tracker(
+                _gpt_mixed_step, "mixed_compiles",
+                self._site("DecodeEngine mixed step", "_gpt_mixed_step"))
         return self._mixed_fn
 
     def _ragged_tracker(self) -> _StepGraph:
         """The ONE step a ragged engine runs for decode rows, prompt
         chunks and verify windows alike (``ragged_compiles``)."""
         if self._ragged_fn is None:
-            self._ragged_fn = self._tracker(_gpt_ragged_step,
-                                            "ragged_compiles")
+            self._ragged_fn = self._tracker(
+                _gpt_ragged_step, "ragged_compiles",
+                self._site("DecodeEngine ragged step", "_gpt_ragged_step"))
         return self._ragged_fn
 
     def _prefill_tracker(self, bucket: int) -> _StepGraph:
@@ -1582,7 +1873,9 @@ class DecodeEngine:
         fn = self._prefill_fns.get(bucket)
         if fn is None:
             fn = self._prefill_fns[bucket] = self._tracker(
-                _gpt_prefill, "prefill_compiles")
+                _gpt_prefill, "prefill_compiles",
+                self._site(f"DecodeEngine prefill bucket {bucket}",
+                           "_gpt_prefill"))
         return fn
 
     def graph_captures(self) -> int:
@@ -1607,6 +1900,201 @@ class DecodeEngine:
                 "scale_bytes": used * per_page_scales,
                 "bytes_per_token": (per_page_payload + per_page_scales)
                 / self._page}
+
+    # -- live introspection ---------------------------------------------------
+    def _snapshot_queue(self) -> List[Request]:
+        """Best-effort copy of the admission queue, safe from a
+        non-engine thread (a deque mutated mid-iteration raises; the
+        retry makes statusz robust instead of crashy)."""
+        for _ in range(8):
+            try:
+                return list(self._queue)
+            except RuntimeError:
+                continue
+        return []
+
+    def statusz(self, flight_records: int = 8) -> dict:
+        """Live JSON-serializable state snapshot: queue, slots,
+        degraded modes, health, pool/cache occupancy, SLO burn, and
+        the last ``flight_records`` flight records.  Callable
+        MID-SERVE from any thread — it only reads host state (per-field
+        reads are atomic under the GIL, the queue copy retries around
+        concurrent mutation, the flight ring is read under its lock,
+        and the cost section reports the ledger residue the engine
+        thread last published), so a statusz poller can never perturb
+        outputs and makes no CUDA call.  The fields are the
+        machine-readable form of `statusz_text`; `ServingFrontend
+        .debug_dump` wraps both with the frontend's own state."""
+        from .durability import _health_state
+
+        now = _obs.now_ns()
+
+        def _req(r: Request, slot=None) -> dict:
+            d = {
+                "request": r.request_id,
+                "state": r.state,
+                "priority": r.priority,
+                "prompt_len": len(r.prompt_ids),
+                "out_tokens": len(r.output_ids) + r._absorbed,
+                "max_new": r.max_new_tokens,
+                # total generation cap, stable across preemption folds
+                # (the fold moves budget into _absorbed one for one)
+                "out_cap": r._absorbed + r.max_new_tokens,
+                "preemptions": r.preemptions,
+            }
+            if r.t_enqueue_ns is not None:
+                d["age_s"] = round((now - r.t_enqueue_ns) / 1e9, 6)
+            if slot is not None:
+                d["slot"] = slot
+                d["phase"] = "prefill" \
+                    if int(self._prefill_pos[slot]) < len(r.prompt_ids) \
+                    else "decode"
+                d["kv_len"] = int(self._lens[slot])
+            burn = r.slo_burn(now)
+            if burn:
+                d["slo_burn"] = {k: round(v, 4)
+                                 for k, v in burn.items()}
+            if r.finish_reason is not None:
+                d["finish_reason"] = r.finish_reason
+            return d
+
+        by_slot = list(self._by_slot)
+        res = self._resilience
+        pool = self.pool
+        out = {
+            "engine": self._engine_id,
+            "step": int(self._step_no),
+            "time_ns": now,
+            "health": _health_state.get(self._engine_id, "live"),
+            "abandoned": bool(self._abandoned),
+            "scheduler": self._scheduler.name,
+            "degraded": {"spec_off": bool(res.spec_disabled),
+                         "legacy_prefill": bool(res.legacy_mode)},
+            "config": {
+                "slots": self._slots,
+                "max_seq_len": self._max_seq_len,
+                "page_size": self._page,
+                "chunked_prefill": bool(self._chunked),
+                "prefix_cache": bool(self._prefix_cache),
+                "kv_quant": self._ctor["kv_quant"],
+                "serve_weights": self._ctor["serve_weights"],
+                "chunk_budget": int(self._chunk_budget),
+                "spec_k": self._spec.k if self._spec is not None else 0,
+                "spec_adaptive_k": bool(
+                    self._spec.adaptive if self._spec is not None
+                    else False),
+                "ragged_step": bool(self._ragged),
+                "serve_mesh": "",
+                "mesh_devices": 1,
+                "sampling": dict(self._sampling),
+            },
+            "queue": [_req(r) for r in self._snapshot_queue()],
+            "slots": [_req(r, slot=s) for s, r in enumerate(by_slot)
+                      if r is not None],
+            "pool": {
+                "num_pages": pool.num_pages,
+                "free": pool.free_count,
+                "reserved": pool.reserved,
+                "cached": pool.cached_count,
+                "cached_unreferenced": pool.cached_unreferenced_count,
+                "utilization": round(pool.utilization(), 4),
+                "evictions": pool.evictions,
+            },
+            "durability": {
+                "journal_dir": self._journal_dir,
+                "armed": self._durability is not None,
+            },
+            "watchdog": {
+                "armed": self._watchdog is not None,
+                "timeout_ms": self._step_timeout_ms,
+            },
+        }
+        fl = self._flight
+        if fl is not None:
+            out["flight"] = {
+                "totals": fl.window_stats(),
+                "records": fl.records(flight_records),
+            }
+        if self._alerts is not None:
+            # the alert engine: rule states, firing set, recent
+            # transitions — the same dict /alertz serves
+            out["alerts"] = self._alerts.snapshot()
+        if self._cost is not None:
+            # the cost observatory: static profiles, calibration +
+            # error tables, roofline peaks, the HBM ledger, and the
+            # capacity-headroom estimate a fleet router admits on
+            out["cost"] = self._cost.statusz()
+        if self._profiling is not None:
+            # the profiling plane: probe accounting, capture status,
+            # measured device time / MFU drift, hot-op tables — the
+            # same dict the /profilez endpoint serves
+            out["profiling"] = self._profiling.statusz()
+        return out
+
+    def statusz_text(self, flight_records: int = 4) -> str:
+        """Human-readable rendering of `statusz` — the text half of
+        the JSON+text introspection surface."""
+        z = self.statusz(flight_records=flight_records)
+        lines = [
+            f"engine {z['engine']} — step {z['step']} — "
+            f"health {z['health']}"
+            + (" (ABANDONED)" if z["abandoned"] else ""),
+            f"scheduler {z['scheduler']} | chunked="
+            f"{int(z['config']['chunked_prefill'])} prefix_cache="
+            f"{int(z['config']['prefix_cache'])} spec_k="
+            f"{z['config']['spec_k']} | degraded: spec_off="
+            f"{int(z['degraded']['spec_off'])} legacy="
+            f"{int(z['degraded']['legacy_prefill'])}",
+            f"pool: {z['pool']['free']}/{z['pool']['num_pages']} free, "
+            f"{z['pool']['cached']} cached "
+            f"({z['pool']['cached_unreferenced']} reclaimable), "
+            f"util {z['pool']['utilization']}, "
+            f"{z['pool']['evictions']} evictions",
+            f"queue ({len(z['queue'])}):",
+        ]
+        for q in z["queue"]:
+            lines.append(
+                f"  req {q['request']} prio {q['priority']} "
+                f"age {q.get('age_s', 0):.3f}s "
+                f"out {q['out_tokens']}"
+                + (f" burn {q['slo_burn']}" if "slo_burn" in q else ""))
+        lines.append(f"slots ({len(z['slots'])}/"
+                     f"{z['config']['slots']}):")
+        for s in z["slots"]:
+            lines.append(
+                f"  slot {s['slot']} req {s['request']} {s['phase']} "
+                f"kv {s['kv_len']} out {s['out_tokens']}/"
+                f"{s['out_cap']}"
+                + (f" burn {s['slo_burn']}" if "slo_burn" in s else ""))
+        fl = z.get("flight")
+        if fl:
+            t = fl["totals"]
+            lines.append(
+                f"flight: {t['records']}/{t['window']} records, "
+                f"{t['tokens_per_second']:.1f} tok/s over window, "
+                f"goodput {t['goodput']}, {t['dumps']} dumps")
+            for rec in fl["records"]:
+                phases = " ".join(
+                    f"{k}={v * 1e3:.2f}ms"
+                    for k, v in sorted(rec.get("phases", {}).items()))
+                evs = "".join(f" [{e['kind']}]"
+                              for e in rec.get("events", []))
+                lines.append(
+                    f"  step {rec.get('step')} {rec.get('kind')} "
+                    f"{rec.get('dur_s', 0) * 1e3:.2f}ms "
+                    f"emitted {sum(rec.get('emitted', {}).values())} "
+                    f"{phases}{evs}")
+        cost = z.get("cost")
+        if cost:
+            hr = cost["headroom"]
+            led = cost["ledger"]
+            lines.append(
+                f"cost: predicted "
+                f"{hr['predicted_step_s'] * 1e3:.2f}ms/step, "
+                f"headroom {hr['admissible_slots']} slots, ledger "
+                f"{led['attributed_bytes']}B attributed + "
+                f"{led['unattributed_bytes']}B unattributed")
+        return "\n".join(lines)
 
     # -- admission ------------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens=32,
@@ -1646,6 +2134,7 @@ class DecodeEngine:
             req._deadline_ns = req.t_enqueue_ns + \
                 int(req.deadline_ms * 1e6)
         self._queue.append(req)
+        _obs.REQUESTS_ENQUEUED.inc()
         if self._durability is not None:
             self._durability.on_admit(req)
 
@@ -1721,6 +2210,10 @@ class DecodeEngine:
         see it through; False leaves it queued."""
         if not self._free_slots or not self._capacity_ok(req):
             return False
+        if self._cost_admission and not self._cost.admission_ok(req):
+            # FLAGS_sched_cost_admission: the predicted step cost would
+            # blow the tightest declared per-token SLO; it stays queued
+            return False
         total_pages = self._pages_for(req.total_kv_tokens())
         hit_pages = self._probe_prefix(req)
         if self._queue and self._queue[0] is req:
@@ -1758,6 +2251,16 @@ class DecodeEngine:
         req.t_admit_ns = _obs.now_ns()
         if not first:
             _stats_add(resumes=1)
+            if self._flight is not None:
+                self._flight.event("resume", request=req.request_id)
+            return
+        if req.t_enqueue_ns is not None:
+            _obs.REQUEST_QUEUE_WAIT.observe(
+                (req.t_admit_ns - req.t_enqueue_ns) / 1e9)
+            _obs.record_span("requests", "queued", req.t_enqueue_ns,
+                             req.t_admit_ns - req.t_enqueue_ns,
+                             tid=req.request_id,
+                             args=_req_span_args(req))
 
     def _alloc_prompt_pages(self, req: Request, slot: int,
                             total_pages: int, hit_pages=()):
@@ -1801,6 +2304,11 @@ class DecodeEngine:
             self._add(prefix_hits=len(hit_pages),
                       prefix_misses=n_probe - len(hit_pages),
                       prefix_cached_tokens=start)
+            if hit_pages:
+                _obs.PREFIX_HITS.inc(len(hit_pages))
+            if n_probe > len(hit_pages):
+                _obs.PREFIX_MISSES.inc(n_probe - len(hit_pages))
+            _obs.PREFIX_CACHED_TOKENS.observe(start)
         if self._spec is not None:
             self._spec.on_admit(slot, req)
 
@@ -1828,11 +2336,17 @@ class DecodeEngine:
         ids[0, :p_len] = req.prompt_ids
         fn = self._prefill_tracker(bucket)
         t0 = time.perf_counter()
+        t0_ns = _obs.now_ns()
         self._prefill_no += 1
         self._flush_fresh_scales()
-        tok = int(self._fetch(fn(ids, np.asarray([p_len], np.int32),
-                                 self._bt[slot]))[0])
+        with self._phase("prefill"):
+            out = fn(ids, np.asarray([p_len], np.int32), self._bt[slot])
+        tok = int(self._fetch(out)[0])
         self._add(prefill_time_s=time.perf_counter() - t0)
+        _obs.record_span("engine", "prefill", t0_ns,
+                         _obs.now_ns() - t0_ns, tid=self._engine_id,
+                         args=_req_span_args(req, bucket=bucket,
+                                             slot=slot))
 
         req.state = "running"
         req.slot = slot
@@ -1847,7 +2361,7 @@ class DecodeEngine:
             self._quarantine_slot(slot, "nan_logits")
             return
         self._add(prefills=1, tokens=1)
-        self._stamp_first_token(req)
+        self._stamp_first_token(req, prompt_len=p_len, bucket=bucket)
         self._emit(req, [tok])
         if self._spec is not None:
             self._spec.on_admit(slot, req)
@@ -1889,6 +2403,8 @@ class DecodeEngine:
         that raises (the "host_callback" site) is recorded on
         ``req.fault_info`` and dropped; generation goes on."""
         req.output_ids.extend(toks)
+        if self._flight is not None and toks:
+            self._flight.note_emit(req.request_id, len(toks))
         gate = req._emit_gate
         if gate:
             skip = min(gate, len(toks))
@@ -1916,10 +2432,12 @@ class DecodeEngine:
         """One SLO miss ("ttft" | "tpot" | "deadline"): accounting only."""
         req.slo_violations.append(kind)
         _stats_add(slo_violations=1)
+        _obs.SCHED_SLO_VIOLATIONS.inc(kind=kind)
 
-    def _stamp_first_token(self, req: Request):
+    def _stamp_first_token(self, req: Request, **span_args):
         """Stamp TTFT once per request (a resumed request keeps its
-        stamp) and check a declared TTFT target."""
+        stamp), check a declared TTFT target, and record the request's
+        prefill span."""
         if req.t_first_token_ns is not None:
             return
         req.t_first_token_ns = _obs.now_ns()
@@ -1929,14 +2447,20 @@ class DecodeEngine:
             if req.slo_ttft_ms is not None and \
                     ttft_s * 1e3 > req.slo_ttft_ms:
                 self._slo_violation(req, "ttft")
+        if req.t_admit_ns is not None:
+            _obs.record_span("requests", "prefill", req.t_admit_ns,
+                             req.t_first_token_ns - req.t_admit_ns,
+                             tid=req.request_id,
+                             args=_req_span_args(req, **span_args))
 
     def _register_prompt_pages(self, req: Request):
         """Prefill complete: content-address every freshly computed full
         prompt page (later writes land past the prompt)."""
         if not self._prefix_cache:
             return
-        for i in range(req.cached_page_count, len(req._page_hashes)):
-            self.pool.register_page(req.pages[i], req._page_hashes[i])
+        with self._phase("cache"):
+            for i in range(req.cached_page_count, len(req._page_hashes)):
+                self.pool.register_page(req.pages[i], req._page_hashes[i])
         req._reg_pages = len(req._page_hashes)
 
     def _register_generated_pages(self, slot: int, req: Request):
@@ -1958,8 +2482,10 @@ class DecodeEngine:
             prev = hashes[-1] if hashes else self._model_salt
             hashes.append(_chain_hash(
                 prev, toks[i * self._page:(i + 1) * self._page]))
-        for i in range(max(req._reg_pages, req.cached_page_count), full):
-            self.pool.register_page(req.pages[i], hashes[i])
+        with self._phase("cache"):
+            for i in range(max(req._reg_pages, req.cached_page_count),
+                           full):
+                self.pool.register_page(req.pages[i], hashes[i])
         req._reg_pages = full
 
     def _finish(self, slot: int, reason: str):
@@ -1974,23 +2500,37 @@ class DecodeEngine:
         self._release_slot(slot)
         self._add(**{_FINISH_COUNTER[reason]: 1})
         req.t_finish_ns = _obs.now_ns()
+        _obs.REQUESTS_FINISHED.inc(reason=reason)
         if self._durability is not None:
             self._durability.on_finish(req)
         # preemption-stable: tokens folded into the replay prompt count
         n_out = len(req.output_ids) + req._absorbed
-        if req.t_first_token_ns is not None and n_out > 1:
-            tpot_s = (req.t_finish_ns - req.t_first_token_ns) / 1e9 \
-                / (n_out - 1)
-            _obs.REQUEST_TPOT.observe(tpot_s)
-            if reason in ("eos", "length") and \
-                    req.slo_tpot_ms is not None and \
-                    tpot_s * 1e3 > req.slo_tpot_ms:
-                self._slo_violation(req, "tpot")
+        if req.t_enqueue_ns is not None:
+            _obs.REQUEST_E2E.observe(
+                (req.t_finish_ns - req.t_enqueue_ns) / 1e9)
+        if req.t_first_token_ns is not None:
+            if n_out > 1:
+                tpot_s = (req.t_finish_ns - req.t_first_token_ns) / 1e9 \
+                    / (n_out - 1)
+                _obs.REQUEST_TPOT.observe(tpot_s)
+                if reason in ("eos", "length") and \
+                        req.slo_tpot_ms is not None and \
+                        tpot_s * 1e3 > req.slo_tpot_ms:
+                    self._slo_violation(req, "tpot")
+            _obs.record_span(
+                "requests", "decode", req.t_first_token_ns,
+                req.t_finish_ns - req.t_first_token_ns,
+                tid=req.request_id,
+                args=_req_span_args(req, tokens=n_out,
+                                    finish_reason=reason))
         if reason in ("eos", "length") and req._deadline_ns is not None \
                 and req.t_finish_ns > req._deadline_ns:
             self._slo_violation(req, "deadline")
         if self._spec is not None:
             self._spec.on_finish(slot, req)
+        if self._flight is not None:
+            # after the SLO checks: slo_met is final here
+            self._flight.note_finish(req)
 
     def evict(self, req: Request):
         """Cancel a request on the engine's initiative: a queued request
@@ -2052,6 +2592,15 @@ class DecodeEngine:
             self._spec.on_finish(slot, req)
         self._queue.appendleft(req)
         _stats_add(preemptions=1)
+        _obs.SCHED_PREEMPTIONS.inc()
+        if self._flight is not None:
+            self._flight.event("preempt", request=req.request_id,
+                               slot=slot, generated=n_gen)
+        if req.t_admit_ns is not None:
+            _obs.record_span("requests", "preempted", req.t_admit_ns,
+                             _obs.now_ns() - req.t_admit_ns,
+                             tid=req.request_id,
+                             args=_req_span_args(req, generated=n_gen))
 
     def _cancel_running(self, req: Request):
         if req.state != "running" or req.slot is None or \
@@ -2071,8 +2620,21 @@ class DecodeEngine:
         req.finish_reason = reason
         req.t_finish_ns = _obs.now_ns()
         _stats_add(**{_FINISH_COUNTER[reason]: 1})
+        _obs.REQUESTS_FINISHED.inc(reason=reason)
         if self._durability is not None:
             self._durability.on_finish(req)
+        if reason == "deadline":
+            _obs.SCHED_DEADLINE_EXPIRED.inc()
+        if req.t_enqueue_ns is not None:
+            _obs.REQUEST_E2E.observe(
+                (req.t_finish_ns - req.t_enqueue_ns) / 1e9)
+            _obs.record_span("requests", "queued", req.t_enqueue_ns,
+                             req.t_finish_ns - req.t_enqueue_ns,
+                             tid=req.request_id,
+                             args=_req_span_args(req,
+                                                 finish_reason=reason))
+        if self._flight is not None:
+            self._flight.note_finish(req)
 
     def _cancel_queued(self, req: Request):
         if req.state != "queued":
@@ -2096,8 +2658,10 @@ class DecodeEngine:
             req.fault_info.recovered = False
         _obs.record_span("engine", "quarantine", _obs.now_ns(), 0,
                          tid=self._engine_id,
-                         args={"request": req.request_id, "slot": slot,
-                               "site": site})
+                         args=_req_span_args(req, slot=slot, site=site))
+        if self._flight is not None:
+            self._flight.event("quarantine", request=req.request_id,
+                               slot=slot, site=site)
         self._finish(slot, "fault")
 
     def _on_first_token(self, slot: int, req: Request, tok: int) -> bool:
@@ -2112,7 +2676,8 @@ class DecodeEngine:
         self._emit(req, [tok])
         self._last[slot] = tok
         self._add(prefills=1)
-        self._stamp_first_token(req)
+        self._stamp_first_token(req, prompt_len=len(req.prompt_ids),
+                                chunks=req.prefill_chunks)
         reason = self._done(req, tok)
         if reason:
             self._finish(slot, reason)
@@ -2122,20 +2687,21 @@ class DecodeEngine:
         """Ensure pages exist for every KV row the next step writes:
         positions ``lens[slot] .. lens[slot] + writes[slot] - 1`` (one
         row per active slot by default)."""
-        if self._fault is not None:
-            self._resilience.fault_point("pool")
-        for slot in range(self._slots):
-            if not self._active[slot]:
-                continue
-            req = self._by_slot[slot]
-            w = 1 if writes is None else int(writes[slot])
-            if w == 0:
-                continue
-            pidx = (int(self._lens[slot]) + w - 1) // self._page
-            while pidx >= len(req.pages):
-                req.pages.append(self._alloc_page())
-                self.pool.reserved -= 1
-                self._bt[slot, len(req.pages) - 1] = req.pages[-1]
+        with self._phase("cache"):
+            if self._fault is not None:
+                self._resilience.fault_point("pool")
+            for slot in range(self._slots):
+                if not self._active[slot]:
+                    continue
+                req = self._by_slot[slot]
+                w = 1 if writes is None else int(writes[slot])
+                if w == 0:
+                    continue
+                pidx = (int(self._lens[slot]) + w - 1) // self._page
+                while pidx >= len(req.pages):
+                    req.pages.append(self._alloc_page())
+                    self.pool.reserved -= 1
+                    self._bt[slot, len(req.pages) - 1] = req.pages[-1]
 
     def _alloc_page(self) -> int:
         """Every page the engine claims comes through here, so that with
@@ -2174,19 +2740,31 @@ class DecodeEngine:
         self._fresh_pages = []
         buf = np.full(self.pool.num_pages, self.pool.num_pages, np.int64)
         buf[:len(ids)] = ids
-        self._scale_reset_tracker()(buf)
-        if self._spec is not None and \
-                getattr(self._spec.drafter, "_k_scales", None) is not None:
-            self._spec.drafter._scale_reset_tracker()(buf)
+        with self._phase("cache"):
+            self._scale_reset_tracker()(buf)
+            if self._spec is not None and \
+                    getattr(self._spec.drafter, "_k_scales", None) \
+                    is not None:
+                self._spec.drafter._scale_reset_tracker()(buf)
         self._add(kv_quant_pages=len(ids))
+        _obs.KV_QUANT_PAGES.inc(len(ids))
 
     def _fetch(self, out: torch.Tensor) -> np.ndarray:
         """A step's packed output on the host (the step's one wait for
-        the device); with int8 pages the refold count it carries is
-        counted and dropped."""
-        out = out.cpu().numpy()
+        the device, the flight recorder's ``fetch`` phase); with int8
+        pages the refold count it carries is counted and dropped."""
+        fr = self._flight
+        if fr is None:
+            out = out.cpu().numpy()
+        else:
+            t0 = time.perf_counter()
+            out = out.cpu().numpy()
+            fr.add_phase("fetch", time.perf_counter() - t0)
         if self._kv_quant:
-            self._add(kv_quant_refolds=int(out[-1].flat[0]))
+            n = int(out[-1].flat[0])
+            if n:
+                self._add(kv_quant_refolds=n)
+                _obs.KV_QUANT_REFOLDS.inc(n)
             out = out[:-1]
         return out
 
@@ -2238,18 +2816,29 @@ class DecodeEngine:
             # before the step: an injected raise leaves nothing half done
             self._resilience.step_fault_point("mixed_step")
         self._step_no += 1
+        # the flight phase: a chunk-only step is prompt work ("prefill"),
+        # a chunk-carrying full step "mixed", a chunkless one "decode"
+        phase_name = "prefill" if not decode_rows else \
+            ("mixed" if chunk_of else "decode")
         self._flush_fresh_scales()
 
         t0 = time.perf_counter()
+        t0_ns = _obs.now_ns()
+        kind = "ragged" if self._ragged else "mixed"
         if self._ragged:
             # a target at every position: the host picks each slot's
             # span-end row, and keeps NAN_TOKEN where the row faulted
-            toks = self._fetch(fn(self._bt, self._lens, tokens, caps))
+            with self._phase(phase_name):
+                out = self._dispatch(kind, fn, self._bt, self._lens,
+                                     tokens, caps)
+            toks = self._fetch(out)
             toks = np.where(sample_mask, toks[np.arange(slots), sample_idx],
                             0)
         else:
-            toks = self._fetch(fn(self._bt, self._lens, tokens, caps,
-                                  sample_idx, sample_mask))
+            with self._phase(phase_name):
+                out = self._dispatch(kind, fn, self._bt, self._lens, tokens,
+                                     caps, sample_idx, sample_mask)
+            toks = self._fetch(out)
         dt = time.perf_counter() - t0
         if self._fault is not None:
             toks = self._resilience.corrupt_tokens(
@@ -2266,25 +2855,33 @@ class DecodeEngine:
             self._add(mixed_steps=1, prefill_chunks=len(chunk_of),
                       ragged_steps=int(self._ragged), mixed_step_s=dt,
                       prefill_time_s=dt)
-        self._observe_step()
+        for c in chunk_of.values():
+            _obs.PREFILL_CHUNK_TOKENS.observe(c)
+        self._observe_step(t0_ns, dt, n_active, "mixed_step",
+                           extra_args={"prefilling": len(chunk_of),
+                                       "chunk_tokens": sum(
+                                           chunk_of.values())},
+                           observe_hist=decode_rows)
         if self._spec is not None and chunk_of:
             self._spec.drafter.ingest_chunks(tokens, caps)
 
         emitted = 0
-        for s in range(slots):
-            if not self._active[s]:
-                continue
-            req = self._by_slot[s]
-            c = chunk_of.get(s)
-            if c is not None:
-                self._prefill_pos[s] += c
-                self._lens[s] += c
-                req.prefill_chunks += 1
-                if int(self._prefill_pos[s]) == len(req.prompt_ids):
-                    if self._on_first_token(s, req, int(toks[s])):
-                        emitted += 1
-            elif caps[s] == 1:
-                emitted += self._land_decode_token(s, req, int(toks[s]))
+        with self._excl_phase("emit"):
+            for s in range(slots):
+                if not self._active[s]:
+                    continue
+                req = self._by_slot[s]
+                c = chunk_of.get(s)
+                if c is not None:
+                    self._prefill_pos[s] += c
+                    self._lens[s] += c
+                    req.prefill_chunks += 1
+                    if int(self._prefill_pos[s]) == len(req.prompt_ids):
+                        if self._on_first_token(s, req, int(toks[s])):
+                            emitted += 1
+                elif caps[s] == 1:
+                    emitted += self._land_decode_token(s, req,
+                                                       int(toks[s]))
         self._add(tokens=emitted)
         return True
 
@@ -2313,20 +2910,24 @@ class DecodeEngine:
         self._step_no += 1
         self._flush_fresh_scales()
         t0 = time.perf_counter()
-        toks = self._fetch(fn(self._bt, self._lens, self._last,
-                              self._active))
+        t0_ns = _obs.now_ns()
+        with self._phase("decode"):
+            out = self._dispatch("decode", fn, self._bt, self._lens,
+                                 self._last, self._active)
+        toks = self._fetch(out)
         dt = time.perf_counter() - t0
         if self._fault is not None:
             toks = self._resilience.corrupt_tokens(
                 toks, [s for s in range(self._slots) if self._active[s]])
         n_active = int(self._active.sum())
         kv_util = self.pool.utilization()  # before the step's finishes
-        self._observe_step()
+        self._observe_step(t0_ns, dt, n_active, "decode_step")
         emitted = 0
-        for slot in range(self._slots):
-            if self._active[slot]:
-                emitted += self._land_decode_token(
-                    slot, self._by_slot[slot], int(toks[slot]))
+        with self._excl_phase("emit"):
+            for slot in range(self._slots):
+                if self._active[slot]:
+                    emitted += self._land_decode_token(
+                        slot, self._by_slot[slot], int(toks[slot]))
         self._add(steps=1, tokens=emitted, decode_step_s=dt,
                   decode_time_s=dt, occupancy_sum=n_active / self._slots,
                   kv_util_sum=kv_util)
@@ -2345,36 +2946,80 @@ class DecodeEngine:
         exception the fault plan did not inject leaves here unchanged
         (`resilience.ResilienceManager.contain`).  The journal flushes and
         snapshots at the step boundary, and the watchdog judges the step
-        (`durability.StepWatchdog`)."""
-        self._admit()
-        if not self._abandoned and _obs.enabled():
-            # admission pressure, sampled after the admission pass
-            eid = self._engine_id
-            _obs.QUEUE_DEPTH.set(len(self._queue), engine=eid)
-            _obs.QUEUE_OLDEST_AGE.set(
-                (_obs.now_ns() - min(r.t_enqueue_ns for r in self._queue))
-                / 1e9 if self._queue else 0.0, engine=eid)
-        if not self._active.any():
-            if self._durability is not None:
-                self._durability.on_step_boundary()
-            return bool(self._queue)
-        wd = self._watchdog
-        if wd is not None:
-            wd.arm()
-            t0 = time.perf_counter()
+        (`durability.StepWatchdog`).  The flight recorder opens a record
+        before admission and seals it after the step; the cost model
+        predicts the step before it runs and calibrates after; the
+        alert engine evaluates between steps.  A fatal fault leaves the
+        flight window on disk before it escapes."""
+        fr = self._flight
+        if fr is not None:
+            fr.begin_step()
+        if self._profiling is not None:
+            self._profiling.note_step_begin()
         try:
-            out = self._resilience.run_step()
-            if self._durability is not None:
-                self._durability.on_step_boundary()
-        finally:
+            # "admit" is exclusive of a legacy prefill's leaf phases
+            with self._excl_phase("admit"):
+                self._admit()
+            if not self._abandoned and _obs.enabled():
+                # admission pressure, sampled after the admission pass
+                eid = self._engine_id
+                _obs.QUEUE_DEPTH.set(len(self._queue), engine=eid)
+                _obs.QUEUE_OLDEST_AGE.set(
+                    (_obs.now_ns() - min(r.t_enqueue_ns
+                                         for r in self._queue))
+                    / 1e9 if self._queue else 0.0, engine=eid)
+            if fr is not None:
+                fr.note_batch()
+            if self._cost is not None and fr is not None and \
+                    self._active.any():
+                self._cost.note_step_begin(fr)
+            if not self._active.any():
+                if self._durability is not None:
+                    self._durability.on_step_boundary()
+                if fr is not None:
+                    fr.end_step(idle=True)
+                if self._alerts is not None:
+                    self._alerts.maybe_step()
+                return bool(self._queue)
+            wd = self._watchdog
             if wd is not None:
-                dt = time.perf_counter() - t0
-                wd.disarm()
-        if wd is not None and wd.classify(dt):
-            # the step completed (its tokens are emitted and journaled)
-            # but ran this slow with nothing to excuse it: hand the
-            # fatal HungStep to the recovery supervision
-            wd.on_hung(dt)
+                wd.arm()
+                t0 = time.perf_counter()
+            try:
+                out = self._resilience.run_step()
+                if self._durability is not None:
+                    self._durability.on_step_boundary()
+            finally:
+                if wd is not None:
+                    dt = time.perf_counter() - t0
+                    wd.disarm()
+            if wd is not None and wd.classify(dt):
+                # the step completed (its tokens are emitted and
+                # journaled) but ran this slow with nothing to excuse
+                # it: hand the fatal HungStep to the recovery supervision
+                wd.on_hung(dt)
+        except StepFault as e:
+            # a fault that survived the ladder is escaping: the alerts
+            # evaluate and the black box dumps before the supervisor
+            # tears this engine down (an abandoned engine dumped already)
+            if self._alerts is not None and not self._abandoned:
+                try:
+                    self._alerts.evaluate()
+                except Exception:
+                    pass
+            if fr is not None and not self._abandoned:
+                fr.note_fault(e)
+            raise
+        if self._profiling is not None:
+            self._profiling.note_step_end(fr)
+        if fr is not None:
+            rec = fr.end_step()
+            if self._cost is not None and rec is not None:
+                self._cost.observe(rec)
+            if self._profiling is not None and rec is not None:
+                self._profiling.observe(rec)
+        if self._alerts is not None:
+            self._alerts.maybe_step()
         return out
 
     def _step_inner(self) -> bool:

@@ -38,6 +38,12 @@ over zero drafts (one target token a slot, a decode step through the
 verify's shapes), and repeated drafter faults degrade speculation off
 (`inference.resilience`).  The ``verify`` fault site guards the verify
 step and ``nan_logits`` corrupts its targets, as in JAX.
+
+The round records the flight recorder's ``draft`` (exclusive of the
+drafter's fetches) and ``verify`` phases and their engine spans, and
+adaptive K grows a slot's depth only while the cost model prices one
+verify round below the K+1 decode steps it replaces (`_grow_ok`, JAX's
+gate; no cost model allows growth).
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..core import flags as _flags
 from .serving import (_EngineRef, _gpt_decode_step, _gpt_mixed_step,
                       _gpt_prefill, _gpt_ragged_step, _pool_shape,
@@ -206,6 +213,8 @@ class DraftModelDrafter(Drafter):
             self._params, mats, saved = _quantize_gpt_params(self._params)
             engine._add(weight_quant_mats=mats,
                         weight_quant_bytes_saved=saved)
+            _obs.WEIGHT_QUANT_SAVED_BYTES.inc(
+                saved, engine=engine._engine_id)
         n_layers = len(self._params["blocks"])
         shape = _pool_shape(n_layers, self._num_heads, engine.pool.num_pages,
                             engine._page, self._head_dim)
@@ -226,27 +235,29 @@ class DraftModelDrafter(Drafter):
                                       top_k=0, top_p=1.0))
         if engine._kv_quant:
             self._kw.update(k_scales=self._k_scales, v_scales=self._v_scales)
-        self._catch_fn = self._tracker(_gpt_spec_verify)
-        self._step_fn = self._tracker(_gpt_decode_step)
+        self._catch_fn = self._tracker(_gpt_spec_verify, "catch-up")
+        self._step_fn = self._tracker(_gpt_decode_step, "step")
         self._chunk_fn = self._scale_reset_fn = None
         self._prefill_fns = {}
 
-    def _tracker(self, step) -> _StepGraph:
+    def _tracker(self, step, what: str) -> _StepGraph:
         """A `_StepGraph` of ``step`` over the draft's weights and pools
-        (``draft_compiles``); the greedy draft draws nothing from the
-        generator it is handed."""
+        (``draft_compiles``, site ``DraftModelDrafter <what>``); the
+        greedy draft draws nothing from the generator it is handed."""
         eng = self.engine
-        params, kp, vp, gen, kw = (self._params, self._k_pages,
-                                   self._v_pages, eng._generator, self._kw)
-        return _StepGraph(lambda *inputs: step(params, kp, vp, *inputs, gen,
-                                               **kw),
-                          "draft_compiles", eng.device, eng._graph_memory)
+        return eng._tracker(
+            step, "draft_compiles",
+            eng._site(f"DraftModelDrafter {what}", step.__name__),
+            params=self._params,
+            pools=(self._k_pages, self._v_pages, self._kw),
+            dims=eng._cost_dims(self._params, self._k_pages,
+                                self._num_heads))
 
     def _scale_reset_tracker(self) -> _StepGraph:
         if self._scale_reset_fn is None:
             self._scale_reset_fn = _scale_reset_graph(
                 self._k_scales, self._v_scales, self.engine.device,
-                self.engine._graph_memory)
+                self.engine._graph_memory, owner="DraftModelDrafter")
         return self._scale_reset_fn
 
     def trackers(self):
@@ -275,7 +286,8 @@ class DraftModelDrafter(Drafter):
         ids[0, :p_len] = req.prompt_ids
         fn = self._prefill_fns.get(bucket)
         if fn is None:
-            fn = self._prefill_fns[bucket] = self._tracker(_gpt_prefill)
+            fn = self._prefill_fns[bucket] = self._tracker(
+                _gpt_prefill, f"prefill bucket {bucket}")
         t0 = time.perf_counter()
         fn(ids, np.asarray([p_len], np.int32), eng._bt[slot])
         eng._add(draft_time_s=time.perf_counter() - t0)
@@ -288,7 +300,7 @@ class DraftModelDrafter(Drafter):
         eng = self.engine
         caps = np.asarray(caps, np.int32)
         if self._chunk_fn is None:
-            self._chunk_fn = self._tracker(_gpt_mixed_step)
+            self._chunk_fn = self._tracker(_gpt_mixed_step, "chunk ingest")
         t0 = time.perf_counter()
         # nothing is sampled, so nothing is fetched: no host sync
         self._run(self._chunk_fn, eng._bt, self._lens, tokens, caps,
@@ -406,8 +418,9 @@ class SpeculativeDecoder:
         if eng._ragged:
             return eng._ragged_tracker()
         if self._verify_fn is None:
-            self._verify_fn = eng._tracker(_gpt_spec_verify,
-                                           "verify_compiles")
+            self._verify_fn = eng._tracker(
+                _gpt_spec_verify, "verify_compiles",
+                eng._site("SpeculativeDecoder verify", "_gpt_spec_verify"))
         return self._verify_fn
 
     def on_admit(self, slot: int, req):
@@ -425,9 +438,27 @@ class SpeculativeDecoder:
         self._acc_streak[slot] = 0
 
     def _grow_ok(self) -> bool:
-        """The gate on depth growth.  JAX consults its cost model here
-        and allows growth without one; the port has no cost model yet."""
-        return True
+        """Cost-model gate on depth growth (JAX's): growing a slot's K
+        only pays while one verify round costs less than the K+1 decode
+        steps it replaces at full acceptance.  Calibrated per-label
+        seconds once the model has learned them ("spec" against the
+        decode-shaped label), raw roofline otherwise; no cost model
+        allows growth."""
+        eng = self.engine
+        cost = eng._cost
+        if cost is None:
+            return True
+        try:
+            verify_kind = "ragged" if eng._ragged else "verify"
+            decode_kind = "ragged" if eng._ragged else "decode"
+            v = cost.raw_seconds(cost.profile_for(verify_kind))
+            d = cost.raw_seconds(cost.profile_for(decode_kind))
+            calib = cost.calibration_wire()
+            v *= calib.get("spec", 1.0)
+            d *= calib.get("ragged" if eng._ragged else "decode", 1.0)
+        except Exception:
+            return True
+        return v <= d * (self.k + 1)
 
     def _adapt_k(self, slot: int, m: int, usable: int):
         """Feed one round's acceptance (``m`` of ``usable`` drafts) to the
@@ -465,6 +496,10 @@ class SpeculativeDecoder:
         that is decoding."""
         eng = self.engine
         slots = eng._slots
+        # the round's window opens before any chunk step: the step
+        # latency histogram sees each engine step once, chunk included
+        t_round0 = time.perf_counter()
+        t_round0_ns = _obs.now_ns()
         if eng._chunked and eng._prefilling_any():
             # a slot whose last chunk lands here joins this very round
             eng._mixed_step(decode_rows=False)
@@ -480,16 +515,21 @@ class SpeculativeDecoder:
             k_s = int(self.k_slot[s]) if self.adaptive else self.k
             caps[s] = min(k_s + 1, need)
         if not caps.any():
-            return True  # the chunk step was this engine step
+            # the chunk step was this engine step: it owns the latency
+            _obs.STEP_SECONDS.observe(time.perf_counter() - t_round0)
+            return True
         eng._grow_block_tables(writes=caps)
         eng._flush_fresh_scales()
         pos_before = eng._lens.copy()
 
         t0 = time.perf_counter()
+        t0_ns = _obs.now_ns()
         try:
             if eng._fault is not None:
                 eng._resilience.fault_point("drafter")
-            drafts = self.drafter.propose(caps)
+            # "draft" is exclusive of the drafter's fetches
+            with eng._excl_phase("draft"):
+                drafts = self.drafter.propose(caps)
         except eng._resilience.NONRETRYABLE:
             raise
         except Exception as e:
@@ -501,6 +541,9 @@ class SpeculativeDecoder:
             drafts = np.zeros((slots, self.k), np.int32)
             eng._resilience.on_drafter_fault(e)
         t_draft = time.perf_counter() - t0
+        _obs.record_span("engine", "draft", t0_ns, int(t_draft * 1e9),
+                         tid=eng._engine_id,
+                         args={"drafter": self.drafter.name, "k": self.k})
 
         tokens = np.concatenate([eng._last[:, None].astype(np.int32),
                                  drafts], axis=1)
@@ -513,50 +556,59 @@ class SpeculativeDecoder:
             eng._resilience.step_fault_point("verify")
         eng._step_no += 1
         t0 = time.perf_counter()
-        targets = eng._fetch(fn(eng._bt, eng._lens, tokens, caps))
+        tv_ns = _obs.now_ns()
+        with eng._phase("verify"):
+            out = eng._dispatch("ragged" if eng._ragged else "verify", fn,
+                                eng._bt, eng._lens, tokens, caps)
+        targets = eng._fetch(out)
         t_verify = time.perf_counter() - t0
         if eng._fault is not None:
             targets = eng._resilience.corrupt_tokens(
                 targets, [s for s in range(slots) if caps[s] > 0])
+        _obs.record_span("engine", "verify", tv_ns, int(t_verify * 1e9),
+                         tid=eng._engine_id, args={"k": self.k})
         n_active = int(eng._active.sum())
 
         emitted_total = proposed_total = accepted_total = 0
-        for s in range(slots):
-            if not eng._active[s] or caps[s] == 0:
-                continue
-            req = eng._by_slot[s]
-            w = int(caps[s])
-            usable = min(self.k, w - 1)
-            m = 0
-            while m < usable and int(drafts[s, m]) == int(targets[s, m]):
-                m += 1
-            emit = [int(t) for t in drafts[s, :m]] + [int(targets[s, m])]
-            if any(t < 0 for t in emit):
-                # non-finite logits in this slot's window: quarantine it
-                # without emitting; the other slots' rounds stand
-                eng._quarantine_slot(s, "nan_logits")
-                continue
-            if req.eos_token_id is not None:
-                for j, t in enumerate(emit):
-                    if t == req.eos_token_id:
-                        emit = emit[:j + 1]
-                        break
-            n_emit = len(emit)
-            # after the eos cut, so acceptance stays consistent with what
-            # reached the output
-            proposed_total += usable
-            accepted_total += min(m, n_emit)
-            eng._emit(req, emit)
-            eng._lens[s] += n_emit
-            eng._last[s] = emit[-1]
-            emitted_total += n_emit
-            eng._register_generated_pages(s, req)
-            self.drafter.on_accept(s, int(pos_before[s]), n_emit)
-            if self.adaptive:
-                self._adapt_k(s, m, usable)
-            reason = eng._done(req, emit[-1])
-            if reason:
-                eng._finish(s, reason)
+        with eng._excl_phase("emit"):
+            for s in range(slots):
+                if not eng._active[s] or caps[s] == 0:
+                    continue
+                req = eng._by_slot[s]
+                w = int(caps[s])
+                usable = min(self.k, w - 1)
+                m = 0
+                while m < usable and \
+                        int(drafts[s, m]) == int(targets[s, m]):
+                    m += 1
+                emit = [int(t) for t in drafts[s, :m]] + \
+                    [int(targets[s, m])]
+                if any(t < 0 for t in emit):
+                    # non-finite logits in this slot's window: quarantine
+                    # it without emitting; the other slots' rounds stand
+                    eng._quarantine_slot(s, "nan_logits")
+                    continue
+                if req.eos_token_id is not None:
+                    for j, t in enumerate(emit):
+                        if t == req.eos_token_id:
+                            emit = emit[:j + 1]
+                            break
+                n_emit = len(emit)
+                # after the eos cut, so acceptance stays consistent with
+                # what reached the output
+                proposed_total += usable
+                accepted_total += min(m, n_emit)
+                eng._emit(req, emit)
+                eng._lens[s] += n_emit
+                eng._last[s] = emit[-1]
+                emitted_total += n_emit
+                eng._register_generated_pages(s, req)
+                self.drafter.on_accept(s, int(pos_before[s]), n_emit)
+                if self.adaptive:
+                    self._adapt_k(s, m, usable)
+                reason = eng._done(req, emit[-1])
+                if reason:
+                    eng._finish(s, reason)
 
         eng._add(spec_steps=1, ragged_steps=int(eng._ragged),
                  spec_slot_steps=int((caps > 0).sum()), steps=1,
@@ -566,5 +618,11 @@ class SpeculativeDecoder:
                  decode_time_s=t_draft + t_verify,
                  occupancy_sum=n_active / slots,
                  kv_util_sum=eng.pool.utilization())
-        eng._observe_step()
+        _obs.SPEC_ACCEPTED_LAST.set(emitted_total, engine=eng._engine_id)
+        # the round span runs from before any chunk step to now
+        eng._observe_step(t_round0_ns,
+                          (_obs.now_ns() - t_round0_ns) / 1e9, n_active,
+                          "spec_step",
+                          extra_args={"k": self.k,
+                                      "emitted": emitted_total})
         return True

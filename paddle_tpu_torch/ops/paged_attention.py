@@ -32,6 +32,7 @@ import math
 import torch
 
 from ..nn.functional.attention import multi_query_causal_mask
+from ..observability import costmodel as _costmodel
 from ..quantization.int8 import Q_MAX
 from . import _build
 
@@ -39,7 +40,8 @@ __all__ = ["pick_page_size", "default_page_size", "paged_write_indices",
            "paged_write_rows", "paged_write", "paged_write_spans",
            "paged_quant_write",
            "paged_attention_reference", "paged_attention",
-           "paged_attention_cuda", "paged_attention_cuda_q", "split_plan"]
+           "paged_attention_cuda", "paged_attention_cuda_q", "split_plan",
+           "paged_attention_work"]
 
 _MIN_PAGE_SIZE = 16
 _DEFAULT_PAGE_SIZE = 64
@@ -428,6 +430,25 @@ paged_attention_cuda = _PagedAttentionCuda("paged_attention_fwd", False)
 paged_attention_cuda_q = _PagedAttentionCuda("paged_attention_q_fwd", True)
 
 
+def paged_attention_work(q_shape, k_pages_shape, pages_max: int,
+                         kv_bytes: int, q_bytes: int, quant: bool):
+    """``(flops, bytes)`` of one launch at its shapes, the most its
+    fixed-shape grid can need: every query row over the whole block-table
+    horizon (``pages_max * page`` positions), 4 * D flops a (row,
+    position) pair (two products); bytes read q once, every K and V
+    page of the horizon once (with their scales over int8 pages) and
+    write the output once.  What a step's cost profile charges K1/K2
+    (`observability.costmodel`), which no dispatch mode sees."""
+    b, qn, hq, d = q_shape
+    hkv, _, page, _ = k_pages_shape
+    horizon = pages_max * page
+    flops = 4.0 * d * hq * b * qn * horizon
+    kv = 2.0 * b * hkv * horizon * d * kv_bytes
+    if quant:
+        kv += 2.0 * b * hkv * pages_max * 4
+    return flops, kv + 2.0 * b * qn * hq * d * q_bytes + b * pages_max * 4
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
                     scale=None, q_offsets=None, k_scales=None,
                     v_scales=None):
@@ -469,6 +490,28 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
         raise ValueError(
             "k_scales/v_scales passed for non-int8 KV pages "
             f"(dtype {k_pages.dtype})")
+    tally = _costmodel.active_tally()
+    if tally is not None:
+        # a cost profile is being counted: charge the kernel's work
+        # formula, one row, and hide the inner ops (the CPU's plain
+        # version, the wrapper's allocations) from the count
+        qs = tuple(q.shape) if q.dim() == 4 else \
+            (q.shape[0], 1, *q.shape[1:])
+        flops, nbytes = paged_attention_work(
+            qs, tuple(k_pages.shape), block_tables.shape[1],
+            k_pages.element_size(), q.element_size(), quant)
+        tally.note("paged_attention[K2]" if quant else
+                   "paged_attention[K1]", flops, nbytes)
+        with tally.pause():
+            return _paged_attention(q, k_pages, v_pages, block_tables,
+                                    seq_lens, scale, q_offsets, k_scales,
+                                    v_scales, quant)
+    return _paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                            scale, q_offsets, k_scales, v_scales, quant)
+
+
+def _paged_attention(q, k_pages, v_pages, block_tables, seq_lens, scale,
+                     q_offsets, k_scales, v_scales, quant):
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
                                          seq_lens, scale, q_offsets,

@@ -39,7 +39,14 @@ FILLED = ("steps", "tokens", "prefills", "stalled_decode_steps",
           "prefix_misses", "prefix_cached_tokens", "spec_steps",
           "spec_slot_steps", "spec_proposed", "spec_accepted",
           "spec_emitted", "kv_quant_pages", "kv_quant_refolds",
-          "weight_quant_mats", "weight_quant_bytes_saved")
+          "weight_quant_mats", "weight_quant_bytes_saved",
+          # the telemetry plane: a flight record a step on both, and with
+          # the cost model and profiling disarmed on both, no calibration
+          # update or probe (``cost_profiles`` counts additions to a
+          # process-wide table, which earlier serves of the process fill:
+          # test_torch_costmodel holds it against JAX)
+          "flight_records", "flight_dumps", "cost_updates",
+          "profile_probes", "profile_captures")
 SUMS = ("occupancy_sum", "kv_util_sum", "batch_occupancy",
         "kv_block_utilization", "acceptance_rate", "mean_accepted_per_step")
 # modules the port has not brought over yet: their counters stay 0
@@ -48,9 +55,7 @@ NOT_PORTED = ("evicted", "cancelled", "preemptions", "resumes",
               "step_retries", "recoveries", "spec_disables",
               "legacy_fallbacks", "journal_records", "journal_snapshots",
               "restores", "exec_handoffs", "hung_steps", "adoptions",
-              "journal_compactions", "flight_records", "flight_dumps",
-              "cost_profiles", "cost_updates", "profile_probes",
-              "profile_captures")
+              "journal_compactions")
 SERVES = {
     "split": {},
     "ragged": dict(ragged_step=True),
@@ -128,7 +133,8 @@ def test_serve_counters_equal_jax(serve):
     jt, jr = je.generate(prompts, 8, return_meta=True)
     jst = JS.decode_stats()
     TS.reset_decode_stats()
-    te = TS.DecodeEngine(tm, device="cpu", eos_token_id=eos, **kw)
+    te = TS.DecodeEngine(tm, device="cpu", cost_model=False,
+                         eos_token_id=eos, **kw)
     tt, tr = te.generate(prompts, 8, return_meta=True)
     tst = TP.decode_stats()
     assert tt == [[int(t) for t in o] for o in jt] and tr == jr

@@ -21,10 +21,9 @@ KW = dict(max_batch_size=2, max_seq_len=96, page_size=4)
 PROMPTS = [[1, 2, 3, 4, 5, 1, 2, 3, 4, 5, 1, 2],
            [7, 8, 9, 7, 8, 9, 7, 8]]
 NEW = 16
-# the JAX engine's constructor keys for its telemetry plane and mesh
-JAX_ONLY_CFG = {"flight_window", "flight_dir", "cost_model",
-                "cost_calibration", "profile", "profile_sample_steps",
-                "alerts", "serve_mesh"}
+# the JAX engine's constructor key for its mesh (the telemetry plane's
+# keys are the port's too)
+JAX_ONLY_CFG = {"serve_mesh"}
 
 
 def _sides():

@@ -178,8 +178,7 @@ _FLAG_NAMES = ["chunked_prefill", "prefill_chunk_tokens", "prefix_cache",
                "snapshot_kv", "step_timeout_ms", "compile_cache_dir",
                "flight_window", "flight_dir", "sched_cost_admission"]
 # flags the port keeps at their default only
-_LATER_FLAGS = ("serve_mesh", "compile_cache_dir", "flight_window",
-                "flight_dir", "sched_cost_admission")
+_LATER_FLAGS = ("serve_mesh", "compile_cache_dir")
 
 
 @pytest.mark.parametrize("name", _FLAG_NAMES)
@@ -194,15 +193,14 @@ def test_flag_defaults_match_jax(name):
     ("compile_cache_dir", "/tmp/cache"), ("flight_window", 0),
     ("flight_dir", "/tmp/flight"), ("sched_cost_admission", True)])
 def test_unported_flags_raise(name, value):
-    """serve_mesh, compile_cache_dir (a CUDA graph cannot be serialized)
-    and the telemetry plane's flight_window, flight_dir and
-    sched_cost_admission refuse a non-default, naming the slice or the
-    reason.
+    """serve_mesh and compile_cache_dir (a CUDA graph cannot be
+    serialized) refuse a non-default, naming the slice or the reason.
     kv_quant and serve_weights (quantized serving), ragged_step (the
-    unified ragged step), spec_decode_k (speculative decoding) and
-    chunked_prefill=False (the legacy one-shot prefill) are ported: the
-    value is set, and an engine that takes it from the flag alone serves
-    with it."""
+    unified ragged step), spec_decode_k (speculative decoding),
+    chunked_prefill=False (the legacy one-shot prefill) and the telemetry
+    plane's flight_window, flight_dir and sched_cost_admission are
+    ported: the value is set, and an engine that takes it from the flag
+    alone serves with it."""
     if name not in _LATER_FLAGS:
         from paddle_tpu_torch.models.gpt import GPT, GPTConfig
         tm = GPT.random(GPTConfig(vocab_size=64, hidden_size=32,
@@ -231,6 +229,12 @@ def test_unported_flags_raise(name, value):
             # default resolves off, as in JAX
             assert not eng._chunked and not eng._prefix_cache
             assert st["mixed_steps"] == 0 and st["steps"] == 3
+        elif name == "flight_window":
+            assert eng._flight is None  # 0 turns the recorder off
+        elif name == "flight_dir":
+            assert eng._flight.flight_dir == value
+        elif name == "sched_cost_admission":
+            assert eng._cost_admission and eng._cost is not None
         else:
             assert eng._spec.k == value and st["spec_steps"] > 0
         return

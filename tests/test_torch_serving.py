@@ -322,13 +322,24 @@ for mod in pkgutil.walk_packages(paddle_tpu_torch.__path__,
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 # the serving modules this guard must see: the ragged step's, the
-# speculative decoder's and the serving stack around the engine
+# speculative decoder's, the serving stack around the engine, the
+# telemetry plane and the port's telemetry tools
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
                        "paddle_tpu_torch.inference.resilience",
                        "paddle_tpu_torch.inference.durability",
-                       "paddle_tpu_torch.observability")
+                       "paddle_tpu_torch.observability",
+                       "paddle_tpu_torch.observability.metrics",
+                       "paddle_tpu_torch.observability.tracing",
+                       "paddle_tpu_torch.observability.reporter",
+                       "paddle_tpu_torch.observability.flight",
+                       "paddle_tpu_torch.observability.costmodel",
+                       "paddle_tpu_torch.observability.profiling",
+                       "paddle_tpu_torch.observability.alerts",
+                       "paddle_tpu_torch.observability.opsserver",
+                       "paddle_tpu_torch.tools.explain_request",
+                       "paddle_tpu_torch.tools.telemetry_dump")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)

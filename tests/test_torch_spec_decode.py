@@ -124,11 +124,12 @@ def test_greedy_parity_and_counters(kind, kv, adaptive):
     ref = _port(tm, kv_quant=kv).generate(prompts, 10)
     jd, td = _drafters(kind, seed=17)
     JS.reset_decode_stats()
-    # no cost model: JAX's own ungated growth, which the port has
+    # no cost model on either side: the ungated growth (the gated one is
+    # held against JAX in test_torch_costmodel)
     je = JS.DecodeEngine(m, drafter=jd, cost_model=False, **_kw(**kw))
     jt = [[int(t) for t in o] for o in je.generate(prompts, 10)]
     jst = JS.decode_stats()
-    te = _port(tm, drafter=td, **kw)
+    te = _port(tm, drafter=td, cost_model=False, **kw)
     tt = te.generate(prompts, 10)
     assert tt == ref == jt
     tst = te.decode_stats()
@@ -204,8 +205,11 @@ def test_adaptive_k_shrinks_then_regrows(ragged):
     p = _prompts(9, (6,))[0]
     ref = _port(tm, max_batch_size=1, max_seq_len=96).generate([p], 60)[0]
     drafter = _Regime({tuple(int(t) for t in p): ref})
+    # the depth controller alone, as JAX's test runs it: no cost model
+    # to gate the regrowth
     eng = _port(tm, max_batch_size=1, max_seq_len=96, spec_decode_k=4,
-                spec_adaptive_k=True, drafter=drafter, ragged_step=ragged)
+                spec_adaptive_k=True, drafter=drafter, ragged_step=ragged,
+                cost_model=False)
     sd = eng._spec
     assert sd.adaptive and sd.k_min == 1 and sd._grow_ok()
     req = eng.add_request(p, max_new_tokens=58)
