@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --kernels   # phases 1-3 of K1/K2 only
+    python3 chip_smoke.py --mesh      # phases 1-2, 4, 6 and 15 only
 
 (``--durability-child`` is phase 13's own child process.)
 
@@ -23,8 +24,10 @@ Phases, in order; any failure exits non-zero:
    the mixed step over 16-position pages, at a decode with every slot
    near the horizon, at the speculative verify windows of K=4 and K=8 (5
    and 9 query rows a sequence, from offsets 0 to the horizon, write caps
-   0 to K+1) and at the ragged step's steady state (64 rows a sequence,
-   one live); check that two launches give bitwise-equal
+   0 to K+1), at the ragged step's steady state (64 rows a sequence,
+   one live) and at a mesh rank's shard of the ragged step (``mp=2``: 6
+   heads, mixed and steady state); check that two launches give
+   bitwise-equal
    outputs; time each kernel (beside the simple design's earlier time,
    `PAGED_SIMPLE_MS`), the plain version and one PyTorch library call, and
    give the bound with the unit it assumes (`paged_unit`) and its share;
@@ -143,7 +146,23 @@ Phases, in order; any failure exits non-zero:
    explain_request, and a fatal fault dumps by itself and recovers.
    Every captured serve of 4-7 and 12 is also held to a twin with the
    plane disarmed: the same tokens and K1/K2 launches;
-15. report — one JSON line of kernels, the card line, and the last line
+15. mesh  — tensor-parallel serving (``serve_mesh``) of the ragged serve
+   of 6: (a) ``mp=2`` in f32 (one card: both ranks share it over gloo,
+   steps eager): K1 launched num_layers x steps on every rank, the
+   unsharded ragged serve's tokens (a parting only at a near-tie of the
+   unsharded logits, `MESH_NEAR_TIE`, printed), the first step's logits
+   within `MESH_LOGIT_TOL` (`MESH_LOGIT_TOL_INT8` with int8 pages) of
+   the unsharded step's, the collective bytes
+   a step equal to the formula; tokens/s and host ms a step beside the
+   unsharded captured and eager serves', the all-reduces' share of a
+   step from a torch.profiler pass, the chip skew of a probed serve; (b)
+   the same with int8 KV pages and weights, on K2; (c) ``mp=1`` on NCCL,
+   captured: one graph with its 24 all-reduces recorded inside it, the
+   unsharded captured serve's tokens exactly, no retrace; (d) NCCL with
+   a card a rank: on two cards or more (a) and (b) themselves run on
+   NCCL, captured, and on four ``mp=4`` f32 runs as (a) (else a printed
+   skip).  Backend and placement are printed;
+16. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -461,6 +480,12 @@ def kernel_phase(torch, quant=False):
              q_offsets=verify_offs),
         # the ragged step with every slot decoding: the tensor-core path
         dict(base, name="ragged_decode", Q=64, Hq=12, Hkv=12, D=64,
+             seq_lens=ragged_lens, q_offsets=[s - 1 for s in ragged_lens]),
+        # a rank's shard of the ragged step at serve_mesh="mp=2": half
+        # the heads, a chunk-carrying step and the steady state
+        dict(base, name="mesh_mixed", Q=64, Hq=6, Hkv=6, D=64,
+             seq_lens=mixed_lens, q_offsets=mixed_offs),
+        dict(base, name="mesh_ragged_decode", Q=64, Hq=6, Hkv=6, D=64,
              seq_lens=ragged_lens, q_offsets=[s - 1 for s in ragged_lens]),
     ]
     kname = "K2" if quant else "K1"
@@ -2805,6 +2830,331 @@ def telemetry_phase(torch, serve, int8_tokens, ragged_tokens):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. tensor-parallel serving: serve_mesh
+# ---------------------------------------------------------------------------
+# one sharded step's logits (the first step of the f32 serve) against the
+# unsharded step's on the same inputs: the row-split out and fc2 products
+# add two halves where the unsharded product sums once (f32 on the CUDA
+# cores, TF32 off), a few ulps of 768- and 3072-long sums through 12
+# blocks and the 50304-wide head, far under this
+MESH_LOGIT_TOL = 1e-3
+# with int8 KV pages the sharded and unsharded steps' K/V, a few f32 ulps
+# apart, can round an element on its page's int8 grid a step apart (the
+# 1 LSB of `POOL_TOL`), and one step, 1/127 of the page head's absmax,
+# moves the logits by about as much: 5e-2 holds a few such steps (one
+# H100 80GB HBM3 at 700 W read 1.1e-2 here, and 5.6e-6 in f32)
+MESH_LOGIT_TOL_INT8 = 5e-2
+# where a sharded serve's greedy tokens part from the unsharded serve's,
+# the unsharded logits at the first parting must rank the two tokens
+# within this of each other (a near-tie the summation order can flip)
+MESH_NEAR_TIE = 1e-3
+# the probed sharded serve of the chip-skew reading: its first prompts
+MESH_SKEW_REQUESTS = 4
+
+
+def mesh_launches(mesh, reset=False):
+    """K1/K2 launches of every rank of ``mesh``: rank 0 (this process)
+    and each worker (`Mesh.stats`); ``reset`` zeroes them after."""
+    counts = read_counts()
+    out = {0: {"K1": counts["paged_attention"],
+               "K2": counts["paged_attention_q"]}}
+    for st in mesh.stats(reset):
+        out[st["rank"]] = st["launches"]
+    if reset:
+        reset_counts()
+    return out
+
+
+def first_step_logits(torch, new_engine, prompts):
+    """The logits of the first step of a fresh engine over ``prompts``
+    (8 slots of prompt chunks), read where the step samples; steps
+    eager, so the step's Python runs."""
+    from paddle_tpu_torch.inference import serving
+
+    seen = []
+    real = serving._sample
+
+    def sample(params, h, eps, generator, sampling):
+        if not seen:
+            seen.append(serving._logits_of(params, serving._ln(
+                h, params["lnf_w"], params["lnf_b"], eps)).float().clone())
+        return real(params, h, eps, generator, sampling)
+
+    serving._sample = sample
+    try:
+        with serving.disable_capture():
+            eng = new_engine()
+            for p in prompts[:8]:
+                eng.add_request(p, max_new_tokens=2)
+            eng.step()
+            torch.cuda.synchronize()
+    finally:
+        serving._sample = real
+    return seen[0]
+
+
+def first_parting(torch, model, prompts, ref, got, label):
+    """None when ``got``'s tokens equal ``ref``'s request by request; else
+    the first parting, which must sit at a near-tie of the unsharded
+    model's logits (`MESH_NEAR_TIE`): printed, and returned."""
+    for i, (a, b) in enumerate(zip(ref, got)):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ids = torch.tensor([list(prompts[i]) + list(a[:j])],
+                           device=model.params()["wte"].device)
+        with torch.no_grad():
+            logits = model(ids)[0, -1].float()
+        gap = float(logits[a[j]] - logits[b[j]])
+        top2 = torch.topk(logits, 2).values
+        out = dict(request=i, position=j, ref_token=int(a[j]),
+                   token=int(b[j]), logit_gap=gap,
+                   top2_gap=float(top2[0] - top2[1]))
+        print(f"{label}: first parting from the unsharded serve at "
+              f"request {i} position {j}: {out}", flush=True)
+        if abs(gap) > MESH_NEAR_TIE:
+            fail(f"{label}: the tokens part at request {i} position {j} "
+                 f"where the unsharded logits are {gap} apart (no "
+                 f"near-tie, tolerance {MESH_NEAR_TIE})")
+        return out
+    return None
+
+
+def mesh_serve(torch, label, model, prompts, new_engine, ref, kname,
+               quant):
+    """One sharded serve of ``prompts`` with every count (both ranks')
+    set to 0 just before: the checks of `drive_serve` (drain, vocabulary,
+    no retrace, one ragged compile, eager steps: no graph), ``kname``
+    launched num_layers x steps on every rank and the other kernel on
+    none, the tokens against the unsharded ragged serve's ``ref``
+    (`first_parting`), the first step's logits against the unsharded
+    step's, the step's collective bytes against the formula."""
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.parallel import partition
+    from paddle_tpu_torch.tools import serve_profile
+
+    cfg = model.cfg
+    mesh = new_engine()._mesh  # started outside the timing
+    print(f"{label}: backend {mesh.backend}, placement "
+          f"{[str(d) for d in mesh.devices]}, steps "
+          f"{'captured' if mesh.capturable else 'eager'} "
+          f"(rule: {mesh.describe()['rule']})", flush=True)
+    if torch.cuda.device_count() < mesh.mp and mesh.backend != "gloo":
+        fail(f"{label}: ranks share a card but the backend is "
+             f"{mesh.backend}")
+    serving.reset_decode_stats()
+    mesh_launches(mesh, reset=True)
+    eng, reqs, wall = serve_once(torch, new_engine, prompts,
+                                 capture=mesh.capturable)
+    ranks = mesh_launches(mesh)
+    st = eng.decode_stats()
+    pst = serving.decode_stats()
+    retraces = {k: v for k, v in pst.items()
+                if k.endswith("_retraces") or k == "retraces_after_warmup"}
+    if any(retraces.values()):
+        fail(f"{label}: a step retraced after warm-up: {retraces}")
+    want = compiles(ragged=1, kv_quant=int(bool(quant)))
+    got = {k: pst[k] for k in COMPILE_KEYS}
+    if got != want:
+        fail(f"{label}: compile counters {got} != {want}")
+    graphs = eng.graph_captures()
+    if graphs != (sum(want.values()) if mesh.capturable else 0):
+        fail(f"{label}: {graphs} graphs for {want}")
+    for r in reqs:
+        if r.finish_reason != "length" or \
+                len(r.generated_ids) != serve_profile.NEW_TOKENS or \
+                not all(0 <= t < cfg.vocab_size for t in r.generated_ids):
+            fail(f"{label} request {r.request_id}: {r.finish_reason} "
+                 f"after {len(r.generated_ids)} tokens")
+    if eng.pool.available_count != eng.pool.num_pages:
+        fail(f"{label}: pool did not drain")
+    other = "K1" if kname == "K2" else "K2"
+    want_n = cfg.num_layers * st["steps"]
+    for rank, n in ranks.items():
+        if n[kname] != want_n or n[other]:
+            fail(f"{label}: rank {rank} launched {kname} {n[kname]} times "
+                 f"and {other} {n[other]} (want {want_n} = "
+                 f"{cfg.num_layers} layers x {st['steps']} steps, and 0)")
+    tokens = [r.generated_ids for r in reqs]
+    parting = first_parting(torch, model, prompts, ref["tokens"], tokens,
+                            label)
+    prof = eng._cost.profile_for("ragged")
+    formula = partition.collective_bytes(
+        rows=eng._slots * eng._q_ragged, hidden=cfg.hidden_size,
+        layers=cfg.num_layers, mp=mesh.mp, kv_int8=eng._kv_quant)
+    if prof.collective_bytes != formula:
+        fail(f"{label}: collective bytes {prof.collective_bytes} != the "
+             f"formula's {formula}")
+    out = dict(
+        backend=mesh.backend, placement=[str(d) for d in mesh.devices],
+        captured=mesh.capturable, steps=st["steps"],
+        ragged_steps=st["ragged_steps"], new_tokens=st["tokens"],
+        wall_s=wall, tokens_per_s=st["tokens"] / wall,
+        host_ms_per_step=wall / st["steps"] * 1e3,
+        launches_by_rank=ranks, graphs=graphs,
+        tokens_equal_to_unsharded=parting is None,
+        token_share_with_unsharded=token_share(ref["tokens"], tokens),
+        first_parting=parting, collective_bytes_per_step=
+        prof.collective_bytes, collective_bytes_formula=formula,
+        interconnect_ceiling_bytes_per_s=eng._cost.peaks[
+            "ici_bytes_per_s"])
+    return eng, out
+
+
+def mesh_profile_pass(torch, new_engine, prompts, steps=8):
+    """torch.profiler over ``steps`` steps of a sharded serve past its
+    warm-up: the share of the steps' wall inside the mesh's all-reduces
+    (`Mesh.all_reduce`'s named range: with gloo, the host staging and
+    the reduce), and the device time of NCCL kernels."""
+    eng = new_engine()
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=16)
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the named range's host side (the profiler also keeps a device-side
+    # copy of each range, which would count every reduce twice)
+    host = [e for e in prof.key_averages() if e.key == "mesh.all_reduce"
+            and str(e.device_type).endswith("CPU")]
+    reduce_us = sum(e.cpu_time_total for e in host)
+    n_reduce = sum(e.count for e in host)
+    nccl_us = sum(getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0))
+                  for e in prof.key_averages() if "nccl" in e.key.lower())
+    return dict(steps=steps, wall_ms_per_step=wall / steps * 1e3,
+                all_reduces=n_reduce,
+                all_reduce_host_ms_per_step=reduce_us / 1e3 / steps,
+                all_reduce_share_of_step=reduce_us / 1e6 / wall,
+                nccl_device_ms_per_step=nccl_us / 1e3 / steps)
+
+
+def mesh_case(torch, label, spec, quant, kname, ref):
+    """One sharded configuration: `mesh_serve` against the unsharded
+    ragged serve ``ref``, the first step's logits against the unsharded
+    step's, and (f32) a profile pass and a probed serve's chip skew."""
+    from paddle_tpu_torch.tools import serve_profile
+
+    model, prompts, new_engine = serve_profile.gpt2_small_serve(
+        "cuda", ragged_step=True, **quant)
+
+    def sharded(**kw):
+        return new_engine(serve_mesh=spec, **kw)
+
+    eng, res = mesh_serve(torch, label, model, prompts, sharded, ref, kname,
+                          quant)
+    a = first_step_logits(torch, new_engine, prompts)
+    b = first_step_logits(torch, sharded, prompts)
+    err = float((a - b).abs().max())
+    tol = MESH_LOGIT_TOL_INT8 if quant else MESH_LOGIT_TOL
+    res.update(step_logits_max_abs_err=err, step_logits_tol=tol)
+    print(f"{label}: first step's logits against the unsharded step's: "
+          f"max abs err {err:.3e} (tolerance {tol})", flush=True)
+    if not err <= tol:
+        fail(f"{label}: step logits differ by {err}")
+    res["unsharded_captured_tokens_per_s_median"] = \
+        ref["tokens_per_s_median"]
+    res["unsharded_captured_host_ms_per_step"] = ref["host_ms_per_step"]
+    if "eager" in ref:
+        res["unsharded_eager_tokens_per_s_median"] = \
+            ref["eager"]["tokens_per_s_median"]
+        res["unsharded_eager_host_ms_per_step"] = \
+            ref["eager"]["host_ms_per_step"]
+    if not quant:
+        res["profile"] = mesh_profile_pass(torch, sharded, prompts)
+        skew_eng = sharded(profile=True, profile_sample_steps=1)
+        skew_eng.generate(prompts[:MESH_SKEW_REQUESTS], 16)
+        sk = skew_eng._profiling.statusz()["chip_skew_seconds"]
+        if not sk or sk["probes"] <= 0:
+            fail(f"{label}: no chip skew recorded on probed steps")
+        res["chip_skew_seconds"] = sk
+    print(f"{label}: " + json.dumps(res), flush=True)
+    res["tokens"] = None
+    return res
+
+
+def mesh_phase(torch, ragged):
+    """(a) mp=2 in f32 on K1 and (b) with int8 KV pages and weights on
+    K2 (`mesh_case`), on the backend the mesh's rule picks: gloo and
+    eager steps on one card, NCCL and captured steps where every rank
+    has a card (which is part (d)); (c) mp=1 on NCCL, captured: one
+    graph, its all-reduces recorded inside it, the unsharded captured
+    serve's tokens exactly; (d) also mp=4 f32 where the machine has four
+    cards.  A part the machine cannot run prints a skip line."""
+    from paddle_tpu_torch.tools import serve_profile
+
+    out = {}
+    n_dev = torch.cuda.device_count()
+    int8 = dict(kv_quant="int8", serve_weights="int8")
+    out["mp2_f32"] = mesh_case(torch, "mesh serve mp=2 f32", "mp=2", {},
+                               "K1", ragged["f32"])
+    out["mp2_int8"] = mesh_case(torch, "mesh serve mp=2 int8", "mp=2", int8,
+                                "K2", ragged["int8"])
+
+    # (c) mp=1 on NCCL, captured
+    model, prompts, new_engine = serve_profile.gpt2_small_serve(
+        "cuda", ragged_step=True)
+    label = "mesh serve mp=1 nccl"
+    mesh = new_engine(serve_mesh="mp=1")._mesh
+    if mesh.backend != "nccl" or not mesh.capturable:
+        fail(f"{label}: backend {mesh.backend}, want nccl, captured")
+    captured = [0]
+    real = mesh.all_reduce
+
+    def counted(t):
+        if torch.cuda.is_current_stream_capturing():
+            captured[0] += 1
+        return real(t)
+
+    mesh.all_reduce = counted
+    try:
+        eng, st, counts, res = drive_serve(
+            torch, lambda **kw: new_engine(serve_mesh="mp=1", **kw),
+            prompts, model.cfg, label, compiles(ragged=1))
+        profile = mesh_profile_pass(
+            torch, lambda **kw: new_engine(serve_mesh="mp=1", **kw),
+            prompts)
+    finally:
+        del mesh.all_reduce
+    want = 2 * model.cfg.num_layers
+    # one capture of the ragged step a serve: drive_serve's serves and
+    # the disarmed twin, then the profile pass's engine
+    serves = SERVE_RUNS + 2
+    if captured[0] != want * serves:
+        fail(f"{label}: {captured[0]} all-reduces recorded inside "
+             f"captures, want {want} a graph x {serves} engines")
+    if res["tokens"] != ragged["f32"]["tokens"]:
+        fail(f"{label}: tokens differ from the unsharded captured ragged "
+             f"serve's")
+    res.update(backend=mesh.backend, all_reduces_in_graph=want,
+               profile=profile, tokens_equal_to_unsharded=True)
+    print(f"{label}: captured, {res['graphs']} graph(s), {want} "
+          f"all-reduces inside each; " + printable(res), flush=True)
+    res["tokens"] = None
+    out["mp1_nccl"] = res
+
+    # (d) NCCL with a card a rank
+    for mp in (2, 4):
+        if n_dev < mp:
+            print(f"mesh serve mp={mp} nccl: skipped, {n_dev} card(s) on "
+                  f"this machine (NCCL needs a card a rank)", flush=True)
+        elif mp == 2:
+            print("mesh serve mp=2 nccl: parts (a) and (b) above ran on "
+                  "NCCL, captured", flush=True)
+        else:
+            out["mp4_f32"] = mesh_case(torch, "mesh serve mp=4 f32",
+                                       "mp=4", {}, "K1", ragged["f32"])
+    return out
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -2813,8 +3163,9 @@ def main(argv) -> int:
     import torch
 
     kernels_only = argv == ["--kernels"]
+    mesh_only = argv == ["--mesh"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
-    if argv and not kernels_only and not child:
+    if argv and not kernels_only and not mesh_only and not child:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -2837,7 +3188,8 @@ def main(argv) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    libs = _build.build_all(["paged_attention"] if kernels_only else None)
+    libs = _build.build_all(["paged_attention"]
+                            if kernels_only or mesh_only else None)
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
           f" in {build_s:.1f} s", flush=True)
@@ -2847,6 +3199,17 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_kernels.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if mesh_only:
+        res = dict(card=card, device_count=torch.cuda.device_count())
+        res["serve"], _ = serve_phase(torch)
+        res["serve_ragged"] = ragged_serve_phase(torch, res["serve"])
+        res["serve_mesh"] = mesh_phase(torch, res["serve_ragged"])
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_mesh.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -2900,19 +3263,29 @@ def main(argv) -> int:
     telemetry = telemetry_phase(torch, serve, serve_q["tokens"],
                                 ragged["f32"]["tokens"])
 
-    # 15. report
+    # 15. tensor-parallel serving
+    mesh = mesh_phase(torch, ragged)
+
+    # 16. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
                     ragged_serve=ragged["f32"]["launches_of_path"],
                     legacy_serve=legacy["f32"]["launches_of_path"],
                     **{f"spec_serve_{k}": v["launches_of_path"]
-                       for k, v in spec.items()})
+                       for k, v in spec.items()},
+                    **{f"mesh_serve_mp2_rank{r}": n["K1"] for r, n in
+                       mesh["mp2_f32"]["launches_by_rank"].items()},
+                    mesh_serve_mp1_nccl=mesh["mp1_nccl"]["launches"][
+                        "paged_attention"])
     k2_paths = dict(quantized_serve=launches_q,
                     quantized_ragged_serve=ragged["int8"][
                         "launches_of_path"],
                     quantized_legacy_serve=legacy["int8"][
-                        "launches_of_path"])
+                        "launches_of_path"],
+                    **{f"quantized_mesh_serve_mp2_rank{r}": n["K2"]
+                       for r, n in mesh["mp2_int8"][
+                           "launches_by_rank"].items()})
     for name, replaces, kcases, n, paths, library in (
             ("paged_attention", K1_REPLACES, cases, launches, k1_paths,
              "scaled_dot_product_attention on K/V gathered ahead of time "
@@ -2974,7 +3347,7 @@ def main(argv) -> int:
                   kernels=kernels, serve=serve,
                   serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
                   serve_legacy=legacy, serve_reliability=reliability,
-                  telemetry=telemetry,
+                  telemetry=telemetry, serve_mesh=mesh,
                   train=train, train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -1,7 +1,7 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Forty-two flags work here;
-four more keep their default only, because the code they switch on is
+The names and defaults are paddle_tpu's.  Forty-three flags work here;
+three more keep their default only, because the code they switch on is
 not ported yet (or, for ``compile_cache_dir``, has no counterpart) —
 setting one of those to anything else raises NotImplementedError naming
 the slice or the reason.  As in paddle_tpu,
@@ -84,11 +84,13 @@ _PORTED = {
     "profile_sample_steps": 64,
     "profile_dir": "",
     "metrics_report_interval_s": 0.0,
+    # "mp=N": tensor-parallel serving over N ranks (paddle_tpu_torch.
+    # parallel); "" serves unsharded
+    "serve_mesh": "",
 }
 
 # flag -> (default, the later slice that ports what it switches on)
 _LATER = {
-    "serve_mesh": ("", "tensor-parallel serving"),
     # "auto": kernels K3/K4 run for every call flash_attention_fwd sends
     # them; the TPU's sequence thresholds and forced modes do not carry over
     "use_pallas_attention": ("auto", "attention kernel policy"),

@@ -59,13 +59,11 @@ __all__ = ["RequestWire", "SnapshotWire", "DurabilityManager",
 
 def _engine_kwargs(cfg: dict) -> dict:
     """The port engine's keyword arguments from a journal's config
-    record (either package's); a mesh is refused."""
+    record (either package's): the same keys, a mesh spec included (a
+    sharded journal rebuilds a sharded engine)."""
     kw = dict(cfg)
-    mesh = kw.pop("serve_mesh", None)
-    if mesh:
-        raise NotImplementedError(
-            f"journal was written by a sharded engine (serve_mesh="
-            f"{mesh!r}): tensor-parallel serving is not ported yet")
+    if kw.get("serve_mesh") is None:
+        kw.pop("serve_mesh", None)
     return kw
 
 
@@ -545,19 +543,9 @@ class DurabilityManager:
             # own cache — don't pay the device fetch + fsync for bytes
             # that can never install
             return None
-        import torch
-
         items = sorted(eng.pool._page_hash.items())  # (page, hash)
-        ids = torch.as_tensor([p for p, _ in items], dtype=torch.int64,
-                              device=eng.device)
-
-        def fetch(t):
-            return t.index_select(2, ids).cpu().numpy()
-
-        arrays = {"k": fetch(eng._k_pages), "v": fetch(eng._v_pages)}
-        if eng._kv_quant:
-            arrays["ks"] = fetch(eng._k_scales)
-            arrays["vs"] = fetch(eng._v_scales)
+        # every head: a sharded engine gathers its workers' heads
+        arrays = eng._kv_gather([p for p, _ in items])
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         payload = buf.getvalue()
@@ -648,24 +636,16 @@ def _install_kv_sidecar(journal_dir: str, snap: SnapshotWire,
     n = min(len(hashes), eng.pool.free_count)
     if n == 0:
         return 0
-    import torch
-
     # raw pool allocs (not the engine's fresh-marking wrapper): the
     # installed pages carry LIVE scales that the between-steps scale
     # reset must not zero.  Written in place, before any step graph of
-    # the rebuilt engine exists.
+    # the rebuilt engine exists; a sharded engine scatters each rank
+    # its heads (the layout JAX re-pins at restore)
     ids = [eng.pool.alloc_page() for _ in range(n)]
-    idx = torch.as_tensor(ids, dtype=torch.int64, device=eng.device)
-
-    def put(dst, src):
-        dst.index_copy_(2, idx, torch.from_numpy(
-            np.ascontiguousarray(src[:, :, :n])).to(dst.device))
-
-    put(eng._k_pages, k)
-    put(eng._v_pages, v)
+    arrays = {"k": k[:, :, :n], "v": v[:, :, :n]}
     if eng._kv_quant:
-        put(eng._k_scales, data["ks"])
-        put(eng._v_scales, data["vs"])
+        arrays.update(ks=data["ks"][:, :, :n], vs=data["vs"][:, :, :n])
+    eng._kv_put(ids, arrays)
     installed = 0
     for pid, key in zip(ids, hashes[:n]):
         if eng.pool.register_page(pid, key):

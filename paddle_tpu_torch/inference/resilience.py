@@ -345,11 +345,16 @@ class ResilienceManager:
 
     def contain(self, err: Exception) -> bool:
         """Whether containment may take ``err``: a fault the plan
-        injected, or, with ``contain_foreign``, anything.  A taken one
-        is counted in ``contained``; the caller re-raises the rest."""
+        injected, or, with ``contain_foreign``, anything but a lost mesh
+        worker (`parallel.mesh.MeshError`: no retry brings a rank back).
+        A taken one is counted in ``contained``; the caller re-raises
+        the rest."""
+        from ..parallel.mesh import MeshError
+
         injected = isinstance(err, InjectedFault) or \
             getattr(err, "injected", False)
-        if not (injected or self.contain_foreign):
+        if not (injected or self.contain_foreign) or \
+                isinstance(err, MeshError):
             return False
         self.contained[(type(err).__name__, injected)] += 1
         return True

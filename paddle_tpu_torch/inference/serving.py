@@ -57,8 +57,18 @@ HBM ledger; the profiling plane (``profile``) brackets sampled
 dispatches with CUDA events; the alert engine (``alerts``) and the ops
 server (``FLAGS_ops_port``) read what the engine publishes between
 steps.  No hook reads a device tensor: they read the host mirrors
-(``_lens``, ``_prefill_pos``, ``_active``, the pool allocator).  The
-tensor-parallel mesh is a later slice.
+(``_lens``, ``_prefill_pos``, ``_active``, the pool allocator).
+
+Tensor-parallel serving (``serve_mesh="mp=N"``, `paddle_tpu_torch.parallel`):
+this process is the controller, rank 0 of N; the weights split by
+`parallel.partition.gpt_serving_rules` (qkv head-aligned) and the KV
+pools on their head axis.  The mesh implies the ragged step.  Each
+sharded step sends its host inputs to the workers (`_MeshStep`), and
+every rank runs `_forward_rows` over its heads, the row-split out and
+fc2 products ending in an all-reduce (the ``reduce`` hook, JAX's
+`_mesh_constrain`: absent off the mesh, where the steps are the
+unsharded ones).  The controller alone samples, from the replicated
+final LayerNorm and head.
 """
 from __future__ import annotations
 
@@ -265,16 +275,19 @@ class _StepGraph:
     armed, the first call of each signature (the eager call on the CPU,
     the warm-up before a capture on the card) is counted
     (`costmodel.count_executable`) and its profile key stamped as
-    ``cost_sig``; ``cost`` is ``(tensors, bytes_of)``: the bound tensors
-    the signature keys by besides the inputs, and a function of the host
-    inputs giving the profile's bytes."""
+    ``cost_sig``; ``cost`` is ``(tensors, bytes_of[, collective_of])``:
+    the bound tensors the signature keys by besides the inputs, and
+    functions of the host inputs giving the profile's bytes and its
+    collective bytes.  ``capture=False`` runs the step eagerly on the
+    card too (a step whose collectives cannot be captured)."""
 
     def __init__(self, fn, compile_key, device, memory, generator=None,
-                 site=None, cost=None):
+                 site=None, cost=None, capture=True):
         self.fn = fn
         self.site = site or compile_key
         self.cost_sig = None
         self._cost = cost
+        self._capture_ok = capture
         self.compile_key = compile_key
         self._retrace_key = compile_key.replace("_compiles", "_retraces")
         self._device = device
@@ -311,7 +324,8 @@ class _StepGraph:
             self._seen.add(sig)
             self._busy = True
         try:
-            if self._device.type != "cuda" or _CAPTURE_OFF[0]:
+            if self._device.type != "cuda" or _CAPTURE_OFF[0] or \
+                    not self._capture_ok:
                 def run():
                     return self.fn(*(torch.from_numpy(
                         np.ascontiguousarray(a)).to(self._device)
@@ -335,10 +349,11 @@ class _StepGraph:
         is armed (the first call of a signature)."""
         if not _costmodel.enabled():
             return run()
-        tensors, bytes_of = self._cost or ((), None)
+        tensors, bytes_of, *coll = self._cost or ((), None)
         key, out = _costmodel.count_executable(
             self.site, (*host, *tensors), run,
-            None if bytes_of is None else (lambda: bytes_of(host)))
+            None if bytes_of is None else (lambda: bytes_of(host)),
+            (lambda: coll[0](host)) if coll else None)
         if key is not None:
             self.cost_sig = key
         return out
@@ -384,6 +399,37 @@ class _StepGraph:
         _costmodel.note_temp_bytes(self.cost_sig, grown)
         mem.capture_s += time.perf_counter() - t0
         return cap, out
+
+
+class _MeshStep(_StepGraph):
+    """The `_StepGraph` of a sharded step on the controller: each call
+    first sends the workers the step's kind and host inputs
+    (`parallel.mesh.MeshShards.step`), then runs rank 0's shard, whose
+    all-reduces pair with theirs.  The mesh's lock holds other engines
+    of the mesh off for the whole call.  Eager on a mesh whose
+    collectives cannot be captured (gloo)."""
+
+    def __init__(self, fn, compile_key, device, memory, shards, kind,
+                 **kw):
+        super().__init__(fn, compile_key, device, memory,
+                         capture=shards.mesh.capturable, **kw)
+        self._shards = shards
+        self._kind = kind
+
+    def __call__(self, *host):
+        mesh = self._shards.mesh
+        with mesh.lock:
+            if not self._memory.abandoned:
+                self._shards.step(self._kind, host, bool(_CAPTURE_OFF[0]))
+            try:
+                return super().__call__(*host)
+            except BaseException as e:
+                # a half-run step leaves the workers in its collectives:
+                # the mesh can serve nothing more
+                if not (isinstance(e, StepFault) and
+                        self._memory.abandoned):
+                    mesh.broken = mesh.broken or f"a step raised: {e!r}"
+                raise
 
 
 # ---------------------------------------------------------------------------
@@ -854,14 +900,23 @@ def _sample(params, h, eps, generator, sampling):
     return _guard_tokens(logits, nxt)
 
 
-def _block_tail(x, blk, attn, eps):
+def _identity(t):
+    return t
+
+
+def _block_tail(x, blk, attn, eps, reduce=None):
     """Everything of a block after attention: out projection, residual,
-    LN2, tanh-GELU MLP, residual.  x, attn: [..., h]."""
+    LN2, tanh-GELU MLP, residual.  x: [..., h]; attn: [..., h] (a rank's
+    heads, [..., h / mp], on a mesh).  ``reduce`` (a mesh's all-reduce)
+    finishes the row-split out and fc2 products before their biases,
+    which add once; off the mesh it is absent and the ops are the
+    unsharded step's."""
+    red = reduce or _identity
     shape = x.shape
-    x = x + _wmm(attn, blk, "out_w") + blk["out_b"]
+    x = x + red(_wmm(attn, blk, "out_w")) + blk["out_b"]
     y = _ln(x.reshape(-1, shape[-1]), blk["ln2_w"], blk["ln2_b"], eps)
     y = F.gelu(_wmm(y, blk, "fc1_w") + blk["fc1_b"], approximate="tanh")
-    return x + (_wmm(y, blk, "fc2_w") + blk["fc2_b"]).reshape(shape)
+    return x + (red(_wmm(y, blk, "fc2_w")) + blk["fc2_b"]).reshape(shape)
 
 
 def _write_kv(k_pages, v_pages, k_scales, v_scales, li, rows, k, v):
@@ -935,7 +990,7 @@ def _gpt_decode_step(params, k_pages, v_pages, block_tables, seq_lens,
 
 def _forward_rows(params, k_pages, v_pages, block_tables, seq_lens, tokens,
                   write_caps, *, num_heads, head_dim, eps, k_scales=None,
-                  v_scales=None):
+                  v_scales=None, reduce=None):
     """The ragged body the mixed, ragged and verify steps share: row ``i``
     of slot ``b`` holds ``tokens[b, i]`` at position ``seq_lens[b] + i``;
     the K/V of rows ``i < write_caps[b]`` is written into the slot's pages
@@ -943,9 +998,13 @@ def _forward_rows(params, k_pages, v_pages, block_tables, seq_lens, tokens,
     write, which refolds each page a write touches once), and attention
     runs with per-sequence causal offsets ``q_offsets = seq_lens``.
     Rows past a slot's cap are computed and left to the caller to ignore.
+    On a mesh ``num_heads`` is a rank's heads, its weights and pools
+    hold those heads, and ``reduce`` sums the row-split products and the
+    refold count over the ranks (`_block_tail`).
     Returns ``(x [B, Q, h] before the final LayerNorm, refolds or None)``."""
     b, qn = tokens.shape
-    h = num_heads * head_dim
+    h = params["wte"].shape[1]
+    hl = num_heads * head_dim
     num_pages_total, page = k_pages.shape[2] - 1, k_pages.shape[3]
     offs = torch.arange(qn, dtype=torch.int64, device=tokens.device)
     pos = seq_lens.long()[:, None] + offs[None, :]
@@ -972,7 +1031,9 @@ def _forward_rows(params, k_pages, v_pages, block_tables, seq_lens, tokens,
         attn = pa.paged_attention(qkv[:, :, 0], k_pages[li],
                                   v_pages[li], block_tables, lens_now,
                                   q_offsets=seq_lens, **scales)
-        x = _block_tail(x, blk, attn.reshape(b, qn, h), eps)
+        x = _block_tail(x, blk, attn.reshape(b, qn, hl), eps, reduce)
+    if reduce is not None and refolds is not None:
+        refolds = reduce(refolds.reshape(1)).reshape(())
     return x, refolds
 
 
@@ -1007,7 +1068,8 @@ def _gpt_mixed_step(params, k_pages, v_pages, block_tables, seq_lens,
 @torch.no_grad()
 def _gpt_ragged_step(params, k_pages, v_pages, block_tables, seq_lens,
                      tokens, write_caps, generator, *, num_heads, head_dim,
-                     eps, sampling, k_scales=None, v_scales=None):
+                     eps, sampling, k_scales=None, v_scales=None,
+                     reduce=None):
     """The unified ragged step: score up to Q_r incoming tokens a slot in
     one pass — a decode row (cap 1), a prompt chunk (cap C) or a
     speculative verify window (cap K+1) — and draw a target token at
@@ -1020,35 +1082,26 @@ def _gpt_ragged_step(params, k_pages, v_pages, block_tables, seq_lens,
     the JAX package).  Returns [B, Q_r] int32 targets, and with int8
     pages [B+1, Q_r]: the refold count in column 0 of the last row.
     Every row pays the head's matmul, as in JAX; greedy targets are the
-    split path's tokens."""
+    split path's tokens.  ``reduce``: rank 0's shard of a sharded step
+    (`_forward_rows`)."""
     b, qn = tokens.shape
-    h = num_heads * head_dim
     x, refolds = _forward_rows(
         params, k_pages, v_pages, block_tables, seq_lens, tokens,
         write_caps, num_heads=num_heads, head_dim=head_dim, eps=eps,
-        k_scales=k_scales, v_scales=v_scales)
-    nxt = _sample(params, x.reshape(b * qn, h), eps, generator, sampling)
+        k_scales=k_scales, v_scales=v_scales, reduce=reduce)
+    nxt = _sample(params, x.reshape(b * qn, x.shape[-1]), eps, generator,
+                  sampling)
     return _pack(nxt.reshape(b, qn), refolds)
 
 
-@torch.no_grad()
-def _gpt_prefill(params, k_pages, v_pages, ids, true_len, bt_row, generator,
-                 *, num_heads, head_dim, eps, sampling, k_scales=None,
-                 v_scales=None):
-    """The legacy one-shot prompt pass for ONE request: causal attention
-    over the bucket-padded prompt in plain PyTorch (`_sdpa_reference`, as
-    JAX's `_gpt_prefill` attends with the XLA reference), every valid
-    row's K/V written into the request's pages (int8 pages through the
-    quantized write, `_gpt_prefill_q` of the JAX package), and the first
-    token sampled from the last valid row, picked on the device.
-
-    ids: [1, S_pad] int32; true_len: [1] int32, so one graph serves every
-    prompt of a bucket; bt_row: [pages_max] int32.  Rows at or past
-    ``true_len`` write into the drop page.  Returns [1] int32 (`NAN_TOKEN`
-    on non-finite logits), and with int8 pages [2]: the refold count
-    after the token."""
+def _prefill_rows(params, k_pages, v_pages, ids, true_len, bt_row, *,
+                  num_heads, head_dim, eps, k_scales=None, v_scales=None,
+                  reduce=None):
+    """The body of `_gpt_prefill`: the prompt's rows through every block,
+    their K/V written.  Returns ``(x [S_pad, h], refolds or None)``; on a
+    mesh as `_forward_rows`."""
     s_pad = ids.shape[1]
-    h = num_heads * head_dim
+    hl = num_heads * head_dim
     num_pages_total, page = k_pages.shape[2] - 1, k_pages.shape[3]
     pos = torch.arange(s_pad, dtype=torch.int64, device=ids.device)
     x = params["wte"][ids[0].long()] + params["wpe"][pos]
@@ -1071,10 +1124,40 @@ def _gpt_prefill(params, k_pages, v_pages, ids, true_len, bt_row, generator,
         refolds = r if refolds is None else refolds + r
         q, k, v = (qkv[:, i].transpose(0, 1)[None] for i in range(3))
         attn = _sdpa_reference(q, k, v, None, 0.0, None, True)[0]
-        x = _block_tail(x, blk, attn.transpose(0, 1).reshape(s_pad, h), eps)
+        x = _block_tail(x, blk, attn.transpose(0, 1).reshape(s_pad, hl),
+                        eps, reduce)
+    if reduce is not None and refolds is not None:
+        refolds = reduce(refolds.reshape(1)).reshape(())
+    return x, refolds
 
+
+@torch.no_grad()
+def _gpt_prefill(params, k_pages, v_pages, ids, true_len, bt_row, generator,
+                 *, num_heads, head_dim, eps, sampling, k_scales=None,
+                 v_scales=None, reduce=None):
+    """The legacy one-shot prompt pass for ONE request: causal attention
+    over the bucket-padded prompt in plain PyTorch (`_sdpa_reference`, as
+    JAX's `_gpt_prefill` attends with the XLA reference), every valid
+    row's K/V written into the request's pages (int8 pages through the
+    quantized write, `_gpt_prefill_q` of the JAX package), and the first
+    token sampled from the last valid row, picked on the device.
+
+    ids: [1, S_pad] int32; true_len: [1] int32, so one graph serves every
+    prompt of a bucket; bt_row: [pages_max] int32.  Rows at or past
+    ``true_len`` write into the drop page.  Returns [1] int32 (`NAN_TOKEN`
+    on non-finite logits), and with int8 pages [2]: the refold count
+    after the token."""
+    x, refolds = _prefill_rows(
+        params, k_pages, v_pages, ids, true_len, bt_row,
+        num_heads=num_heads, head_dim=head_dim, eps=eps, k_scales=k_scales,
+        v_scales=v_scales, reduce=reduce)
     last = x.index_select(0, (true_len - 1).long())       # [1, h]
     return _pack(_sample(params, last, eps, generator, sampling), refolds)
+
+
+# a worker's shard of each kind of sharded step (`parallel.mesh`): the
+# body alone, nothing sampled (rank 0 samples)
+_MESH_WORKER_STEPS = {"ragged": _forward_rows, "prefill": _prefill_rows}
 
 
 def _reset_kv_scales(k_scales, v_scales, fresh_idx):
@@ -1153,14 +1236,21 @@ class DecodeEngine:
     fill every argument left None.  ``_adopt`` (`resilience.recover`'s
     handoff) is a retired engine of this configuration whose weights,
     pools, generator and captured graphs this one takes over
-    (`_take_over`) instead of allocating its own."""
+    (`_take_over`) instead of allocating its own.
+
+    ``serve_mesh="mp=N"`` (or ``FLAGS_serve_mesh``; the argument wins)
+    serves tensor-parallel over N ranks (`paddle_tpu_torch.parallel`):
+    this process is rank 0, the mesh's workers hold the other shards, and
+    the engine serves through the ragged step.  ``""`` is the unsharded
+    engine, unchanged."""
 
     _next_engine_id = itertools.count()
     # what a step graph reads: `_take_over` moves them with the graphs
     _GRAPH_ATTRS = ("_decode_fn", "_mixed_fn", "_ragged_fn",
                     "_scale_reset_fn")
     _DEVICE_ATTRS = ("_params", "_k_pages", "_v_pages", "_k_scales",
-                     "_v_scales", "_generator", "_graph_memory")
+                     "_v_scales", "_generator", "_graph_memory",
+                     "_mesh_shards")
 
     def __init__(self, model, max_batch_size=4, max_seq_len=None,
                  page_size=None, num_pages=None, sampler="greedy",
@@ -1174,9 +1264,11 @@ class DecodeEngine:
                  step_timeout_ms=None, dtype=None, device=None,
                  flight_window=None, flight_dir=None, cost_model=None,
                  cost_calibration=None, alerts=None, profile=None,
-                 profile_sample_steps=None, _adopt=None):
+                 profile_sample_steps=None, serve_mesh=None, _adopt=None):
         self.device = resolve_device(device)
         cfg = model.cfg
+        self._mesh_shards = None
+        self._init_mesh(serve_mesh, cfg.num_heads, ragged_step)
         if _adopt is not None:
             if _adopt._abandoned or _adopt._k_pages is None:
                 raise ValueError(
@@ -1230,7 +1322,8 @@ class DecodeEngine:
         self._pages_per_seq = -(-self._max_seq_len // self._page)
         n_pages = int(num_pages or self._slots * self._pages_per_seq)
         self.pool = KVBlockPool(n_pages)
-        shape = _pool_shape(self._num_layers, self._num_heads, n_pages,
+        # a mesh rank's pools hold its heads of every page
+        shape = _pool_shape(self._num_layers, self._local_heads, n_pages,
                             self._page, self._head_dim)
         if self._kv_quant:
             kv_dtype = torch.int8
@@ -1288,6 +1381,8 @@ class DecodeEngine:
                 mats = _adopt._stats["weight_quant_mats"]
                 saved = _adopt._stats["weight_quant_bytes_saved"]
             self._add(weight_quant_mats=mats, weight_quant_bytes_saved=saved)
+        if self._mesh is not None and _adopt is None:
+            self._shard_onto_mesh()
 
         # the legacy one-shot prefill (chunked_prefill=False) stays the
         # chunked path's greedy oracle, as in JAX
@@ -1353,7 +1448,8 @@ class DecodeEngine:
                                             adaptive=bool(spec_adaptive_k))
         if ragged_step is None:
             ragged_step = bool(_flags.flag("ragged_step"))
-        self._ragged = bool(ragged_step)
+        # the mesh shards the ONE step a KV mode: it implies the ragged step
+        self._ragged = bool(ragged_step) or self._mesh is not None
         # the ragged grid's row width Q_r fits the widest span of any
         # phase: a decode row, a chunk (Q_max), a verify window (K+1).
         # Every step pays the whole grid, so an unpinned Q_max shrinks
@@ -1431,7 +1527,7 @@ class DecodeEngine:
             ragged_step=self._ragged,
             spec_adaptive_k=(self._spec.adaptive
                              if self._spec is not None else False),
-            device=self.device)
+            serve_mesh=self._serve_mesh, device=self.device)
         if _adopt is not None:
             if _adopt.config_fingerprint() != self.config_fingerprint():
                 raise ValueError(
@@ -1455,6 +1551,100 @@ class DecodeEngine:
 
         _opsserver.register_engine(self)
         _opsserver.maybe_start_ops_server()
+
+    def _init_mesh(self, serve_mesh, num_heads: int, ragged_step):
+        """Resolve ``serve_mesh`` (the argument, else its flag) and check
+        it as JAX does: a malformed spec, an axis other than ``mp``, more
+        ranks than the host has places for, heads that do not divide, or
+        an explicit ``ragged_step=False`` raise ValueError.  Builds (or
+        reuses) the process's mesh; the weights shard later
+        (`_shard_onto_mesh`), after any int8 fold."""
+        if serve_mesh is None:
+            serve_mesh = str(_flags.flag("serve_mesh"))
+        self._serve_mesh = str(serve_mesh or "").strip()
+        self._mesh = None
+        self._mesh_mp = 1
+        self._local_heads = num_heads
+        if not self._serve_mesh:
+            return
+        from ..parallel.mesh import rank_capacity
+        from ..parallel.partition import build_mesh, parse_mesh_spec
+
+        axes = parse_mesh_spec(self._serve_mesh)
+        if [a for a, _ in axes] != ["mp"]:
+            raise ValueError(
+                f"serve_mesh supports a single tensor-parallel axis "
+                f"'mp=N', got {self._serve_mesh!r}")
+        mp = axes[0][1]
+        have = rank_capacity()
+        if have < mp:
+            raise ValueError(
+                f"serve_mesh {self._serve_mesh!r} needs {mp} devices, "
+                f"have {have}")
+        if num_heads % mp:
+            raise ValueError(
+                f"serve_mesh {self._serve_mesh!r}: num_heads {num_heads} "
+                f"not divisible by mp={mp}")
+        if ragged_step is not None and not ragged_step:
+            raise ValueError(
+                "serve_mesh requires the unified ragged step (the mesh "
+                "shards the ONE step a KV mode): drop ragged_step=0, or "
+                "the mesh")
+        self._mesh = build_mesh(self._serve_mesh, self.device)
+        self._mesh_mp = mp
+        self._local_heads = num_heads // mp
+
+    def _shard_onto_mesh(self):
+        """Cut the weights by `gpt_serving_rules`: this rank keeps shard
+        0, each worker gets its own with the pools' geometry
+        (`parallel.mesh.Mesh.open`)."""
+        from ..parallel.partition import (gpt_serving_rules,
+                                          match_partition_rules,
+                                          shard_params)
+
+        specs = match_partition_rules(gpt_serving_rules(), self._params)
+        shards = shard_params(self._params, specs, self._mesh_mp)
+        self._params = shards[0]
+        cfg = dict(layers=self._num_layers, heads=self._local_heads,
+                   pages=self.pool.num_pages, page=self._page,
+                   head_dim=self._head_dim, eps=self._eps,
+                   kv_dtype=_dtype_name(self._k_pages.dtype),
+                   kv_quant=self._kv_quant)
+        host = [_tree_to(sh, torch.device("cpu")) for sh in shards[1:]]
+        self._mesh_shards = self._mesh.open(host, cfg)
+
+    def _kv_gather(self, ids) -> Dict[str, np.ndarray]:
+        """Pages ``ids`` of the KV pools (and int8 scales) on the host,
+        every head: on a mesh the workers' heads join rank 0's."""
+        idx = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
+                              device=self.device)
+        out = {"k": self._k_pages.index_select(2, idx).cpu().numpy(),
+               "v": self._v_pages.index_select(2, idx).cpu().numpy()}
+        if self._kv_quant:
+            out["ks"] = self._k_scales.index_select(2, idx).cpu().numpy()
+            out["vs"] = self._v_scales.index_select(2, idx).cpu().numpy()
+        if self._mesh_shards is not None:
+            parts = self._mesh_shards.gather(np.asarray(ids))
+            out = {k: np.concatenate([v] + [p[k] for p in parts], axis=1)
+                   for k, v in out.items()}
+        return out
+
+    def _kv_put(self, ids, arrays: Dict[str, np.ndarray]):
+        """Write every head of pages ``ids`` (`_kv_gather`'s layout): on
+        a mesh each rank its own heads."""
+        n = self._local_heads
+        if self._mesh_shards is not None:
+            self._mesh_shards.put(np.asarray(ids), [
+                {k: v[:, r * n:(r + 1) * n] for k, v in arrays.items()}
+                for r in range(1, self._mesh_mp)])
+        idx = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
+                              device=self.device)
+        for name, dst in (("k", self._k_pages), ("v", self._v_pages),
+                          ("ks", self._k_scales), ("vs", self._v_scales)):
+            if dst is not None and name in arrays:
+                dst.index_copy_(2, idx, torch.from_numpy(
+                    np.ascontiguousarray(arrays[name][:, :n])).to(
+                        self.device))
 
     def _init_telemetry(self, flight_window, flight_dir, cost_model,
                         cost_calibration, alerts, profile,
@@ -1575,6 +1765,10 @@ class DecodeEngine:
                 self._chunked_cfg)).encode())
             if self._ragged:
                 h.update(str(("ragged", self._q_ragged)).encode())
+            if self._mesh is not None:
+                # folded only when armed, as JAX does: an unsharded
+                # engine's digest is the one it always had
+                h.update(str(("mesh", self._serve_mesh)).encode())
             if self._weight_quant:
                 h.update(str(("serve_weights", "int8")).encode())
             self._config_fp = h.digest()
@@ -1654,6 +1848,8 @@ class DecodeEngine:
                   self._v_scales):
             if t is not None:
                 t.zero_()
+        if self._mesh_shards is not None:
+            self._mesh_shards.zero()
         donor._release_device_state()
         if n:
             _stats_add(exec_handoffs=n)
@@ -1669,6 +1865,7 @@ class DecodeEngine:
         self._k_pages = self._v_pages = None
         self._k_scales = self._v_scales = None
         self._params = None
+        self._mesh_shards = None  # the workers free this engine's shards
         if self._spec is not None:
             self._spec._verify_fn = None
 
@@ -1788,6 +1985,9 @@ class DecodeEngine:
         if prof is None:
             return fn(*host)
         p = prof.probe_begin(kind, _obs.now_ns())
+        if self._mesh_shards is not None:
+            # the workers stamp a probed step's end (the chip skew)
+            self._mesh_shards.probe = p is not None
         out = fn(*host)
         prof.probe_end(p)
         return out
@@ -1816,6 +2016,7 @@ class DecodeEngine:
         generator and sampling (or a draft model's ``params`` and
         ``pools``).  Its cost profile's bytes are the analytical GPT
         stream at the call's rows, query width and mean KV length."""
+        own = params is None and pools is None
         params = self._params if params is None else params
         kp, vp, kw = (self._k_pages, self._v_pages, self._step_kwargs()) \
             if pools is None else pools
@@ -1838,11 +2039,30 @@ class DecodeEngine:
                 batch=batch, q=q, kv_len=max(kv_len, 1),
                 **dims)["bytes_accessed"]
 
-        return _StepGraph(lambda *inputs: step(params, kp, vp, *inputs, gen,
-                                               **kw),
-                          compile_key, self.device, self._graph_memory,
-                          gen if sampled else None, site=site,
-                          cost=((params, kp, vp), bytes_of))
+        def fn(*inputs):
+            return step(params, kp, vp, *inputs, gen, **kw)
+
+        if self._mesh is None or not own:
+            return _StepGraph(fn, compile_key, self.device,
+                              self._graph_memory, gen if sampled else None,
+                              site=site, cost=((params, kp, vp), bytes_of))
+        # rank 0 of a sharded step: the ragged step, or a legacy prefill
+        kind = {"ragged_compiles": "ragged",
+                "prefill_compiles": "prefill"}[compile_key]
+        from ..parallel.partition import collective_bytes
+
+        def collective_of(host):
+            rows = host[0].size if kind == "prefill" else host[2].size
+            return collective_bytes(
+                rows=rows, hidden=dims["hidden"], layers=dims["layers"],
+                mp=self._mesh_mp, dtype_bytes=params["wte"].element_size(),
+                kv_int8=self._kv_quant)
+
+        return _MeshStep(fn, compile_key, self.device, self._graph_memory,
+                         self._mesh_shards, kind,
+                         generator=gen if sampled else None, site=site,
+                         cost=((params, kp, vp, self._serve_mesh), bytes_of,
+                               collective_of))
 
     def _decode_tracker(self) -> _StepGraph:
         if self._decode_fn is None:
@@ -1984,8 +2204,9 @@ class DecodeEngine:
                     self._spec.adaptive if self._spec is not None
                     else False),
                 "ragged_step": bool(self._ragged),
-                "serve_mesh": "",
-                "mesh_devices": 1,
+                "serve_mesh": self._serve_mesh,
+                "mesh_devices": self._mesh_mp if self._mesh is not None
+                else 1,
                 "sampling": dict(self._sampling),
             },
             "queue": [_req(r) for r in self._snapshot_queue()],
@@ -2029,6 +2250,9 @@ class DecodeEngine:
             # measured device time / MFU drift, hot-op tables — the
             # same dict the /profilez endpoint serves
             out["profiling"] = self._profiling.statusz()
+        if self._mesh is not None:
+            # the mesh's backend, placement and the rule that chose them
+            out["mesh"] = self._mesh.describe()
         return out
 
     def statusz_text(self, flight_records: int = 4) -> str:
@@ -2715,10 +2939,12 @@ class DecodeEngine:
 
     # -- steps ----------------------------------------------------------------
     def _step_kwargs(self):
-        kw = dict(num_heads=self._num_heads, head_dim=self._head_dim,
+        kw = dict(num_heads=self._local_heads, head_dim=self._head_dim,
                   eps=self._eps, sampling=self._sampling)
         if self._kv_quant:
             kw.update(k_scales=self._k_scales, v_scales=self._v_scales)
+        if self._mesh is not None:
+            kw.update(reduce=self._mesh.all_reduce)
         return kw
 
     def _scale_reset_tracker(self) -> _StepGraph:
@@ -2740,6 +2966,9 @@ class DecodeEngine:
         self._fresh_pages = []
         buf = np.full(self.pool.num_pages, self.pool.num_pages, np.int64)
         buf[:len(ids)] = ids
+        if self._mesh_shards is not None:
+            # the workers reset their heads with the next sharded step
+            self._mesh_shards.fresh.append(buf)
         with self._phase("cache"):
             self._scale_reset_tracker()(buf)
             if self._spec is not None and \
@@ -2760,6 +2989,8 @@ class DecodeEngine:
             t0 = time.perf_counter()
             out = out.cpu().numpy()
             fr.add_phase("fetch", time.perf_counter() - t0)
+        if self._mesh_shards is not None:
+            self._mesh_shards.stamp()
         if self._kv_quant:
             n = int(out[-1].flat[0])
             if n:

@@ -73,14 +73,14 @@ paddle_executable_device_seconds               gauge      fn
 paddle_host_overhead_ratio                     gauge      engine
 paddle_phase_mfu_measured                      gauge      phase
 paddle_mfu_drift                               gauge      phase
+paddle_collective_bytes                        gauge      fn
+paddle_chip_skew_seconds                       gauge      engine
 paddle_trace_spans_dropped_total               counter    —
 =============================================  =========  ==========
 
 plus the view ``paddle_decode_*`` (every `decode_stats` key).  The JAX
-package's interconnect series (``paddle_collective_bytes``,
-``paddle_chip_skew_seconds``), its fleet series (``paddle_fleet_*``)
-and its ``paddle_dispatch_*`` view wait for the mesh, fleet and eager
-slices.
+package's fleet series (``paddle_fleet_*``) and its ``paddle_dispatch_*``
+view wait for the fleet and eager slices.
 """
 from __future__ import annotations
 
@@ -474,6 +474,26 @@ MFU_DRIFT = gauge(
     "no longer describe what the device actually does (a regime "
     "change relearns in tens of probes; the fire marks the change)",
     labels=("phase",))
+COLLECTIVE_BYTES = gauge(
+    "paddle_collective_bytes",
+    "Interconnect bytes ONE invocation of a sharded step moves through "
+    "collectives (FLAGS_serve_mesh: two all-reduces a block of the "
+    "step's [rows, hidden] activations, and the int8 refold count; "
+    "counted from the step's shapes by parallel.partition."
+    "collective_bytes at its first call, by _StepGraph site) — the "
+    "numerator of the cost observatory's interconnect roofline term "
+    "(FLAGS_peak_ici_gbps).  An unsharded engine never emits this "
+    "series",
+    labels=("fn",))
+CHIP_SKEW = gauge(
+    "paddle_chip_skew_seconds",
+    "Per-rank completion skew of the most recent probed sharded step "
+    "(observability.profiling under FLAGS_serve_mesh: each rank stamps "
+    "the host's monotonic clock when its step's output is complete, "
+    "and the skew is max minus min) — sustained skew means one rank is "
+    "the straggler every step and the mesh runs at its pace.  Absent "
+    "on unsharded engines",
+    labels=("engine",))
 TRACE_SPANS_DROPPED = counter(
     "paddle_trace_spans_dropped_total",
     "Spans the tracing buffer (observability.tracing) refused past "

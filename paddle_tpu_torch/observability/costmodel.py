@@ -39,9 +39,16 @@ not imported).
 
 * **Roofline accounting** — per-phase ``paddle_phase_mfu{phase}`` and
   ``paddle_phase_hbm_util{phase}`` against the peaks of `resolve_peaks`
-  (``FLAGS_peak_flops`` / ``FLAGS_peak_hbm_gbps``, else the device
-  table: the H100 at its datasheet dense bf16 rate, and the JAX
-  package's pinned CPU values).  A device phase's time is its dispatch
+  (``FLAGS_peak_flops`` / ``FLAGS_peak_hbm_gbps`` / ``FLAGS_peak_ici_gbps``,
+  else the device table: the H100 at its datasheet dense bf16 rate, HBM
+  rate and NVLink 4 rate a direction, and the JAX package's pinned CPU
+  values).  A sharded step's profile (``serve_mesh``) carries its
+  ``collective_bytes`` (`parallel.partition.collective_bytes`, counted
+  from the step's shapes where JAX reads its HLO), published as
+  ``paddle_collective_bytes{fn}`` and added to the roofline time over
+  the interconnect rate.  On a one-card mesh the ranks' gloo all-reduces
+  go through host memory, not NVLink: there the term is a ceiling the
+  run never reaches.  A device phase's time is its dispatch
   wall plus the step's ``fetch`` wall: a CUDA graph replay returns
   before the device finishes, and the token fetch is where the host
   waits for it.
@@ -96,10 +103,12 @@ _CPU_PEAK_FLOPS = 5.0e10   # 50 GFLOP/s
 _CPU_PEAK_BYTES = 2.0e10   # 20 GB/s
 _CPU_PEAK_ICI = 1.0e10     # 10 GB/s
 
-# device-name substring -> (peak FLOP/s dense bf16, peak HBM bytes/s),
-# datasheet numbers; the flags override for anything unlisted
+# device-name substring -> (peak FLOP/s dense bf16, peak HBM bytes/s,
+# peak interconnect bytes/s a direction), datasheet numbers (the H100
+# SXM: NVLink 4, 900 GB/s bidirectional); the flags override for
+# anything unlisted
 _DEVICE_PEAKS = (
-    ("h100", 989e12, 3.35e12),
+    ("h100", 989e12, 3.35e12, 450e9),
 )
 
 # top-K rows kept per executable's hot-op table
@@ -128,31 +137,31 @@ def enabled() -> bool:
 
 def resolve_peaks(device=None) -> Dict[str, float]:
     """The roofline ceilings: ``FLAGS_peak_flops`` / ``FLAGS_peak_hbm_gbps``
-    when positive, else by ``device``'s name from the table above (a
-    CPU device, or an unlisted card, pins the CPU test values).  Reads
-    the card's name once, at engine construction."""
+    / ``FLAGS_peak_ici_gbps`` when positive, else by ``device``'s name
+    from the table above (a CPU device, or an unlisted card, pins the
+    CPU test values).  Reads the card's name once, at engine
+    construction."""
     from ..core import flags as _flags
 
     flops = float(_flags.flag("peak_flops"))
     gbps = float(_flags.flag("peak_hbm_gbps"))
     ici = float(_flags.flag("peak_ici_gbps"))
-    ici_bps = ici * 1e9 if ici > 0 else _CPU_PEAK_ICI
-    if flops > 0 and gbps > 0:
-        return {"flops": flops, "bytes_per_s": gbps * 1e9,
-                "ici_bytes_per_s": ici_bps, "source": "flags"}
     kind = ""
     if device is not None and getattr(device, "type", "") == "cuda":
         import torch
 
         kind = torch.cuda.get_device_name(device).lower()
-    det_f, det_b, source = _CPU_PEAK_FLOPS, _CPU_PEAK_BYTES, "cpu-pinned"
-    for sub, pf, pb in _DEVICE_PEAKS:
+    det_f, det_b, det_i, source = _CPU_PEAK_FLOPS, _CPU_PEAK_BYTES, \
+        _CPU_PEAK_ICI, "cpu-pinned"
+    for sub, pf, pb, pi in _DEVICE_PEAKS:
         if sub in kind:
-            det_f, det_b, source = pf, pb, f"autodetect:{kind}"
+            det_f, det_b, det_i, source = pf, pb, pi, f"autodetect:{kind}"
             break
+    if flops > 0 and gbps > 0:
+        source = "flags"
     return {"flops": flops if flops > 0 else det_f,
             "bytes_per_s": gbps * 1e9 if gbps > 0 else det_b,
-            "ici_bytes_per_s": ici_bps,
+            "ici_bytes_per_s": ici * 1e9 if ici > 0 else det_i,
             "source": source}
 
 
@@ -362,11 +371,13 @@ def active_tally():
     return _ACTIVE[0]
 
 
-def count_executable(site: str, sig_args, run, bytes_of=None):
+def count_executable(site: str, sig_args, run, bytes_of=None,
+                     collective_of=None):
     """`_StepGraph` chokepoint hook, at the first call of a step
     signature while the observatory is armed: ``run()`` is that call's
     eager step, run once under the op tally.  Stores the profile
-    (FLOPs counted, bytes from ``bytes_of()`` when given) under
+    (FLOPs counted, bytes from ``bytes_of()`` when given, collective
+    bytes from ``collective_of()`` on a sharded step) under
     `profile_signature` and returns ``(key, run's result)``.  A
     signature already profiled runs uncounted.  Counting never changes
     what ``run`` computes, and a counting failure leaves no profile
@@ -392,11 +403,17 @@ def count_executable(site: str, sig_args, run, bytes_of=None):
             site=site, flops=tally.flops,
             bytes_accessed=float(bytes_of()) if bytes_of is not None
             else tally.bytes,
-            source="counted", hot_ops=tally.table())
+            source="counted", hot_ops=tally.table(),
+            collective_bytes=float(collective_of())
+            if collective_of is not None else 0.0)
     except Exception:
         return None, out
     with _lock:
         _PROFILES[key] = prof
+    if prof.collective_bytes > 0:
+        from . import COLLECTIVE_BYTES
+
+        COLLECTIVE_BYTES.set(prof.collective_bytes, fn=site)
     from ..inference.serving import _stats_add
 
     _stats_add(cost_profiles=1)

@@ -19,6 +19,13 @@ paddle_tpu/observability/profiling.py, copied and adapted, not imported).
   watches.  On an engine the caller put on the CPU, the probe is the
   host clock around the (synchronous) eager step, and `statusz` says
   so (``clock: "host"``); on the card it is never the host clock.
+  On a sharded engine (``serve_mesh``) each probed step also yields the
+  chip skew, JAX's `_block_and_skew` counterpart: every rank stamps the
+  host's monotonic clock (one clock for every process of the host) when
+  its step's output is complete — rank 0 after its token fetch, each
+  worker after syncing its stream — and the skew is max minus min:
+  ``paddle_chip_skew_seconds{engine}`` and `/profilez`'s
+  ``chip_skew_seconds``.
 
 * **Hot ops** — the cost observatory's dispatch-mode tally
   (observability.costmodel) keeps each step signature's top-K per-op
@@ -152,6 +159,9 @@ class Profiler:
             self._mfu: Dict[str, float] = {}
             self._dev_calib: Dict[str, float] = {}
             self._drift: Dict[str, float] = {}
+            # per-rank completion skew of probed sharded steps; None
+            # until the first one
+            self._skew: Optional[dict] = None
             _PROFILERS[int(engine._engine_id)] = weakref.ref(self)
         self._torch_prof = None
         self._trace_path: Optional[str] = None
@@ -296,9 +306,13 @@ class Profiler:
         record seals: read the probes, stamp them onto the open record,
         retire one captured step, and refresh the device-time table."""
         probed, self._probe_now = self._probe_now, False
+        skew = None
         if probed and self._open:
             p0 = time.perf_counter()
             self._resolve()
+            shards = self.engine._mesh_shards
+            if shards is not None and shards.probes_sent:
+                skew = max(shards.skews())
             self.probe_seconds += time.perf_counter() - p0
         probe, self._probe = self._probe, None
         if self._capture_remaining > 0:
@@ -322,13 +336,25 @@ class Profiler:
                 e["last_s"] = v
                 e["total_s"] += v
                 e["probes"] += 1
+            if skew is not None:
+                if self._skew is None:
+                    self._skew = {"last_s": 0.0, "max_s": 0.0,
+                                  "total_s": 0.0, "probes": 0}
+                self._skew["last_s"] = skew
+                self._skew["max_s"] = max(self._skew["max_s"], skew)
+                self._skew["total_s"] += skew
+                self._skew["probes"] += 1
         if fr is not None:
-            fr.note_probe({"device": {k: round(v, 9)
-                                      for k, v in probe.items()}})
+            pr = {"device": {k: round(v, 9) for k, v in probe.items()}}
+            if skew is not None:
+                pr["chip_skew_s"] = round(skew, 9)
+            fr.note_probe(pr)
         if _state["enabled"] and not self.engine._abandoned:
             obs = _obs()
             for k, v in probe.items():
                 obs.EXEC_DEVICE_SECONDS.set(v, fn=k)
+            if skew is not None:
+                obs.CHIP_SKEW.set(skew, engine=self.engine._engine_id)
 
     def observe(self, rec: dict) -> None:
         """Score the sealed record's probe against its wall: host
@@ -408,6 +434,13 @@ class Profiler:
             mfu = dict(self._mfu)
             drift = dict(self._drift)
             dev_calib = dict(self._dev_calib)
+            skew = None
+            if self._skew is not None:
+                skew = {"last_s": self._skew["last_s"],
+                        "max_s": self._skew["max_s"],
+                        "mean_s": self._skew["total_s"]
+                        / max(self._skew["probes"], 1),
+                        "probes": self._skew["probes"]}
         hot = {}
         for t in self.engine._trackers():
             rows = hot_op_table(t)
@@ -422,7 +455,7 @@ class Profiler:
             "probe_seconds": round(self.probe_seconds, 9),
             "capture": self.capture_status(),
             "device_seconds": self.device_table(),
-            "chip_skew_seconds": None,
+            "chip_skew_seconds": skew,
             "host_overhead_ratio": host_ratio,
             "mfu_measured": mfu,
             "device_calibration": dev_calib,

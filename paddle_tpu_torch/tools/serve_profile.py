@@ -3,7 +3,7 @@
     python -m paddle_tpu_torch.tools.serve_profile
         [--kv-quant int8] [--serve-weights int8] [--ragged] [--legacy]
         [--spec-k K [--drafter prompt_lookup|draft_model|self]]
-        [--eager] [--runs N] [--no-profile]
+        [--eager] [--runs N] [--no-profile] [--serve-mesh mp=N]
         [--out chiprun_out/serve_profile.json]
 
 Serves the workload of ``chip_smoke.py``'s serve phase
@@ -14,7 +14,8 @@ the switches, default off; every step through the unified ragged step with
 ``--ragged``; speculative decoding of K tokens a round with ``--spec-k``,
 drafted by prompt lookup, by a ``draft_config()`` model with random
 weights from seed 1, or by GPT-2-small itself; the legacy one-shot prefill
-with ``--legacy``) twice: once plain, for the wall time, and once under
+with ``--legacy``; tensor-parallel over N ranks with ``--serve-mesh mp=N``,
+which implies the ragged step) twice: once plain, for the wall time, and once under
 ``torch.profiler`` for the breakdown (``--runs N``: the plain serve N
 times, each on a fresh engine, with every run's tokens/s and host seconds
 a step; ``--no-profile``: no profiled serve). The steps run as the engine
@@ -134,13 +135,22 @@ def main(argv=None) -> dict:
                     choices=("prompt_lookup", "draft_model", "self"))
     ap.add_argument("--runs", type=int, default=1)
     ap.add_argument("--no-profile", action="store_true")
+    ap.add_argument("--serve-mesh", default="",
+                    help="'mp=N': serve tensor-parallel over N ranks")
     ap.add_argument("--out", default="chiprun_out/serve_profile.json")
     args = ap.parse_args(argv)
 
     with disable_capture() if args.eager else contextlib.nullcontext():
         _, prompts, new_engine = gpt2_small_serve(
-            default_device(), args.kv_quant, args.serve_weights, args.ragged,
-            args.spec_k, args.drafter, not args.legacy)
+            default_device(), args.kv_quant, args.serve_weights,
+            args.ragged or bool(args.serve_mesh), args.spec_k, args.drafter,
+            not args.legacy)
+        if args.serve_mesh:
+            unsharded = new_engine
+
+            def new_engine(**kw):
+                return unsharded(serve_mesh=args.serve_mesh, **kw)
+
         walls = [_serve(new_engine, prompts) for _ in range(args.runs)]
         wall_plain, st = walls[0]
         profiled = {}
@@ -157,7 +167,8 @@ def main(argv=None) -> dict:
     result = dict(
         device=torch.cuda.get_device_name(0), card=card_line(),
         kv_quant=args.kv_quant, serve_weights=args.serve_weights,
-        ragged_step=args.ragged, spec_decode_k=args.spec_k,
+        ragged_step=args.ragged or bool(args.serve_mesh),
+        serve_mesh=args.serve_mesh, spec_decode_k=args.spec_k,
         drafter=args.drafter if args.spec_k else None,
         chunked_prefill=not args.legacy, captured=not args.eager,
         requests=len(prompts), new_tokens=st["tokens"],

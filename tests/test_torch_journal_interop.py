@@ -3,12 +3,10 @@ snapshot and KV sidecar that one package's engine writes are read by the
 other's readers into equal records, and the other package's
 `restore_from_dir` finishes the serve with the writer's greedy tokens.
 
-The config record is the one place the files differ: the JAX engine
-also journals its telemetry plane's constructor keys (flight recorder,
-cost model, profiling, alerts, mesh), which the port drops at restore
-(`durability._engine_kwargs`); every key the port writes, the JAX engine
-takes.  The fingerprints are equal (`DecodeEngine.config_fingerprint`),
-so each package validates the other's journal.
+The config records carry the same keys (the telemetry plane's and the
+mesh's included), and every key either package writes, the other takes.
+The fingerprints are equal (`DecodeEngine.config_fingerprint`), so each
+package validates the other's journal.
 """
 import os
 
@@ -21,9 +19,9 @@ KW = dict(max_batch_size=2, max_seq_len=96, page_size=4)
 PROMPTS = [[1, 2, 3, 4, 5, 1, 2, 3, 4, 5, 1, 2],
            [7, 8, 9, 7, 8, 9, 7, 8]]
 NEW = 16
-# the JAX engine's constructor key for its mesh (the telemetry plane's
-# keys are the port's too)
-JAX_ONLY_CFG = {"serve_mesh"}
+# config keys only the JAX engine journals: none since the port serves
+# the mesh (``serve_mesh``) and the telemetry plane
+JAX_ONLY_CFG = set()
 
 
 def _sides():
@@ -130,14 +128,20 @@ def test_records_and_config_equal_across_packages(tmp_path):
 
 
 def test_port_restore_refuses_a_sharded_journal(tmp_path):
+    """A sharded journal is restored, not refused: its config record
+    keeps ``serve_mesh`` (`durability._engine_kwargs`; a None spec is
+    dropped), the port rebuilds a sharded engine, and it finishes the
+    serve with the unsharded engine's greedy tokens, each streamed
+    once."""
     jx, pt = _sides()
     d = str(tmp_path / "j")
-    eng = pt.engine(journal_dir=d)
-    eng.add_request(PROMPTS[0], max_new_tokens=4)
-    eng.step()
-    eng._durability.flush()
-    cfg = dict(eng.wire_config(), serve_mesh="mp=2")
-    with pytest.raises(NotImplementedError, match="serve_mesh"):
-        pt.D._engine_kwargs(cfg)
-    assert pt.D._engine_kwargs(dict(cfg, serve_mesh=None, cost_model=True,
-                                    flight_window=64)) == eng.wire_config()
+    _, streamed, ref = _dead_serve(pt, d, serve_mesh="mp=2")
+    assert ref == pt.engine(ragged_step=True).generate(
+        PROMPTS, max_new_tokens=NEW)
+    cfg = pt.D.read_journal(os.path.join(d, "journal.wal"))[0][0]["cfg"]
+    assert pt.D._engine_kwargs(cfg) == cfg and cfg["serve_mesh"] == "mp=2"
+    assert "serve_mesh" not in pt.D._engine_kwargs(dict(cfg,
+                                                        serve_mesh=None))
+    toks, logs, eng = _finish(pt, d, streamed, device="cpu")
+    assert eng._mesh_mp == 2 and eng._k_pages.shape[1] == 2
+    assert toks == logs == ref

@@ -15,10 +15,9 @@ from paddle_tpu_torch.observability import metrics as TM
 from torch_telemetry_common import (engines, models, prompts,
                                     reset_both)
 
-# JAX catalog series that belong to later slices of the port: the mesh
-# (interconnect bytes, chip skew) and the fleet router
+# JAX catalog series that belong to a later slice of the port: the fleet
+# router
 LATER_SERIES = {
-    "paddle_collective_bytes", "paddle_chip_skew_seconds",
     "paddle_fleet_replicas_ready", "paddle_fleet_affinity_hits_total",
     "paddle_fleet_affinity_misses_total", "paddle_fleet_failovers_total",
     "paddle_fleet_failover_seconds", "paddle_fleet_poll_rtt_seconds",
@@ -129,13 +128,34 @@ def test_export_chrome_trace(tmp_path):
     assert json.loads(path.read_text()) == data
 
 
+def _moved(before, after, name):
+    """What one serve added to a counter or histogram: label set -> the
+    value (count) it moved by, label sets it left alone dropped.  A
+    reset keeps every label set earlier tests of the process made (at
+    0), so the series lists themselves differ between the packages."""
+    def val(s):
+        return s.get("count", s.get("value"))
+
+    base = {tuple(sorted(s["labels"].items())): val(s)
+            for s in before[name]["series"]}
+    out = {}
+    for s in after[name]["series"]:
+        key = tuple(sorted(s["labels"].items()))
+        d = val(s) - base.get(key, 0)
+        if d:
+            out[key] = d
+    return out
+
+
 def test_serve_fills_the_catalog_as_jax():
     """One serve on each engine: the same first-class series carry
-    samples (names and label sets), and the request counters agree."""
+    samples (names and label sets), and the request counters agree (the
+    delta of two snapshots around each serve)."""
     m, tm = models(0)
     ps = prompts(1)
     reset_both()
     je, te = engines(m, tm, max_batch_size=2, page_size=16)
+    j0, t0 = JO.snapshot(), TO.snapshot()
     je.generate(ps, 6)
     te.generate(ps, 6)
     js, ts = JO.snapshot(), TO.snapshot()
@@ -161,12 +181,12 @@ def test_serve_fills_the_catalog_as_jax():
           for k, v in tf.items()}
     assert tf == jf
     for name in ("paddle_requests_enqueued_total",
-                 "paddle_requests_finished_total"):
-        assert ts[name]["series"] == js[name]["series"]
-    for name in ("paddle_request_e2e_seconds", "paddle_decode_step_seconds",
+                 "paddle_requests_finished_total",
+                 "paddle_request_e2e_seconds", "paddle_decode_step_seconds",
                  "paddle_request_queue_wait_seconds"):
-        assert ts[name]["series"][0]["count"] == \
-            js[name]["series"][0]["count"]
+        assert _moved(t0, ts, name) == _moved(j0, js, name), name
+    assert _moved(t0, ts, "paddle_requests_finished_total") == \
+        {(("reason", "length"),): len(ps)}
 
 
 def test_reporter_hands_snapshots_to_the_sink():

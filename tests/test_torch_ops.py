@@ -178,7 +178,7 @@ _FLAG_NAMES = ["chunked_prefill", "prefill_chunk_tokens", "prefix_cache",
                "snapshot_kv", "step_timeout_ms", "compile_cache_dir",
                "flight_window", "flight_dir", "sched_cost_admission"]
 # flags the port keeps at their default only
-_LATER_FLAGS = ("serve_mesh", "compile_cache_dir")
+_LATER_FLAGS = ("compile_cache_dir",)
 
 
 @pytest.mark.parametrize("name", _FLAG_NAMES)
@@ -193,14 +193,14 @@ def test_flag_defaults_match_jax(name):
     ("compile_cache_dir", "/tmp/cache"), ("flight_window", 0),
     ("flight_dir", "/tmp/flight"), ("sched_cost_admission", True)])
 def test_unported_flags_raise(name, value):
-    """serve_mesh and compile_cache_dir (a CUDA graph cannot be
-    serialized) refuse a non-default, naming the slice or the reason.
-    kv_quant and serve_weights (quantized serving), ragged_step (the
-    unified ragged step), spec_decode_k (speculative decoding),
-    chunked_prefill=False (the legacy one-shot prefill) and the telemetry
-    plane's flight_window, flight_dir and sched_cost_admission are
-    ported: the value is set, and an engine that takes it from the flag
-    alone serves with it."""
+    """compile_cache_dir (a CUDA graph cannot be serialized) refuses a
+    non-default, naming the reason.  kv_quant and serve_weights
+    (quantized serving), ragged_step (the unified ragged step),
+    spec_decode_k (speculative decoding), chunked_prefill=False (the
+    legacy one-shot prefill), serve_mesh (tensor-parallel serving) and
+    the telemetry plane's flight_window, flight_dir and
+    sched_cost_admission are ported: the value is set, and an engine
+    that takes it from the flag alone serves with it."""
     if name not in _LATER_FLAGS:
         from paddle_tpu_torch.models.gpt import GPT, GPTConfig
         tm = GPT.random(GPTConfig(vocab_size=64, hidden_size=32,
@@ -235,6 +235,9 @@ def test_unported_flags_raise(name, value):
             assert eng._flight.flight_dir == value
         elif name == "sched_cost_admission":
             assert eng._cost_admission and eng._cost is not None
+        elif name == "serve_mesh":
+            assert eng._mesh_mp == 2 and eng._ragged
+            assert st["ragged_steps"] == st["steps"] > 0
         else:
             assert eng._spec.k == value and st["spec_steps"] > 0
         return

@@ -158,7 +158,10 @@ _PATHS = ("/metrics", "/statusz", "/statusz?format=text", "/flightz",
 def test_endpoints_mid_serve_bit_exact(servers):
     """A poller hits every endpoint of the port's server while the
     engine serves: every response parses and the tokens equal an
-    unpolled serve's."""
+    unpolled serve's.  The serve holds after its first step until the
+    poller has visited every path once, so each is read mid-serve
+    however slowly the server answers (``/metrics`` carries every label
+    set earlier engines of the process left)."""
     _, base = servers
     _, tm = models(0)
     ps = prompts(0)
@@ -166,7 +169,7 @@ def test_endpoints_mid_serve_bit_exact(servers):
     TOPS._ENGINES.clear()
     eng = TS.DecodeEngine(tm, device="cpu", alerts=True, profile=True,
                           profile_sample_steps=1, **KW)
-    seen, stop = {}, threading.Event()
+    seen, stop, visited = {}, threading.Event(), threading.Event()
 
     def poll():
         i = 0
@@ -174,11 +177,16 @@ def test_endpoints_mid_serve_bit_exact(servers):
             p = _PATHS[i % len(_PATHS)]
             seen[p] = _get(base, p)
             i += 1
+            if len(seen) == len(_PATHS):
+                visited.set()
 
     t = threading.Thread(target=poll, daemon=True)
     t.start()
     try:
         reqs = [eng.add_request(p, max_new_tokens=NEW) for p in ps]
+        eng.step()
+        assert eng._active.any()  # mid-serve
+        assert visited.wait(timeout=120)
         eng.run()
     finally:
         stop.set()

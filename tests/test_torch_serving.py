@@ -253,13 +253,12 @@ def test_sampled_serving_is_seeded():
                                 dict(serve_mesh="mp=2"),
                                 dict(chunked_prefill=False)])
 def test_unported_options_raise(kw):
-    """The engine takes no serve_mesh argument (its flag refuses a
-    non-default: test_torch_ops.test_unported_flags_raise).  kv_quant and
-    serve_weights are ported: the engine takes "int8" and serves, and
-    raises ValueError on any other mode, as the JAX engine does.
-    ragged_step, spec_decode_k and chunked_prefill=False (the legacy
-    one-shot prefill) are ported: the engine takes each and serves the
-    same greedy tokens as without it."""
+    """kv_quant and serve_weights are ported: the engine takes "int8" and
+    serves, and raises ValueError on any other mode, as the JAX engine
+    does.  ragged_step, spec_decode_k, chunked_prefill=False (the legacy
+    one-shot prefill) and serve_mesh (tensor-parallel serving) are
+    ported: the engine takes each and serves the same greedy tokens as
+    without it."""
     _, tm = _models("tiny", seed=0)
     name = next(iter(kw))
     if name in ("kv_quant", "serve_weights"):
@@ -272,7 +271,8 @@ def test_unported_options_raise(kw):
                             max_seq_len=64, page_size=16,
                             **{name: "int4"})
         return
-    if name in ("ragged_step", "spec_decode_k", "chunked_prefill"):
+    if name in ("ragged_step", "spec_decode_k", "chunked_prefill",
+                "serve_mesh"):
         prompts = _prompts(1, (6, 11))
         ref = TS.DecodeEngine(tm, device="cpu", max_batch_size=1,
                               max_seq_len=64, page_size=16).generate(
@@ -290,12 +290,13 @@ def test_unported_options_raise(kw):
                     st["mixed_steps"]) == (2, 1, 0)
             return
         st = eng.decode_stats()
-        key = "ragged_steps" if name == "ragged_step" else "spec_steps"
+        key = "spec_steps" if name == "spec_decode_k" else "ragged_steps"
         assert st[key] > 0
+        if name == "serve_mesh":
+            # rank 0 holds half the heads of every page
+            assert eng._mesh_mp == 2 and eng._k_pages.shape[1] * 2 == \
+                tm.cfg.num_heads
         return
-    with pytest.raises(TypeError, match=name):
-        TS.DecodeEngine(tm, device="cpu", max_batch_size=1, max_seq_len=64,
-                        page_size=16, **kw)
 
 
 def test_engine_argument_checks():
@@ -323,7 +324,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 # the serving modules this guard must see: the ragged step's, the
 # speculative decoder's, the serving stack around the engine, the
-# telemetry plane and the port's telemetry tools
+# telemetry plane, the serving mesh and the port's telemetry tools
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -338,6 +339,9 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.observability.profiling",
                        "paddle_tpu_torch.observability.alerts",
                        "paddle_tpu_torch.observability.opsserver",
+                       "paddle_tpu_torch.parallel",
+                       "paddle_tpu_torch.parallel.partition",
+                       "paddle_tpu_torch.parallel.mesh",
                        "paddle_tpu_torch.tools.explain_request",
                        "paddle_tpu_torch.tools.telemetry_dump")
            if m not in sys.modules]
