@@ -4,8 +4,10 @@
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --kernels   # phases 1-3 of K1/K2 only
     python3 chip_smoke.py --mesh      # phases 1-2, 4, 6 and 15 only
+    python3 chip_smoke.py --fleet     # phases 1-2, 4 and 16 only
 
-(``--durability-child`` is phase 13's own child process.)
+(``--durability-child`` is phase 13's own child process,
+``--fleet-child`` phase 16's replica.)
 
 Phases, in order; any failure exits non-zero:
 
@@ -162,7 +164,32 @@ Phases, in order; any failure exits non-zero:
    a card a rank: on two cards or more (a) and (b) themselves run on
    NCCL, captured, and on four ``mp=4`` f32 runs as (a) (else a printed
    skip).  Backend and placement are printed;
-16. report — one JSON line of kernels, the card line, and the last line
+16. fleet — the serve of 4 through the fleet layer (`paddle_tpu_torch.
+   fleet`): replica child processes (``--fleet-child``), all on cuda:0,
+   each GPT-2-small behind an `EdgeServer` with its ops server and
+   captured steps, four fresh pairs started together once the kernels
+   are built; every stream's tokens must equal 4's for its prompt.  (a)
+   4's prompts in waves of two (`fleet_waves`) through a round-robin and
+   an affinity `FleetRouter`, each on its own pair: the fleet-wide
+   prefix-cache page hit rate (the replicas' /metrics) strictly higher
+   under affinity; the 16 at once on a third pair, tokens/s against 4's
+   ``engine.run``; (b) chaos on the fourth pair, journals at
+   ``fsync=always`` under the git-ignored `FLEET_ROOT` and
+   FLAGS_fleet_trace on in the parent and the children: 6 streams in
+   flight, the replica holding most killed with SIGKILL once each has a
+   token and none has finished, 4 more submitted: the victim died by
+   SIGKILL, zero loss and 4's tokens for every stream, a failover counted
+   (``paddle_fleet_failovers_total``), the parent's /alertz rollup names
+   the dead replica, ``/fleetz?trace=`` puts each migrated request on one
+   lane across both replicas; kill to all complete, TTFT and the
+   journal's records and bytes printed; (c) every replica's report,
+   written on SIGTERM: K1 launched num_layers x steps, no retrace, one
+   graph a compile (the survivor's adopted requests replay its graphs),
+   the survivor adopted; (d) the captured serve of 4 under
+   FLAGS_sanitize and FLAGS_kv_pool_debug between two unarmed ones: 4's
+   tokens, no `SanitizerError`, a host sync and a pool audit a step, no
+   lock-order cycle; host ms a step printed;
+17. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -3155,6 +3182,586 @@ def mesh_phase(torch, ragged):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the fleet on the card
+# ---------------------------------------------------------------------------
+FLEET_ROOT = Path("build") / "chip_smoke_fleet"
+# replica pairs, each on fresh child processes: round robin and affinity
+# over the same waves, the 16 prompts at once (tokens/s), and the chaos
+# pair (journals at fsync=always, FLAGS_fleet_trace on)
+FLEET_PAIRS = {"rr": "plain", "af": "plain", "tp": "plain", "ch": "chaos"}
+FLEET_BEFORE_KILL = 6   # chaos: streams in flight at the kill
+FLEET_AFTER_KILL = 4    # chaos: requests submitted after it
+FLEET_BOOT_S = 300      # a child's budget to announce its ports
+FLEET_STREAM_S = 300    # a stream's budget to finish
+FLEET_POLL_S = 0.005    # the chaos leg's watch of its streams
+DEBUG_FLAGS = {"sanitize": True, "kv_pool_debug": True}
+
+
+def fleet_child(argv) -> int:
+    """``--fleet-child NAME MODE``: one replica of phase 16 — GPT-2-small
+    (`serve_profile.gpt2_small_serve`, seed 0, on ``cuda`` exactly as
+    the engine resolves it) behind an `EdgeServer`, its ops server and
+    the edge on ephemeral ports of 127.0.0.1, steps captured.  MODE
+    "chaos" arms a journal at ``fsync=always`` under `FLEET_ROOT` and
+    FLAGS_fleet_trace.  Prints ``FLEET_CHILD name=.. edge=.. ops=..``,
+    serves until its standard input closes, and on SIGTERM drains, writes
+    its engine's report (K1 launches, steps, compiles, graphs, retraces,
+    adoptions) to ``FLEET_ROOT/NAME.json`` and exits 0."""
+    import os
+    import signal
+
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.fleet import EdgeServer
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.observability import opsserver
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.tools import serve_profile
+
+    name, mode = argv
+    chaos = mode == "chaos"
+    if chaos:
+        flags.set_flags({"fleet_trace": True, "journal_fsync": "always"})
+    _, _, new_engine = serve_profile.gpt2_small_serve("cuda")
+    serving.reset_decode_stats()  # the warm-up engine's counts
+    pa.paged_attention_cuda.launches = 0
+    eng = new_engine(journal_dir=str(FLEET_ROOT / name) if chaos else None)
+    ops = opsserver.start_ops_server(port=0, host="127.0.0.1")
+    edge = EdgeServer(eng)
+    port = edge.start()
+
+    def report(_sig, _frame):
+        edge.close(drain=True)
+        e = edge.frontend.engine
+        st, pst = e.decode_stats(), serving.decode_stats()
+        (FLEET_ROOT / f"{name}.json").write_text(json.dumps(dict(
+            k1_launches=pa.paged_attention_cuda.launches,
+            k2_launches=pa.paged_attention_cuda_q.launches,
+            steps=st["steps"], graphs=e.graph_captures(),
+            compiles={k: pst[k] for k in COMPILE_KEYS},
+            retraces={k: v for k, v in pst.items()
+                      if k.endswith("_retraces")
+                      or k == "retraces_after_warmup"},
+            adoptions=pst["adoptions"], tokens=st["tokens"],
+            num_layers=len(e._params["blocks"]),
+            same_engine=e is eng, journal=e.journal_info())))
+        os._exit(0)
+
+    signal.signal(signal.SIGTERM, report)
+    print(f"FLEET_CHILD name={name} edge={port} ops={ops}", flush=True)
+    sys.stdin.read()  # the parent went away
+    return 0
+
+
+class _Replica:
+    """A replica child process of phase 16 and its ports."""
+
+    def __init__(self, name, mode):
+        self.name = name
+        FLEET_ROOT.mkdir(parents=True, exist_ok=True)
+        self.err = FLEET_ROOT / f"{name}.err"
+        with open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--fleet-child", name, mode],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                text=True)
+        self.edge = self.ops = None
+
+    def wait_ports(self, deadline):
+        import threading
+
+        box = []
+        t = threading.Thread(target=lambda: box.append(
+            self.proc.stdout.readline()), daemon=True)
+        t.start()
+        t.join(max(deadline - time.monotonic(), 1.0))
+        line = box[0] if box else ""
+        if not line.startswith("FLEET_CHILD "):
+            self.stop()
+            fail(f"fleet: replica {self.name} never announced its ports "
+                 f"(exit {self.proc.poll()}):\n{self.tail()}")
+        kv = dict(f.split("=", 1) for f in line.split()[1:])
+        self.edge, self.ops = int(kv["edge"]), int(kv["ops"])
+        # keep the pipe drained: a child never blocks on its stdout
+        threading.Thread(target=self.proc.stdout.read, daemon=True).start()
+
+    @property
+    def url(self):
+        return f"http://127.0.0.1:{self.edge}"
+
+    def tail(self):
+        try:
+            return self.err.read_text()[-3000:]
+        except OSError:
+            return ""
+
+    def report(self):
+        """SIGTERM the child and read the report it writes."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"fleet: replica {self.name} did not exit on SIGTERM")
+        path = FLEET_ROOT / f"{self.name}.json"
+        if rc != 0 or not path.exists():
+            fail(f"fleet: replica {self.name} exited {rc} without its "
+                 f"report:\n{self.tail()}")
+        return json.loads(path.read_text())
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+        if self.proc.stdin:
+            self.proc.stdin.close()
+
+
+def fleet_waves(n):
+    """Phase 4's prompts as waves of two: shared-prefix prompt i (even)
+    with the prompt after it, the shared one first in even waves and
+    second in odd ones, so round robin cannot pin the family to one
+    replica by the parity of its arrival."""
+    waves = []
+    for w, i in enumerate(range(0, n, 2)):
+        waves.append([i, i + 1] if w % 2 == 0 else [i + 1, i])
+    return waves
+
+
+def fleet_router(policy, reps, **kw):
+    from paddle_tpu_torch.fleet import FleetRouter
+
+    router = FleetRouter(policy=policy, poll_interval_s=0.02, dead_after=3,
+                         admit_timeout_s=FLEET_STREAM_S, rollup_every=5,
+                         **kw)
+    for rep in reps:
+        router.add_replica(rep.name, rep.url)
+    router.start()
+    return router
+
+
+def prefix_counts(reps):
+    """Fleet-wide prefix-cache page (hits, misses) off each replica's
+    /metrics."""
+    import urllib.request
+
+    hits = misses = 0.0
+    for rep in reps:
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{rep.ops}/metrics", timeout=30).read().decode()
+        for line in text.splitlines():
+            if line.startswith("paddle_prefix_cache_page_hits_total"):
+                hits += float(line.rsplit(None, 1)[1])
+            elif line.startswith("paddle_prefix_cache_page_misses_total"):
+                misses += float(line.rsplit(None, 1)[1])
+    return hits, misses
+
+
+def fleet_results(label, streams, want):
+    """Wait for ``streams``; fail unless each finished eos/length with
+    phase 4's tokens for its prompt."""
+    for s in streams:
+        try:
+            toks = s.result(timeout=FLEET_STREAM_S)
+        except Exception as e:  # a stream's own error, or a timeout
+            fail(f"{label}: a stream failed: {e!r}")
+        if s.finish_reason not in ("eos", "length"):
+            fail(f"{label}: a stream finished {s.finish_reason!r}")
+        if toks != want[tuple(s.prompt_ids)]:
+            fail(f"{label}: a stream's tokens differ from phase 4's for "
+                 f"its prompt")
+
+
+def check_replica_report(label, rep, rpt):
+    """(c) for any replica: K1 launched num_layers x steps, no retrace,
+    one graph a compile, nothing on K2."""
+    want = rpt["num_layers"] * rpt["steps"]
+    if rpt["steps"] <= 0 or rpt["k1_launches"] != want:
+        fail(f"{label} {rep.name}: K1 launches {rpt['k1_launches']} != "
+             f"{rpt['num_layers']} x {rpt['steps']} steps")
+    if rpt["k2_launches"]:
+        fail(f"{label} {rep.name}: K2 launched {rpt['k2_launches']} times")
+    if any(rpt["retraces"].values()):
+        fail(f"{label} {rep.name}: retraced: {rpt['retraces']}")
+    if rpt["graphs"] != sum(rpt["compiles"].values()) or \
+            rpt["compiles"] != compiles(decode=1, mixed=1):
+        fail(f"{label} {rep.name}: {rpt['graphs']} graphs for the "
+             f"compiles {rpt['compiles']} (want one mixed and one decode "
+             f"graph: adopted requests replay them)")
+    if not rpt["same_engine"]:
+        fail(f"{label} {rep.name}: the frontend rebuilt the engine")
+
+
+def _fleet_json(url, path):
+    status, body = _get(url, path)
+    if status != 200:
+        fail(f"fleet: GET {url}{path} -> {status}: {body[:500]}")
+    return json.loads(body)
+
+
+def affinity_leg(prompts, want, pairs, engine_run_tps):
+    """(a) the waves of `fleet_waves` through a round-robin and an
+    affinity router, each on a fresh pair: every stream phase 4's
+    tokens, and the fleet-wide prefix-cache page hit rate (from the
+    replicas' /metrics) strictly higher under affinity; then the 16
+    prompts at once through the affinity router on a third fresh pair,
+    tokens/s against phase 4's ``engine.run``."""
+    from paddle_tpu_torch.tools.serve_profile import NEW_TOKENS as NEW
+
+    out = {}
+    for policy, key in (("round_robin", "rr"), ("affinity", "af")):
+        reps = pairs[key]
+        h0, m0 = prefix_counts(reps)
+        router = fleet_router(policy, reps)
+        t0 = time.perf_counter()
+        try:
+            streams = []
+            for wave in fleet_waves(len(prompts)):
+                got = [router.submit(prompts[i], max_new_tokens=NEW)
+                       for i in wave]
+                fleet_results(f"fleet {policy}", got, want)
+                streams += got
+        finally:
+            router.close()
+        wall = time.perf_counter() - t0
+        h1, m1 = prefix_counts(reps)
+        hits, misses = h1 - h0, m1 - m0
+        out[policy] = dict(
+            prefix_page_hits=hits, prefix_page_misses=misses,
+            prefix_hit_rate=hits / (hits + misses) if hits + misses else 0.0,
+            router_affinity_hits=router.stats["affinity_hits"],
+            placement=[s.replica for s in streams],
+            tokens_per_s=sum(len(s.tokens) for s in streams) / wall,
+            wall_s=wall)
+        print(f"fleet {policy}: prefix-cache page hit rate "
+              f"{out[policy]['prefix_hit_rate']:.4f} ({hits:.0f} hits, "
+              f"{misses:.0f} misses over {len(streams)} requests in waves "
+              f"of 2); {out[policy]['tokens_per_s']:.1f} tokens/s; tokens "
+              f"equal phase 4's", flush=True)
+    if not out["affinity"]["prefix_hit_rate"] > \
+            out["round_robin"]["prefix_hit_rate"]:
+        fail(f"fleet: affinity's prefix hit rate "
+             f"{out['affinity']['prefix_hit_rate']:.4f} is not above round "
+             f"robin's {out['round_robin']['prefix_hit_rate']:.4f}")
+    # the 16 at once, as phase 4's engine.run serves them
+    reps = pairs["tp"]
+    router = fleet_router("affinity", reps)
+    try:
+        t0 = time.perf_counter()
+        streams = [router.submit(p, max_new_tokens=NEW) for p in prompts]
+        fleet_results("fleet throughput", streams, want)
+        wall = time.perf_counter() - t0
+    finally:
+        router.close()
+    tps = sum(len(s.tokens) for s in streams) / wall
+    ttft = [s.ttft_s for s in streams]
+    out["at_once"] = dict(
+        tokens_per_s=tps, wall_s=wall, engine_run_tokens_per_s=engine_run_tps,
+        ratio=tps / engine_run_tps, ttft_p50_s=quantile(ttft, 0.5),
+        ttft_p99_s=quantile(ttft, 0.99),
+        placement=[s.replica for s in streams])
+    print(f"fleet at once: 16 requests over 2 replicas on one card "
+          f"(affinity) {tps:.1f} tokens/s against engine.run's "
+          f"{engine_run_tps:.1f} ({tps / engine_run_tps:.3f}x), TTFT p50 "
+          f"{quantile(ttft, 0.5) * 1e3:.1f} ms p99 "
+          f"{quantile(ttft, 0.99) * 1e3:.1f} ms; tokens equal phase 4's",
+          flush=True)
+    return out
+
+
+def _alertz_names(ops_port, victim, deadline):
+    """The parent's /alertz fleet rollup once it reports ``victim``
+    unreachable and narrates its failover (the monitor refreshes it every
+    few polls)."""
+    while True:
+        doc = _fleet_json(f"http://127.0.0.1:{ops_port}", "/alertz")
+        roll = doc.get("fleet") or {}
+        rep = (roll.get("replicas") or {}).get(victim)
+        if rep is not None and not rep.get("reachable") and any(
+                e.get("event") == "failover" and e.get("replica") == victim
+                for e in roll.get("events", [])):
+            return roll
+        if time.monotonic() > deadline:
+            fail(f"fleet chaos: /alertz's fleet rollup never named the "
+                 f"dead replica {victim}: {json.dumps(roll)[:1500]}")
+        time.sleep(0.05)
+
+
+def _one_lane(doc, victim, survivor):
+    """The merged trace of a `/fleetz?trace=` document puts the trace on
+    one requests lane, with spans from both replicas."""
+    ev = doc["trace"]["traceEvents"]
+    names = {e["pid"]: e["args"]["name"] for e in ev
+             if e.get("name") == "process_name"}
+    lane = [e for e in ev if e.get("ph") == "X"
+            and names.get(e["pid"]) == "requests"]
+    lanes = {(e["pid"], e["tid"]) for e in lane}
+    return len(lanes) == 1 and \
+        {e["args"].get("replica") for e in lane} == {victim, survivor}
+
+
+def chaos_leg(prompts, want, reps):
+    """(b) six streams in flight through the affinity router over the
+    chaos pair; once every one has a token and none has finished, SIGKILL
+    the replica holding the most, then submit four more: the victim died
+    by SIGKILL, FLAGS_fleet_trace held throughout, every stream phase 4's
+    tokens (nothing re-emitted or dropped), a failover counted, the
+    parent's /alertz rollup naming the dead replica, and each migrated
+    request on one lane of ``/fleetz?trace=`` across both replicas."""
+    import signal
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.inference import durability
+    from paddle_tpu_torch.observability import opsserver
+    from paddle_tpu_torch.tools.serve_profile import NEW_TOKENS as NEW
+
+    flags.set_flags({"fleet_trace": True})
+    ops_port = opsserver.start_ops_server(port=0, host="127.0.0.1")
+    router = fleet_router("affinity", reps)
+    try:
+        streams = [router.submit(p, max_new_tokens=NEW)
+                   for p in prompts[:FLEET_BEFORE_KILL]]
+        deadline = time.monotonic() + FLEET_STREAM_S
+        while not all(s.tokens for s in streams):
+            if any(s.done for s in streams):
+                fail("fleet chaos: a stream finished before every stream "
+                     "had a token: no moment to kill mid-generation")
+            if time.monotonic() > deadline:
+                fail("fleet chaos: the streams never all started")
+            time.sleep(FLEET_POLL_S)
+        if any(s.done for s in streams):
+            fail("fleet chaos: a stream finished before the kill")
+        by_rep = {}
+        for s in streams:
+            by_rep.setdefault(s.replica, []).append(s)
+        victim = max(by_rep, key=lambda n: len(by_rep[n]))
+        survivor = next(r.name for r in reps if r.name != victim)
+        held = {id(s): len(s.tokens) for s in by_rep[victim]}
+        # the victim's segment of each trace it serves, pulled while it
+        # lives: /fleetz keeps a dead replica's last pull in its merge
+        for s in by_rep[victim]:
+            _fleet_json(f"http://127.0.0.1:{ops_port}",
+                        f"/fleetz?trace={s.trace_id}")
+        proc = next(r for r in reps if r.name == victim).proc
+        t_kill = time.perf_counter()
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+        fleet_results("fleet chaos", streams, want)
+        kill_to_complete = time.perf_counter() - t_kill
+        late = [router.submit(p, max_new_tokens=NEW) for p in
+                prompts[FLEET_BEFORE_KILL:FLEET_BEFORE_KILL +
+                        FLEET_AFTER_KILL]]
+        fleet_results("fleet chaos (after the kill)", late, want)
+        if proc.returncode != -signal.SIGKILL:
+            fail(f"fleet chaos: the victim exited {proc.returncode}, not "
+                 f"by SIGKILL")
+        if not flags.flag("fleet_trace") or any(
+                s.trace_id is None for s in streams + late):
+            fail("fleet chaos: FLAGS_fleet_trace was not on throughout")
+        clocks = {r.name: router._replicas[r.name]._clock.snapshot()
+                  for r in reps}
+        if not all(clocks.values()):
+            fail(f"fleet chaos: a replica's /readyz never carried now_ns "
+                 f"(FLAGS_fleet_trace off in the child): {clocks}")
+        migrated = [s for s in by_rep[victim] if s.failovers]
+        if not migrated or any(len(s.tokens) < held[id(s)]
+                               for s in by_rep[victim]):
+            fail("fleet chaos: no stream migrated, or one lost a token it "
+                 "held")
+        failovers = obs.FLEET_FAILOVERS.value()
+        if failovers < 1:
+            fail(f"fleet chaos: paddle_fleet_failovers_total {failovers}")
+        roll = _alertz_names(ops_port, victim,
+                             time.monotonic() + FLEET_STREAM_S)
+        for s in migrated:
+            doc = _fleet_json(f"http://127.0.0.1:{ops_port}",
+                              f"/fleetz?trace={s.trace_id}")
+            if not _one_lane(doc, victim, survivor):
+                fail(f"fleet chaos: /fleetz?trace={s.trace_id} does not "
+                     f"put the migrated request on one lane across "
+                     f"{victim} and {survivor}")
+        survivor_info = _fleet_json(
+            next(r.url for r in reps if r.name == survivor), "/v1/info")
+        victim_journal = FLEET_ROOT / victim / durability.JOURNAL_NAME
+        ttft1 = [s.ttft_s for s in streams]
+        ttft2 = [s.ttft_s for s in late]
+        out = dict(
+            victim=victim, survivor=survivor,
+            streams_on_victim=len(by_rep[victim]),
+            streams_migrated=len(migrated),
+            tokens_held_at_kill=sorted(held.values()),
+            failovers=failovers,
+            failover_s=router.stats["failover_seconds"],
+            kill_to_all_complete_s=kill_to_complete,
+            ttft_p50_before_kill_s=quantile(ttft1, 0.5),
+            ttft_p99_before_kill_s=quantile(ttft1, 0.99),
+            ttft_p99_after_kill_s=quantile(ttft2, 0.99),
+            survivor_journal=survivor_info["journal"],
+            victim_journal_bytes=victim_journal.stat().st_size,
+            victim_journal_records=len(durability.read_journal(
+                str(victim_journal))[0]),
+            clock_offsets_ns={r.name: router._replicas[r.name]
+                              .clock_offset_ns() for r in reps},
+            poll_rtt_s={r.name: router._replicas[r.name].poll_rtt_s
+                        for r in reps},
+            rollup_events=roll.get("events", [])[-4:])
+    finally:
+        router.close()
+        opsserver.stop_ops_server()
+        flags.set_flags({"fleet_trace": False})
+    j = out["survivor_journal"]
+    print(f"fleet chaos: killed {victim} (SIGKILL) with "
+          f"{out['streams_on_victim']} streams on it holding "
+          f"{out['tokens_held_at_kill']} tokens; {len(migrated)} migrated "
+          f"to {survivor}, failover {out['failover_s']:.4f} s, kill to all "
+          f"complete {kill_to_complete:.4f} s; TTFT p50 "
+          f"{out['ttft_p50_before_kill_s'] * 1e3:.1f} ms p99 "
+          f"{out['ttft_p99_before_kill_s'] * 1e3:.1f} ms before the kill, "
+          f"p99 {out['ttft_p99_after_kill_s'] * 1e3:.1f} ms after; "
+          f"survivor journal {j['records']} records {j['bytes']} bytes "
+          f"(fsync {j['fsync']}), victim journal "
+          f"{out['victim_journal_records']} records "
+          f"{out['victim_journal_bytes']} bytes; clock offsets "
+          f"{out['clock_offsets_ns']} ns, poll RTT {out['poll_rtt_s']}; "
+          f"every stream phase 4's tokens, one lane a migrated trace",
+          flush=True)
+    return out
+
+
+def debug_modes_check(torch, new_engine, prompts, want_tokens):
+    """(d) the captured f32 serve under FLAGS_sanitize and
+    FLAGS_kv_pool_debug, `SERVE_RUNS` times in turns with unarmed serves:
+    each armed serve phase 4's tokens, no SanitizerError, a host sync a
+    step (the relation the CPU test holds to JAX's), a lock-order graph
+    without a cycle, the pool audited each step; host ms a step armed
+    against unarmed (medians), with the collector's passes by generation
+    during each serve."""
+    import gc
+
+    from paddle_tpu_torch.analysis import sanitizer
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.inference import serving
+
+    audits = [0]
+    real = serving.KVBlockPool.assert_consistent
+
+    def counted(pool, live_pages=None):
+        audits[0] += 1
+        return real(pool, live_pages)
+
+    def passes():
+        return [g["collections"] for g in gc.get_stats()]
+
+    runs = {"unarmed": [], "armed": []}
+    for label in ("unarmed", "armed") * SERVE_RUNS:
+        armed = label == "armed"
+        if armed:
+            flags.set_flags(DEBUG_FLAGS)
+            sanitizer.reset()
+            audits[0] = 0
+            serving.KVBlockPool.assert_consistent = counted
+        gc0 = passes()
+        try:
+            eng, reqs, wall = serve_once(torch, new_engine, prompts)
+        except sanitizer.SanitizerError as e:
+            fail(f"debug modes: the serve raised {e!r}")
+        finally:
+            if armed:
+                serving.KVBlockPool.assert_consistent = real
+                flags.set_flags({k: False for k in DEBUG_FLAGS})
+        steps = eng.decode_stats()["steps"]
+        if [r.generated_ids for r in reqs] != want_tokens:
+            fail(f"debug modes ({label}): tokens differ from phase 4's")
+        run = dict(steps=steps, wall_s=wall,
+                   host_ms_per_step=wall / steps * 1e3,
+                   gc_passes=[b - a for a, b in zip(gc0, passes())])
+        if armed:
+            rep = sanitizer.get().report()
+            edges = {tuple(e) for e in rep["lock_edges"]}
+            if rep["steps"] != steps or rep["host_syncs"] != steps or \
+                    rep["warm_retraces"]:
+                fail(f"debug modes: sanitizer report {rep} against "
+                     f"{steps} steps (want a host sync a step)")
+            if any((b, a) in edges for a, b in edges):
+                fail(f"debug modes: lock-order cycle in {sorted(edges)}")
+            if audits[0] != steps:
+                fail(f"debug modes: {audits[0]} pool audits for {steps} "
+                     f"steps")
+            run.update(report=rep, pool_audits=audits[0])
+        runs[label].append(run)
+    med = {k: statistics.median(r["host_ms_per_step"] for r in v)
+           for k, v in runs.items()}
+    out = dict(runs=runs, host_ms_per_step_median=med)
+    rep = runs["armed"][-1]["report"]
+    print(f"debug modes: FLAGS_sanitize + FLAGS_kv_pool_debug "
+          f"{med['armed']:.4f} host ms a step (median of {SERVE_RUNS}) "
+          f"against {med['unarmed']:.4f} unarmed (runs, in turns: "
+          f"{[round(r['host_ms_per_step'], 4) for r in runs['armed']]} / "
+          f"{[round(r['host_ms_per_step'], 4) for r in runs['unarmed']]}; "
+          f"collector passes by generation "
+          f"{[r['gc_passes'] for r in runs['armed']]} / "
+          f"{[r['gc_passes'] for r in runs['unarmed']]}); {rep['steps']} "
+          f"steps, {rep['host_syncs']} host syncs, {audits[0]} pool "
+          f"audits, lock edges {rep['lock_edges']}; tokens equal phase 4's",
+          flush=True)
+    return out
+
+
+def fleet_phase(torch, serve):
+    """Phase 16: the fleet on the card (see the module docstring)."""
+    import shutil
+
+    from paddle_tpu_torch.tools import serve_profile
+
+    _, prompts, new_engine = serve_profile.gpt2_small_serve("cuda")
+    want = {tuple(p): t for p, t in zip(prompts, serve["tokens"])}
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    FLEET_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    pairs = {key: [_Replica(f"{key}{i}", mode) for i in range(2)]
+             for key, mode in FLEET_PAIRS.items()}
+    reps = [r for pair in pairs.values() for r in pair]
+    out = {}
+    try:
+        deadline = time.monotonic() + FLEET_BOOT_S
+        for rep in reps:
+            rep.wait_ports(deadline)
+        out["boot_s"] = time.perf_counter() - t0
+        print(f"fleet: {len(reps)} replica processes on cuda:0 up in "
+              f"{out['boot_s']:.1f} s", flush=True)
+        out["affinity"] = affinity_leg(prompts, want, pairs,
+                                       serve["tokens_per_s_median"])
+        out["chaos"] = chaos_leg(prompts, want, pairs["ch"])
+        reports = {}
+        for rep in reps:
+            if rep.proc.poll() is None:
+                reports[rep.name] = rpt = rep.report()
+                check_replica_report("fleet", rep, rpt)
+        survivor = reports[out["chaos"]["survivor"]]
+        if survivor["adoptions"] < 1:
+            fail("fleet chaos: the survivor adopted nothing")
+        out["replica_reports"] = reports
+        print(f"fleet: the survivor {out['chaos']['survivor']} ran "
+              f"{survivor['steps']} steps, K1 {survivor['k1_launches']} = "
+              f"{survivor['num_layers']} x steps, {survivor['graphs']} "
+              f"graphs for compiles {sum(survivor['compiles'].values())}, "
+              f"no retrace, {survivor['adoptions']} adoption(s); every "
+              f"replica's K1 = num_layers x steps", flush=True)
+    finally:
+        for rep in reps:
+            rep.stop()
+    out["debug_modes"] = debug_modes_check(torch, new_engine, prompts,
+                                           serve["tokens"])
+    return out
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -3164,8 +3771,11 @@ def main(argv) -> int:
 
     kernels_only = argv == ["--kernels"]
     mesh_only = argv == ["--mesh"]
+    fleet_only = argv == ["--fleet"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
-    if argv and not kernels_only and not mesh_only and not child:
+    fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
+    if argv and not (kernels_only or mesh_only or fleet_only or child
+                     or fleet_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -3180,6 +3790,8 @@ def main(argv) -> int:
         return 1
     if child:
         return durability_child(argv[1:])
+    if fleet_kid:
+        return fleet_child(argv[1:])
 
     # 1. card
     card = card_line()
@@ -3189,7 +3801,8 @@ def main(argv) -> int:
     # 2. build
     t0 = time.perf_counter()
     libs = _build.build_all(["paged_attention"]
-                            if kernels_only or mesh_only else None)
+                            if kernels_only or mesh_only or fleet_only
+                            else None)
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
           f" in {build_s:.1f} s", flush=True)
@@ -3210,6 +3823,17 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_mesh.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if fleet_only:
+        res = dict(card=card)
+        res["serve"], _ = serve_phase(torch)
+        res["fleet"] = fleet_phase(torch, res["serve"])
+        res["serve"]["tokens"] = None
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_fleet.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -3266,7 +3890,10 @@ def main(argv) -> int:
     # 15. tensor-parallel serving
     mesh = mesh_phase(torch, ragged)
 
-    # 16. report
+    # 16. the fleet
+    fleet = fleet_phase(torch, serve)
+
+    # 17. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -3277,7 +3904,9 @@ def main(argv) -> int:
                     **{f"mesh_serve_mp2_rank{r}": n["K1"] for r, n in
                        mesh["mp2_f32"]["launches_by_rank"].items()},
                     mesh_serve_mp1_nccl=mesh["mp1_nccl"]["launches"][
-                        "paged_attention"])
+                        "paged_attention"],
+                    **{f"fleet_replica_{n}": r["k1_launches"] for n, r in
+                       fleet["replica_reports"].items()})
     k2_paths = dict(quantized_serve=launches_q,
                     quantized_ragged_serve=ragged["int8"][
                         "launches_of_path"],
@@ -3347,7 +3976,7 @@ def main(argv) -> int:
                   kernels=kernels, serve=serve,
                   serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
                   serve_legacy=legacy, serve_reliability=reliability,
-                  telemetry=telemetry, serve_mesh=mesh,
+                  telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
                   train=train, train_layer_norm=train_ln)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

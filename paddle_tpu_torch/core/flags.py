@@ -1,7 +1,7 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Forty-three flags work here;
-three more keep their default only, because the code they switch on is
+The names and defaults are paddle_tpu's.  Forty-six flags work here;
+two more keep their default only, because the code they switch on is
 not ported yet (or, for ``compile_cache_dir``, has no counterpart) —
 setting one of those to anything else raises NotImplementedError naming
 the slice or the reason.  As in paddle_tpu,
@@ -87,6 +87,14 @@ _PORTED = {
     # "mp=N": tensor-parallel serving over N ranks (paddle_tpu_torch.
     # parallel); "" serves unsharded
     "serve_mesh": "",
+    # fleet-scope tracing (observability.fleettrace): the fleet router
+    # mints a trace id that rides every HTTP leg into the engines
+    "fleet_trace": False,
+    # debug modes: audit the KV pool at every step boundary; the
+    # sanitizer (analysis.sanitizer: warm retraces raise, lock order,
+    # host syncs a step, the pool audit)
+    "kv_pool_debug": False,
+    "sanitize": False,
 }
 
 # flag -> (default, the later slice that ports what it switches on)
@@ -98,8 +106,6 @@ _LATER = {
     # serialized, so a fresh process recaptures (no counterpart yet)
     "compile_cache_dir": ("", "persistent step-cache (CUDA graphs cannot "
                               "be serialized)"),
-    # trace ids minted by the fleet router
-    "fleet_trace": (False, "fleet serving"),
 }
 
 _REGISTRY: Dict[str, Any] = dict(_PORTED)

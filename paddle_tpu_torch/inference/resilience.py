@@ -81,6 +81,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import observability as _obs
+from ..analysis import sanitizer as _san
 from ..core import flags as _flags
 from .errors import (DegradedMode, FaultInfo, InjectedFault,
                      PoolExhausted, StepFault)
@@ -233,9 +234,8 @@ class ResilienceManager:
     not on the card (see the module docstring)."""
 
     # never retried, never contained: the process state is suspect
-    # (audit asserts), not the step.  The JAX package adds its
-    # sanitizer's error here; the port has no sanitizer.
-    NONRETRYABLE = (AssertionError,)
+    # (sanitizer invariants, audit asserts), not the step
+    NONRETRYABLE = (_san.SanitizerError, AssertionError)
     engine = _EngineRef()
 
     def __init__(self, engine):

@@ -89,6 +89,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import observability as _obs
+from ..analysis import sanitizer as _san
 from ..core import flags as _flags
 from ..observability import costmodel as _costmodel
 from ..device import resolve_device
@@ -259,7 +260,11 @@ class _StepGraph:
     arrays, whose shapes and dtypes are the signature.  Construction
     counts one ``compile_key``; a signature first met after the first
     call counts ``<kind>_retraces`` and ``retraces_after_warmup``, as
-    `_JitTracker.check_retrace` counts cache growth.
+    `_JitTracker.check_retrace` counts cache growth.  Under
+    ``FLAGS_sanitize`` that call raises `sanitizer.WarmRetraceError`
+    instead, before the step runs: the rule is "a new signature after
+    the tracker's first call", on the CPU as on the card, where JAX's
+    is its jit cache growing after warm-up.
 
     On the CPU, and inside `disable_capture`, the step runs eagerly.  On
     the card a new signature stages its inputs into a `_Captured`'s
@@ -319,6 +324,15 @@ class _StepGraph:
         first = sig not in self._seen
         if first:
             if self._seen:
+                san = _san.active()
+                if san is not None:
+                    self._seen.add(sig)
+                    san.count_warm_retrace()
+                    raise _san.WarmRetraceError(
+                        f"warm retrace of {self.site}: a new step "
+                        f"signature {sig} after the tracker's first "
+                        f"call — a step operand's shape or dtype "
+                        f"changed mid-serve")
                 _stats_add(retraces_after_warmup=1,
                            **{self._retrace_key: 1})
             self._seen.add(sig)
@@ -1424,6 +1438,9 @@ class DecodeEngine:
             cache_generated_pages = bool(_flags.flag("cache_generated_pages"))
         self._cache_generated = bool(cache_generated_pages) and \
             self._prefix_cache
+        # FLAGS_kv_pool_debug: audit the pool partition and refcounts at
+        # every step boundary (host-only cost)
+        self._pool_debug = bool(_flags.flag("kv_pool_debug"))
 
         # speculative decoding, with JAX's refusals of a drafter or an
         # adaptive depth without it
@@ -2380,6 +2397,32 @@ class DecodeEngine:
             self._durability.on_emit(req)
         return req
 
+    # -- fleet export hooks ---------------------------------------------------
+    def route_prefix_hashes(self, prompt_ids) -> List[str]:
+        """The fleet router's affinity key: hex chain hashes of every
+        full page of ``prompt_ids`` under this engine's salt (the digests
+        `_probe_prefix` matches, so a router keyed on them lands a
+        request where its pages are cached).  Empty when the prefix cache
+        is off or the prompt spans no full page."""
+        if not self._prefix_cache:
+            return []
+        return [h.hex() for h in self._prefix_hashes(list(prompt_ids))]
+
+    def journal_info(self) -> Optional[dict]:
+        """Where this engine journals (the fleet failover donor surface):
+        directory, record count, on-disk bytes, fsync policy; None
+        without durability."""
+        if self._durability is None:
+            return None
+        d = self._durability
+        try:
+            size = os.path.getsize(d.path)
+        except OSError:
+            size = 0
+        return {"dir": d.journal_dir, "path": d.path,
+                "records": int(d.seq), "bytes": int(size),
+                "fsync": d.fsync}
+
     def _pages_for(self, tokens: int) -> int:
         return -(-tokens // self._page)
 
@@ -2978,10 +3021,22 @@ class DecodeEngine:
         self._add(kv_quant_pages=len(ids))
         _obs.KV_QUANT_PAGES.inc(len(ids))
 
+    def _debug_check_pool(self):
+        """FLAGS_kv_pool_debug / FLAGS_sanitize: the full pool audit at a
+        step boundary — every live request's page list against the
+        pool's free/private/cached partition and refcounts."""
+        self.pool.assert_consistent(
+            live_pages=[p for r in self._by_slot if r is not None
+                        for p in r.pages])
+
     def _fetch(self, out: torch.Tensor) -> np.ndarray:
         """A step's packed output on the host (the step's one wait for
         the device, the flight recorder's ``fetch`` phase); with int8
-        pages the refold count it carries is counted and dropped."""
+        pages the refold count it carries is counted and dropped.  The
+        sanitizer counts each call as a host sync."""
+        san = _san.active()
+        if san is not None:
+            san.count_host_sync()
         fr = self._flight
         if fr is None:
             out = out.cpu().numpy()
@@ -3181,7 +3236,14 @@ class DecodeEngine:
         before admission and seals it after the step; the cost model
         predicts the step before it runs and calibrates after; the
         alert engine evaluates between steps.  A fatal fault leaves the
-        flight window on disk before it escapes."""
+        flight window on disk before it escapes.  Under FLAGS_sanitize
+        (or FLAGS_kv_pool_debug alone) the pool is audited first; the
+        sanitizer also counts the step."""
+        san = _san.active()
+        if san is not None:
+            san.count_step()
+        if san is not None or self._pool_debug:
+            self._debug_check_pool()
         fr = self._flight
         if fr is not None:
             fr.begin_step()

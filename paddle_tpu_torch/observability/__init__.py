@@ -76,11 +76,16 @@ paddle_mfu_drift                               gauge      phase
 paddle_collective_bytes                        gauge      fn
 paddle_chip_skew_seconds                       gauge      engine
 paddle_trace_spans_dropped_total               counter    —
+paddle_fleet_replicas_ready                    gauge      —
+paddle_fleet_affinity_hits_total               counter    replica
+paddle_fleet_affinity_misses_total             counter    replica
+paddle_fleet_failovers_total                   counter    —
+paddle_fleet_failover_seconds                  gauge      —
+paddle_fleet_poll_rtt_seconds                  gauge      replica
 =============================================  =========  ==========
 
 plus the view ``paddle_decode_*`` (every `decode_stats` key).  The JAX
-package's fleet series (``paddle_fleet_*``) and its ``paddle_dispatch_*``
-view wait for the fleet and eager slices.
+package's ``paddle_dispatch_*`` view waits for the eager slice.
 """
 from __future__ import annotations
 
@@ -509,6 +514,49 @@ FLIGHT_DUMPS = counter(
     "manual: FlightRecorder.dump called directly) — every chaos/"
     "recovery event leaves a black box tools/explain_request.py reads",
     labels=("reason",))
+FLEET_REPLICAS_READY = gauge(
+    "paddle_fleet_replicas_ready",
+    "Replicas the fleet router's last poll found ready to take "
+    "traffic (fleet.FleetRouter: the replica's /readyz verdict — "
+    "serving AND headroom > 0 AND no page-severity alert AND no "
+    "watchdog-overdue step).  Dropping below the replica count means "
+    "part of the fleet is draining/dead; zero means the edge is "
+    "queueing everything")
+FLEET_AFFINITY_HITS = counter(
+    "paddle_fleet_affinity_hits_total",
+    "Requests the fleet router placed on the replica its prefix "
+    "routing key (the engine's content-addressed page chain hashes) "
+    "already mapped to — the request lands where its prompt-prefix "
+    "KV pages are cached",
+    labels=("replica",))
+FLEET_AFFINITY_MISSES = counter(
+    "paddle_fleet_affinity_misses_total",
+    "Requests the fleet router placed fresh (no admissible replica "
+    "held the routing key): cold prefixes, round-robin policy, or "
+    "the affinity target was not admissible at routing time",
+    labels=("replica",))
+FLEET_FAILOVERS = counter(
+    "paddle_fleet_failovers_total",
+    "Dead-replica failovers the fleet router completed: the dead "
+    "replica's journal replayed into a survivor "
+    "(durability.adopt_from_dir) with every in-flight stream resumed "
+    "token-for-token")
+FLEET_FAILOVER_SECONDS = gauge(
+    "paddle_fleet_failover_seconds",
+    "Wall seconds of the most recent fleet failover, death detection "
+    "through journal adoption on the survivor (streams reconnect "
+    "immediately after)")
+FLEET_POLL_RTT = gauge(
+    "paddle_fleet_poll_rtt_seconds",
+    "Measured HTTP round-trip of the fleet router's most recent "
+    "/readyz poll, per replica (fleet.ReplicaHandle.poll) — the "
+    "router's only per-replica latency signal, and the error bound "
+    "(rtt/2) on the NTP-style clock-offset estimate the fleet trace "
+    "merge maps replica timestamps with "
+    "(observability.fleettrace.ClockSync)",
+    labels=("replica",))
+
+
 # ---------------------------------------------------------------------------
 # The decode_stats view
 # ---------------------------------------------------------------------------

@@ -48,16 +48,20 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..analysis.sanitizer import TrackedLock as _TrackedLock
+
 
 __all__ = ["AlertRule", "AlertEngine", "default_rules", "SEVERITIES",
-           "SIGNALS"]
+           "SIGNALS", "fleet_rollup"]
 
 SEVERITIES = ("page", "ticket")
 
 # THE alert-engine lock: every cross-thread surface — the per-rule
 # state table and the transitions ring `/alertz` serves — mutates
 # under it.  An RLock so a locked snapshot may call locked helpers.
-_lock = threading.RLock()
+# a TrackedLock under the JAX package's name, so FLAGS_sanitize
+# records acquisition order (analysis.sanitizer)
+_lock = _TrackedLock(threading.RLock(), "alerts._lock")
 
 # bounded transition history per engine (the /alertz "recent
 # transitions" window — operators read the tail, not the archive)
@@ -583,3 +587,47 @@ class AlertEngine:
             "transitions": transitions,
             "evals": self.evals,
         }
+# Fleet-level rollup (served by /alertz when a FleetRouter registers)
+# ---------------------------------------------------------------------------
+def fleet_rollup(replicas, events=None, replicas_ready=None):
+    """Merge per-replica ``/alertz`` documents into the one view an
+    operator reads during an incident: which replicas are reachable,
+    every rule firing fleet-wide grouped by severity (each entry named
+    ``replica/engine/rule`` so the page points at a machine), and the
+    router's own event narration (failovers, replicas joining/dying).
+
+    ``replicas`` maps replica name -> the raw ``/alertz`` response
+    body (``{"engines": {id: AlertEngine.snapshot()}}``), or None for
+    a replica the poll could not reach — unreachability is itself the
+    finding, so it rolls up as ``reachable: False`` rather than
+    silently vanishing."""
+    firing = {}
+    per = {}
+    for name, doc in (replicas or {}).items():
+        if not isinstance(doc, dict):
+            per[name] = {"reachable": False}
+            continue
+        entry = {"reachable": True, "firing": []}
+        for eid, snap in (doc.get("engines") or {}).items():
+            rules = snap.get("rules") or {}
+            for rule in snap.get("firing", []):
+                sev = (rules.get(rule) or {}).get("severity",
+                                                  "unknown")
+                label = f"{name}/{eid}/{rule}"
+                firing.setdefault(sev, []).append(label)
+                entry["firing"].append(label)
+        per[name] = entry
+    for sev in firing:
+        firing[sev].sort()
+    out = {
+        "replicas": per,
+        "reachable": sum(1 for p in per.values() if p["reachable"]),
+        "firing": firing,
+        "paging": bool(firing.get("page")) or
+        any(not p["reachable"] for p in per.values()),
+    }
+    if replicas_ready is not None:
+        out["replicas_ready"] = int(replicas_ready)
+    if events:
+        out["events"] = list(events)
+    return out

@@ -70,6 +70,7 @@ import weakref
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+from ..analysis.sanitizer import TrackedLock as _TrackedLock
 from .metrics import _state
 
 __all__ = ["CostProfile", "CostModel", "enabled", "count_executable",
@@ -79,7 +80,9 @@ __all__ = ["CostProfile", "CostModel", "enabled", "count_executable",
 
 # THE cost-observatory lock: the process-global profile table and every
 # CostModel's calibration/error tables mutate under it
-_lock = threading.RLock()
+# a TrackedLock under the JAX package's name, so FLAGS_sanitize
+# records acquisition order (analysis.sanitizer)
+_lock = _TrackedLock(threading.RLock(), "costmodel._lock")
 
 # signature -> CostProfile, shared across engines (a recovery handoff
 # pair runs byte-identical steps and shares one profile)

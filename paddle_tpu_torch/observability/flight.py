@@ -64,6 +64,7 @@ import time
 from collections import deque
 from typing import List, Optional
 
+from ..analysis.sanitizer import TrackedLock as _TrackedLock
 from .metrics import _state
 
 __all__ = ["PHASES", "BURN_KINDS", "FlightRecorder"]
@@ -80,7 +81,9 @@ BURN_KINDS = ("ttft", "tpot", "deadline")
 # recorders in the process happens under it (statusz reads from other
 # threads).  An RLock so `_push` can re-assert the guard under a
 # caller's hold.
-_lock = threading.RLock()
+# a TrackedLock under the JAX package's name, so FLAGS_sanitize
+# records acquisition order (analysis.sanitizer)
+_lock = _TrackedLock(threading.RLock(), "flight._lock")
 
 
 _obs_mod = None

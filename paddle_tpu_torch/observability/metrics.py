@@ -21,6 +21,8 @@ import threading
 from bisect import bisect_left
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..analysis.sanitizer import TrackedLock as _TrackedLock
+
 __all__ = [
     "LOCK", "Counter", "Gauge", "Histogram", "MetricRegistry", "Sample",
     "DEFAULT_TIME_BUCKETS", "log_buckets", "default_registry",
@@ -28,7 +30,9 @@ __all__ = [
 ]
 
 # THE telemetry lock: every registry series mutation happens under it
-LOCK = threading.RLock()
+# a TrackedLock under the JAX package's name, so FLAGS_sanitize
+# records acquisition order (analysis.sanitizer)
+LOCK = _TrackedLock(threading.RLock(), "observability.LOCK")
 
 # enabled is a module-level switch (not per-registry) so the hot-path
 # check is one dict lookup shared by metrics and span tracing

@@ -1,6 +1,6 @@
 """Ops plane: live HTTP telemetry endpoints over the serving stack
 (counterpart: paddle_tpu/observability/opsserver.py, copied, not
-imported; the fleet rollup ``/fleetz`` belongs to the fleet slice).
+imported).
 
 The serving stack's introspection surfaces (the metric registry,
 `DecodeEngine.statusz`, the flight recorder, the cost observatory's
@@ -37,6 +37,11 @@ endpoint   serves
 /tracez    the merged chrome trace (`merged_chrome_trace`), bounded —
            ``?n=<events>`` caps the non-metadata events (newest kept;
            default 20000) — plus the dropped-span count
+/fleetz    the fleet-wide rollup (`fleet.FleetRouter.fleetz`): every
+           replica's /metrics + /alertz + /statusz, poll RTT and
+           clock-offset estimates, and the cross-replica merged chrome
+           trace (``?trace=<id>`` narrows the span pull); 404 unless a
+           FleetRouter is registered in this process
 ========== ==============================================================
 
 The server is a stdlib `ThreadingHTTPServer` on a daemon thread,
@@ -69,22 +74,28 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 from urllib.parse import parse_qs, urlparse
 
+from ..analysis.sanitizer import TrackedLock as _TrackedLock
+
 
 __all__ = [
     "register_engine", "deregister_engine", "register_frontend",
     "deregister_frontend", "live_engines", "engine_ready",
     "readiness", "start_ops_server", "stop_ops_server",
-    "maybe_start_ops_server", "ops_server_port",
+    "maybe_start_ops_server", "ops_server_port", "register_fleet",
+    "deregister_fleet",
 ]
 
 # THE ops-registry lock: every registry mutation (engine/frontend
 # registration, server handle swaps) happens under it; handlers copy
 # under the lock and render outside it.
-_lock = threading.RLock()
+# a TrackedLock under the JAX package's name, so FLAGS_sanitize
+# records acquisition order (analysis.sanitizer)
+_lock = _TrackedLock(threading.RLock(), "opsserver._lock")
 
 _ENGINES: Dict[int, "weakref.ref"] = {}
 _FRONTENDS: Dict[int, "weakref.ref"] = {}
 _SERVER: Optional[tuple] = None  # (ThreadingHTTPServer, thread)
+_FLEET: Optional["weakref.ref"] = None  # the process's FleetRouter
 
 _obs_mod = None
 
@@ -138,6 +149,30 @@ def deregister_frontend(frontend):
                 if ref() is frontend or ref() is None]
         for k in dead:
             _FRONTENDS.pop(k, None)
+
+
+def register_fleet(router):
+    """Called by `fleet.FleetRouter` at construction: this process's
+    ``/alertz`` then carries the fleet-level rollup (reachability,
+    fleet-wide firing set, failover narration) beside the local
+    engines' alert state.  One router per process (latest wins);
+    weakref, so a dropped router leaves the endpoint with the object."""
+    global _FLEET
+    with _lock:
+        _FLEET = weakref.ref(router)
+
+
+def deregister_fleet(router):
+    global _FLEET
+    with _lock:
+        if _FLEET is not None and _FLEET() in (router, None):
+            _FLEET = None
+
+
+def _fleet_router():
+    with _lock:
+        ref = _FLEET
+    return ref() if ref is not None else None
 
 
 def live_engines() -> List[object]:
@@ -208,13 +243,22 @@ def engine_ready(engine) -> dict:
 
 def readiness() -> dict:
     """Fleet-level readiness: per-engine verdicts + the any-ready
-    bit `/readyz` statuses on."""
+    bit `/readyz` statuses on.  With FLAGS_fleet_trace armed the
+    verdict also reports this process's span clock (``now_ns``) — the
+    router brackets its poll around it for the NTP-style clock-offset
+    estimate (observability.fleettrace.ClockSync); flag off keeps the
+    payload byte-identical."""
     engines = live_engines()
     per = {str(e._engine_id): engine_ready(e) for e in engines}
-    return {
+    doc = {
         "ready": any(c["ready"] for c in per.values()),
         "engines": per,
     }
+    from . import fleettrace, tracing
+
+    if fleettrace.enabled():
+        doc["now_ns"] = int(tracing.now_ns())
+    return doc
 
 
 def _liveness() -> dict:
@@ -405,7 +449,28 @@ class _OpsHandler(BaseHTTPRequestHandler):
             al = getattr(eng, "_alerts", None)
             if al is not None:
                 out[str(eng._engine_id)] = al.snapshot()
-        self._send_json({"engines": out})
+        doc = {"engines": out}
+        router = _fleet_router()
+        if router is not None:
+            # the fleet-level story beside the local engines': which
+            # replicas are reachable/ready fleet-wide, every rule
+            # firing anywhere, and the router's failover narration
+            doc["fleet"] = router.alertz_rollup()
+        self._send_json(doc)
+
+    def _route_fleetz(self, query):
+        # the fleet-wide rollup (fleet.FleetRouter.fleetz).  Synchronous
+        # replica fetches are safe here: this handler runs in the
+        # router's process and calls out to replica ops planes, never
+        # back into itself
+        router = _fleet_router()
+        if router is None:
+            self._send_json(
+                {"error": "no fleet router registered in this "
+                          "process"}, code=404)
+            return
+        trace = query.get("trace", [None])[0]
+        self._send_json(router.fleetz(trace=trace))
 
 
 # ---------------------------------------------------------------------------

@@ -57,13 +57,16 @@ import time
 import weakref
 from typing import Dict, Optional
 
+from ..analysis.sanitizer import TrackedLock as _TrackedLock
 from .metrics import _state
 
 __all__ = ["Profiler", "enabled", "hot_op_table", "HOT_OP_TOP_K",
            "request_capture", "capture_status", "profiler_for",
            "deregister"]
 
-_lock = threading.RLock()
+# a TrackedLock under the JAX package's name, so FLAGS_sanitize
+# records acquisition order (analysis.sanitizer)
+_lock = _TrackedLock(threading.RLock(), "profiling._lock")
 
 # engine_id -> weakref(Profiler)
 _PROFILERS: Dict[int, "weakref.ref"] = {}

@@ -15,13 +15,16 @@ from __future__ import annotations
 import threading
 from typing import Callable, Optional
 
+from ..analysis.sanitizer import TrackedLock as _TrackedLock
 from ..core import flags as _flags
 from . import metrics as _metrics
 
 __all__ = ["start_reporter", "stop_reporter", "reporter_running",
            "maybe_start_reporter"]
 
-_lock = threading.Lock()
+# a TrackedLock under the JAX package's name, so FLAGS_sanitize
+# records acquisition order (analysis.sanitizer)
+_lock = _TrackedLock(threading.Lock(), "reporter._lock")
 _thread: Optional[threading.Thread] = None
 _stop: Optional[threading.Event] = None
 

@@ -27,6 +27,7 @@ from typing import Optional
 
 import time
 
+from ..analysis.sanitizer import TrackedLock as _TrackedLock
 from .metrics import _state
 
 __all__ = ["now_ns", "record_span", "span", "spans", "clear_spans",
@@ -39,7 +40,9 @@ HOST_TRACK = "host"
 # without bound; beyond the cap spans are counted, not stored
 MAX_SPANS = 200_000
 
-_lock = threading.Lock()
+# a TrackedLock under the JAX package's name, so FLAGS_sanitize
+# records acquisition order (analysis.sanitizer)
+_lock = _TrackedLock(threading.Lock(), "tracing._lock")
 _spans: list = []
 _dropped = [0]
 

@@ -15,13 +15,9 @@ from paddle_tpu_torch.observability import metrics as TM
 from torch_telemetry_common import (engines, models, prompts,
                                     reset_both)
 
-# JAX catalog series that belong to a later slice of the port: the fleet
-# router
-LATER_SERIES = {
-    "paddle_fleet_replicas_ready", "paddle_fleet_affinity_hits_total",
-    "paddle_fleet_affinity_misses_total", "paddle_fleet_failovers_total",
-    "paddle_fleet_failover_seconds", "paddle_fleet_poll_rtt_seconds",
-}
+# JAX catalog series that belong to a later slice of the port: none now
+# (the fleet router's six paddle_fleet_* series are ported)
+LATER_SERIES = set()
 
 TELEMETRY_FLAGS = ("flight_window", "flight_dir", "cost_model",
                    "sched_cost_admission", "peak_flops", "peak_hbm_gbps",
@@ -212,6 +208,14 @@ def test_telemetry_flags_take_jax_defaults(name):
 
 
 def test_fleet_trace_waits_for_the_fleet_slice():
+    """The fleet slice is ported: FLAGS_fleet_trace takes JAX's default
+    and can be set (`observability.fleettrace.enabled` reads it)."""
+    from paddle_tpu_torch.observability import fleettrace
+
     assert TF.flag("fleet_trace") == JF.flag("fleet_trace") is False
-    with pytest.raises(NotImplementedError, match="fleet"):
-        TF.set_flags({"fleet_trace": True})
+    assert not fleettrace.enabled()
+    TF.set_flags({"fleet_trace": True})
+    try:
+        assert fleettrace.enabled()
+    finally:
+        TF.set_flags({"fleet_trace": False})

@@ -176,7 +176,8 @@ _FLAG_NAMES = ["chunked_prefill", "prefill_chunk_tokens", "prefix_cache",
                "degraded_probe_steps", "engine_recoveries", "journal_dir",
                "journal_fsync", "snapshot_interval_steps", "journal_compact",
                "snapshot_kv", "step_timeout_ms", "compile_cache_dir",
-               "flight_window", "flight_dir", "sched_cost_admission"]
+               "flight_window", "flight_dir", "sched_cost_admission",
+               "fleet_trace", "kv_pool_debug", "sanitize"]
 # flags the port keeps at their default only
 _LATER_FLAGS = ("compile_cache_dir",)
 
@@ -191,7 +192,8 @@ def test_flag_defaults_match_jax(name):
     ("kv_quant", "int8"), ("serve_weights", "int8"), ("ragged_step", True),
     ("spec_decode_k", 4), ("chunked_prefill", False), ("serve_mesh", "mp=2"),
     ("compile_cache_dir", "/tmp/cache"), ("flight_window", 0),
-    ("flight_dir", "/tmp/flight"), ("sched_cost_admission", True)])
+    ("flight_dir", "/tmp/flight"), ("sched_cost_admission", True),
+    ("kv_pool_debug", True), ("sanitize", True)])
 def test_unported_flags_raise(name, value):
     """compile_cache_dir (a CUDA graph cannot be serialized) refuses a
     non-default, naming the reason.  kv_quant and serve_weights
@@ -199,8 +201,9 @@ def test_unported_flags_raise(name, value):
     spec_decode_k (speculative decoding), chunked_prefill=False (the
     legacy one-shot prefill), serve_mesh (tensor-parallel serving) and
     the telemetry plane's flight_window, flight_dir and
-    sched_cost_admission are ported: the value is set, and an engine
-    that takes it from the flag alone serves with it."""
+    sched_cost_admission, and the debug modes kv_pool_debug and sanitize
+    are ported: the value is set, and an engine that takes it from the
+    flag alone serves with it."""
     if name not in _LATER_FLAGS:
         from paddle_tpu_torch.models.gpt import GPT, GPTConfig
         tm = GPT.random(GPTConfig(vocab_size=64, hidden_size=32,
@@ -235,6 +238,13 @@ def test_unported_flags_raise(name, value):
             assert eng._flight.flight_dir == value
         elif name == "sched_cost_admission":
             assert eng._cost_admission and eng._cost is not None
+        elif name == "kv_pool_debug":
+            assert eng._pool_debug
+        elif name == "sanitize":
+            from paddle_tpu_torch.analysis import sanitizer
+            rep = sanitizer.get().report()
+            assert rep["steps"] >= st["steps"] > 0
+            assert rep["warm_retraces"] == 0
         elif name == "serve_mesh":
             assert eng._mesh_mp == 2 and eng._ragged
             assert st["ragged_steps"] == st["steps"] > 0

@@ -324,7 +324,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 # the serving modules this guard must see: the ragged step's, the
 # speculative decoder's, the serving stack around the engine, the
-# telemetry plane, the serving mesh and the port's telemetry tools
+# telemetry plane, the serving mesh, the port's telemetry tools, the
+# sanitizer and the fleet
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -343,7 +344,13 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.parallel.partition",
                        "paddle_tpu_torch.parallel.mesh",
                        "paddle_tpu_torch.tools.explain_request",
-                       "paddle_tpu_torch.tools.telemetry_dump")
+                       "paddle_tpu_torch.tools.telemetry_dump",
+                       "paddle_tpu_torch.analysis",
+                       "paddle_tpu_torch.analysis.sanitizer",
+                       "paddle_tpu_torch.observability.fleettrace",
+                       "paddle_tpu_torch.fleet",
+                       "paddle_tpu_torch.fleet.edge",
+                       "paddle_tpu_torch.fleet.router")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)
