@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels   # phases 1-3 of K1/K2 only
     python3 chip_smoke.py --mesh      # phases 1-2, 4, 6 and 15 only
     python3 chip_smoke.py --fleet     # phases 1-2, 4 and 16 only
+    python3 chip_smoke.py --eager     # phases 1-2, 4 and 17 only
 
 (``--durability-child`` is phase 13's own child process,
 ``--fleet-child`` phase 16's replica.)
@@ -189,7 +190,34 @@ Phases, in order; any failure exits non-zero:
    FLAGS_sanitize and FLAGS_kv_pool_debug between two unarmed ones: 4's
    tokens, no `SanitizerError`, a host sync and a pool audit a step, no
    lock-order cycle; host ms a step printed;
-17. report — one JSON line of kernels, the card line, and the last line
+17. eager — the dygraph loop of GPT-2-small at full width (the train of
+   9's weights and batch, shuffled by a `DataLoader` under one
+   ``np.random.seed``): (a) ``loss.backward(); opt.step();
+   opt.clear_grad(); sched.step()`` with AdamW over
+   ``LinearWarmup(CosineAnnealingDecay)`` and ``ClipGradByGlobalNorm``
+   for `EAGER_STEPS` steps against `jit.TrainStep` with the same recipe
+   from the same weights on the same batches: losses within
+   `EAGER_LOSS_TOL` (bit equality printed), K3/K4 launched num_layers x
+   steps each, one recorded step's attention against the plain
+   versions, peak memory of each loop and, from `EAGER_TURNS` steps of
+   each taken in turns after both, ms a step and tokens/s; then one eager
+   step with ``FLAGS_use_pallas_layernorm``: K5 once a LayerNorm (25);
+   (d) ``paddle.save``/``paddle.load`` of the eager model and optimizer
+   into another pair: one more step of each, bit-equal loss and
+   parameters; (b) the loop at ``dropout=0.1`` from ``GPT(cfg)``'s own
+   init under ``paddle.seed``: finite, falling losses, bit-equal under
+   one seed, other under another; (c) ``paddle.Model(...).fit`` for
+   `EAGER_FIT_STEPS` steps on a `TensorDataset` of the batch: its logged
+   losses against (a)'s TrainStep losses; (e) 4's model, ``eval()``,
+   greedy ``generate`` of `GEN_NEW_TOKENS` over 4's prompts with the
+   concat and the prealloc cache: equal tokens, equal to 4's engine
+   tokens (a parting only at a near-tie, `first_parting`), K3 launched
+   num_layers times a concat call and never by a prealloc call,
+   tokens/s of each; (f) ``FLAGS_check_nan_inf``: no mode installed
+   with the flags off; on, a NaN put into a bias raises
+   FloatingPointError, and a captured serve of two prompts gives 4's
+   tokens;
+18. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -200,6 +228,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3762,20 +3791,451 @@ def fleet_phase(torch, serve):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: eager train and generate
+# ---------------------------------------------------------------------------
+EAGER_ROOT = Path("build") / "chip_smoke_eager"
+EAGER_STEPS = 10
+# steps of the dygraph loop and of TrainStep taken in turns after both
+# loops, for the time comparison (the first mover alternates)
+EAGER_TURNS = 6
+EAGER_DROPOUT_STEPS = 6
+EAGER_FIT_STEPS = 3
+GEN_NEW_TOKENS = 32
+# the eager loop against jit.TrainStep (and fit against it): the same
+# torch ops on the same inputs in the same order, so the losses should be
+# bit-equal (printed); the gate allows 1e-4 of a ~10.8 loss in case a
+# library reduction sums in another order between two calls
+EAGER_LOSS_TOL = 1e-4
+
+
+def eager_recipe(model, lr_peak=3e-4):
+    """The dygraph loop's optimizer: AdamW (weight decay 0.01) over
+    `LinearWarmup(CosineAnnealingDecay(lr_peak, T_max=100), 10, 0,
+    lr_peak)` with `ClipGradByGlobalNorm(1.0)`."""
+    from paddle_tpu_torch import nn, optimizer
+
+    sched = optimizer.lr.LinearWarmup(optimizer.lr.CosineAnnealingDecay(
+        lr_peak, T_max=100), 10, 0.0, lr_peak)
+    opt = optimizer.AdamW(sched, parameters=model.parameters(),
+                          weight_decay=0.01,
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    return sched, opt
+
+
+def eager_step(torch, model, opt, sched, x, y):
+    """One step of the dygraph loop; returns the detached loss."""
+    from paddle_tpu_torch import amp, nn
+
+    with amp.auto_cast(dtype="bfloat16"):
+        logits = model(x)
+    loss = nn.functional.cross_entropy(logits, y)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    sched.step()
+    return loss.detach()
+
+
+def _timed_steps(torch, run, batches):
+    """``run(x, y)`` over ``batches``, each step synchronized; returns
+    ``(losses, step seconds)``."""
+    losses, times = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run(x, y))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return [float(v) for v in losses], times
+
+
+def _bits_equal(a, b):
+    return [float(x) for x in a] == [float(x) for x in b]
+
+
+def eager_vs_train_step(torch, tp, cfg, batches):
+    """(a) GPT-2-small from `train_profile`'s weights, the dygraph loop
+    for `EAGER_STEPS` steps against `jit.TrainStep` with the same recipe
+    from the same weights on the same batches: losses, K3/K4 launches
+    12 x steps each, one recorded step's attention against the plain
+    versions, ms a step and peak memory of each loop; then `EAGER_TURNS`
+    more steps of each in turns, whose medians compare the two.  Returns
+    ``(result, the live eager model, its optimizer and scheduler)``."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn.functional import attention as attn_mod
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    sched, opt = eager_recipe(model)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with FlashRecorder(attn_mod) as rec:
+        eager, eager_t = _timed_steps(
+            torch, lambda x, y: eager_step(torch, model, opt, sched, x, y),
+            batches)
+    counts = read_counts()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    want = cfg.num_layers * len(batches)
+    if any(counts[k] != want for k in FLASH_KERNELS):
+        fail(f"eager loop: K3/K4 launches {counts} != num_layers x steps "
+             f"= {want}")
+    if any(p.grad is not None for p in model.parameters()):
+        fail("eager loop: clear_grad left a gradient")
+    if rec.call is None or "dout" not in rec.call:
+        fail("eager loop: no attention recorded")
+    q, k, v = rec.call["args"]
+    errs, ref, _ = flash_errors(torch, fa, q, k, v, rec.call["dout"],
+                                rec.call["causal"])
+    errs["path_out"] = (rec.call["out"].float() - ref.float()).abs().max(
+        ).item()
+    tol = dict(FLASH_TOL["bfloat16"], path_out=FLASH_TOL["bfloat16"]["out"])
+    if q.dtype != torch.bfloat16 or any(not e <= tol[n]
+                                        for n, e in errs.items()):
+        fail(f"eager loop: the recorded attention ({q.dtype}) disagrees "
+             f"with the plain version: {errs} (tol {tol})")
+    del rec
+
+    model2 = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    sched2, opt2 = eager_recipe(model2)
+    step = jit.train_step(model2, tp.amp_loss_fn, opt2)
+    torch.cuda.synchronize()
+    base2 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def staged(x, y):
+        loss = step(x, y)
+        sched2.step()
+        return loss
+
+    staged_l, staged_t = _timed_steps(torch, staged, batches)
+    staged_peak = torch.cuda.max_memory_allocated() - base2
+    runs = {"eager": lambda x, y: eager_step(torch, model, opt, sched, x, y),
+            "train_step": staged}
+    turns = {k: ([], []) for k in runs}
+    for i, batch in enumerate(batches[:EAGER_TURNS]):
+        for name in sorted(runs, reverse=bool(i % 2)):
+            loss, t = _timed_steps(torch, runs[name], [batch])
+            turns[name][0].extend(loss)
+            turns[name][1].extend(t)
+    eager += turns["eager"][0]
+    staged_l += turns["train_step"][0]
+    diff = max(abs(a - b) for a, b in zip(eager, staged_l))
+    med = statistics.median
+    ntok = batches[0][0].numel()
+    res = dict(
+        steps=len(batches), turns=EAGER_TURNS, losses_eager=eager,
+        losses_train_step=staged_l,
+        loss_max_abs_diff=diff, bit_equal=_bits_equal(eager, staged_l),
+        tol=EAGER_LOSS_TOL, launches=counts,
+        step_attention_max_abs_err=errs,
+        eager_ms_per_step=med(eager_t[1:]) * 1e3,
+        train_step_ms_per_step=med(staged_t[1:]) * 1e3,
+        eager_ms_in_turns=med(turns["eager"][1]) * 1e3,
+        train_step_ms_in_turns=med(turns["train_step"][1]) * 1e3,
+        eager_first_step_ms=eager_t[0] * 1e3,
+        eager_tokens_per_s=ntok / med(turns["eager"][1]),
+        train_step_tokens_per_s=ntok / med(turns["train_step"][1]),
+        eager_peak_memory_bytes_above_start=eager_peak,
+        train_step_peak_memory_bytes_above_start=staged_peak,
+        weights_and_state_bytes_before_eager=base)
+    print("eager (a): " + json.dumps(res), flush=True)
+    if not all(math.isfinite(x) for x in eager) or not diff <= \
+            EAGER_LOSS_TOL:
+        fail(f"eager loop against TrainStep: losses {eager} vs {staged_l} "
+             f"(tolerance {EAGER_LOSS_TOL})")
+
+    # K5 on the eager path: one more step of the TrainStep's model,
+    # eagerly, with FLAGS_use_pallas_layernorm on (25 LayerNorms)
+    from paddle_tpu_torch.core import flags
+    flags.set_flags({"use_pallas_layernorm": True})
+    try:
+        reset_counts()
+        eager_step(torch, model2, opt2, sched2, *batches[0])
+        torch.cuda.synchronize()
+        ln_counts = read_counts()
+    finally:
+        flags.set_flags({"use_pallas_layernorm": False})
+    want_ln = 2 * cfg.num_layers + 1
+    if ln_counts["layer_norm"] != want_ln or ln_counts["fwd"] != \
+            cfg.num_layers:
+        fail(f"eager step with K5: launches {ln_counts}, want "
+             f"{want_ln} LayerNorms and {cfg.num_layers} K3")
+    res["k5_step_launches"] = ln_counts
+    del step, model2, opt2
+    return res, (model, opt, sched)
+
+
+def eager_dropout_check(torch, cfg, batch):
+    """(b) The loop at ``dropout=0.1`` from ``GPT(cfg)``'s own init (the
+    JAX package's, from `seed`): `EAGER_DROPOUT_STEPS` steps on the fixed
+    batch with AdamW(1e-4) and the global-norm clip, three runs (seeds 1,
+    1, 2): finite losses that fall, bit-equal under one seed, other
+    losses under another."""
+    import dataclasses
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.models.gpt import GPT
+
+    dcfg = dataclasses.replace(cfg, dropout=0.1, use_parallel_layers=True)
+
+    def run(seed):
+        paddle.seed(seed)
+        model = GPT(dcfg, device="cuda")
+        opt = optimizer.AdamW(1e-4, parameters=model.parameters(),
+                              weight_decay=0.01,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        sched = optimizer.lr.LambdaDecay(1.0, lambda e: 1.0)
+        losses = [eager_step(torch, model, opt, sched, *batch)
+                  for _ in range(EAGER_DROPOUT_STEPS)]
+        return [float(x) for x in losses]
+
+    runs = [run(1), run(1), run(2)]
+    res = dict(steps=EAGER_DROPOUT_STEPS, losses_seed1=runs[0],
+               losses_seed1_again=runs[1], losses_seed2=runs[2])
+    print("eager (b) dropout 0.1: " + json.dumps(res), flush=True)
+    if not all(math.isfinite(x) for r in runs for x in r):
+        fail("dropout loop: non-finite loss")
+    if not runs[0][-1] < runs[0][0]:
+        fail(f"dropout loop: the loss did not fall: {runs[0]}")
+    if runs[0] != runs[1]:
+        fail(f"dropout loop: one seed, two runs, other losses: {runs[0]} "
+             f"vs {runs[1]}")
+    if runs[0] == runs[2]:
+        fail("dropout loop: seeds 1 and 2 gave the same losses")
+    return res
+
+
+def eager_fit_check(torch, tp, cfg, tokens, labels, staged_losses):
+    """(c) ``paddle.Model(GPT-2-small).fit`` on a `TensorDataset` of the
+    batch, shuffled under the same ``np.random.seed`` as (a)'s loader,
+    `EAGER_FIT_STEPS` epochs of one batch, the forward under bf16
+    ``amp_configs``: its logged losses against (a)'s TrainStep losses."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io, nn
+    from paddle_tpu_torch.hapi import callbacks
+    from paddle_tpu_torch.models.gpt import GPT
+
+    logged = []
+
+    class Log(callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            logged.append(logs["loss"])
+
+    model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    _, opt = eager_recipe(model)
+    m = paddle.Model(model)
+    m.prepare(opt, nn.CrossEntropyLoss(), amp_configs={"dtype": "bfloat16"})
+    ds = io.TensorDataset([tokens.cpu().numpy(), labels.cpu().numpy()])
+    np.random.seed(SEED)
+    m.fit(ds, batch_size=tokens.shape[0], epochs=EAGER_FIT_STEPS,
+          shuffle=True, verbose=0, callbacks=[Log()])
+    want = staged_losses[:EAGER_FIT_STEPS]
+    diff = max(abs(a - b) for a, b in zip(logged, want))
+    res = dict(losses=logged, train_step_losses=want, loss_max_abs_diff=diff,
+               bit_equal=_bits_equal(logged, want), tol=EAGER_LOSS_TOL)
+    print("eager (c) fit: " + json.dumps(res), flush=True)
+    if len(logged) != EAGER_FIT_STEPS or not diff <= EAGER_LOSS_TOL:
+        fail(f"fit against TrainStep: {logged} vs {want}")
+    return res
+
+
+def eager_save_load_check(torch, cfg, live, batch):
+    """(d) ``paddle.save`` the live eager model's and optimizer's
+    ``state_dict``, ``paddle.load`` them into another GPT-2-small and
+    optimizer: one more step of each pair gives the same loss and the
+    same parameters, bit for bit."""
+    import shutil
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPT
+
+    model, opt, sched = live
+    EAGER_ROOT.mkdir(parents=True, exist_ok=True)
+    p, q = str(EAGER_ROOT / "gpt.pdparams"), str(EAGER_ROOT / "gpt.pdopt")
+    t0 = time.perf_counter()
+    paddle.save(model.state_dict(), p)
+    paddle.save(opt.state_dict(), q)
+    save_s = time.perf_counter() - t0
+    other = GPT.random(cfg, seed=SEED + 7, device="cuda")
+    sched2, opt2 = eager_recipe(other)
+    t0 = time.perf_counter()
+    missing, unexpected = other.set_state_dict(paddle.load(p))
+    opt2.set_state_dict(paddle.load(q))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nbytes = sum((EAGER_ROOT / n).stat().st_size
+                 for n in ("gpt.pdparams", "gpt.pdopt"))
+    shutil.rmtree(EAGER_ROOT)
+    if missing or unexpected:
+        fail(f"save/load: missing {missing}, unexpected {unexpected}")
+    la = float(eager_step(torch, model, opt, sched, *batch))
+    lb = float(eager_step(torch, other, opt2, sched2, *batch))
+    same = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                  other.parameters()))
+    res = dict(loss_live=la, loss_loaded=lb, params_bit_equal=same,
+               file_bytes=nbytes, save_s=save_s, load_s=load_s,
+               lr_live=opt.get_lr(), lr_loaded=opt2.get_lr())
+    print("eager (d) save/load: " + json.dumps(res), flush=True)
+    if la != lb or not same or opt.get_lr() != opt2.get_lr():
+        fail("save/load: the loaded pair's next step differs from the "
+             "live pair's")
+    return res
+
+
+def eager_generate_check(torch, serve):
+    """(e) GPT-2-small of phase 4 (the same weights), ``eval()``, greedy
+    ``generate`` of `GEN_NEW_TOKENS` over each of phase 4's prompts with
+    the concat and the prealloc cache: equal tokens (a parting only at a
+    near-tie, `first_parting`), and both equal to phase 4's engine
+    tokens; K3 launched num_layers times a concat call (the prompt) and
+    never by a prealloc call (masked: the composed form); tokens/s of
+    each."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import serve_profile
+
+    model, prompts, _ = serve_profile.gpt2_small_serve("cuda")
+    model.eval()
+    cfg = model.cfg
+    engine_tokens = [list(t[:GEN_NEW_TOKENS]) for t in serve["tokens"]]
+    out, res = {}, {}
+    for mode in ("concat", "prealloc"):
+        toks, k3, wall = [], [], 0.0
+        for p in prompts:
+            ids = torch.tensor([p], device="cuda")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.generate(ids, max_new_tokens=GEN_NEW_TOKENS,
+                                 use_cache=mode)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            k3.append(read_counts()["fwd"])
+            toks.append(got[0].tolist())
+        want = cfg.num_layers if mode == "concat" else 0
+        if any(n != want for n in k3):
+            fail(f"generate {mode}: K3 launches a call {k3}, want {want}")
+        out[mode] = toks
+        res[mode] = dict(k3_launches_per_call=want, calls=len(prompts),
+                         tokens_per_s=len(prompts) * GEN_NEW_TOKENS / wall,
+                         wall_s=wall)
+    res["parting_concat_prealloc"] = first_parting(
+        torch, model, prompts, out["concat"], out["prealloc"],
+        "generate prealloc against concat")
+    for mode in ("concat", "prealloc"):
+        res[f"parting_engine_{mode}"] = first_parting(
+            torch, model, prompts, engine_tokens, out[mode],
+            f"generate {mode} against the engine")
+    res["tokens_equal"] = out["concat"] == out["prealloc"] == engine_tokens
+    print("eager (e) generate: " + json.dumps(res), flush=True)
+    return res, model, prompts
+
+
+def eager_nan_check(torch, model, prompts, serve):
+    """(f) ``FLAGS_check_nan_inf``: off, no mode is installed; on, a NaN
+    put into the middle block's fc1 bias raises FloatingPointError in the
+    forward; on, a captured serve of two prompts (its captures run with
+    the mode suspended) gives phase 4's tokens."""
+    from paddle_tpu_torch.core import dispatch, flags
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+
+    if dispatch.active_mode() is not None:
+        fail("check_nan_inf: a mode is installed with the flags off")
+    ids = torch.tensor([prompts[1][:64]], device="cuda")
+    bias = model.blocks[len(model.blocks) // 2].fc1.bias
+    keep = bias.detach()[0].item()
+    raised = None
+    flags.set_flags({"check_nan_inf": True})
+    try:
+        with torch.no_grad():
+            bias[0] = float("nan")
+            try:
+                model(ids)
+            except FloatingPointError as e:
+                raised = str(e)
+            bias[0] = keep
+        eng = DecodeEngine(model, max_batch_size=8, page_size=64,
+                           device="cuda")
+        got = eng.generate(prompts[:2], 8)
+        graphs = eng.graph_captures()
+    finally:
+        flags.set_flags({"check_nan_inf": False})
+    res = dict(raised=raised, captured_graphs=graphs,
+               serve_tokens_equal=[list(t) for t in got] == [
+                   list(t[:8]) for t in serve["tokens"][:2]],
+               mode_after=dispatch.active_mode() is not None)
+    print("eager (f) check_nan_inf: " + json.dumps(res), flush=True)
+    if raised is None:
+        fail("check_nan_inf: a NaN activation did not raise")
+    if graphs < 1 or res["mode_after"]:
+        fail(f"check_nan_inf: the captured serve took {graphs} graphs, "
+             f"mode left installed {res['mode_after']}")
+    if not res["serve_tokens_equal"]:
+        fail("check_nan_inf: the serve under the flag gave other tokens")
+    return res
+
+
+def eager_phase(torch, serve):
+    """Phase 17: (a)-(f) of the eager train and generate."""
+    import numpy as np
+
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tp.gpt2_small_config()
+    tokens, labels = tp.train_batch(cfg, "cuda")
+    ds = io.TensorDataset([tokens.cpu().numpy(), labels.cpu().numpy()])
+    loader = io.DataLoader(ds, places="cuda", batch_size=tokens.shape[0],
+                           shuffle=True)
+    np.random.seed(SEED)
+    batches = [b for _ in range(EAGER_STEPS) for b in loader]
+    card = card_line()
+    out = dict(card=card)
+    out["eager_vs_train_step"], live = eager_vs_train_step(torch, tp, cfg,
+                                                           batches)
+    out["save_load"] = eager_save_load_check(torch, cfg, live, batches[0])
+    del live
+    out["dropout"] = eager_dropout_check(torch, cfg, (tokens, labels))
+    out["fit"] = eager_fit_check(torch, tp, cfg, tokens, labels,
+                                 out["eager_vs_train_step"][
+                                     "losses_train_step"])
+    out["generate"], model, prompts = eager_generate_check(torch, serve)
+    out["check_nan_inf"] = eager_nan_check(torch, model, prompts, serve)
+    a, g = out["eager_vs_train_step"], out["generate"]
+    print(f"eager: {a['eager_ms_in_turns']:.2f} ms a step eager against "
+          f"{a['train_step_ms_in_turns']:.2f} TrainStep in turns, "
+          f"{a['eager_tokens_per_s']:.0f} trained tokens/s, peak "
+          f"{a['eager_peak_memory_bytes_above_start'] / 2**30:.2f} GiB above "
+          f"the weights; generate {g['concat']['tokens_per_s']:.1f} "
+          f"(concat) / {g['prealloc']['tokens_per_s']:.1f} (prealloc) "
+          f"tokens/s at batch 1; {card}", flush=True)
+    return out
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
     chip_smoke_kernels.json (a quick way to time K1/K2 of any checkout:
-    copy this script into its root and run it there)."""
+    copy this script into its root and run it there).  ``--mesh``,
+    ``--fleet``, ``--eager``: the serve of 4 and phase 15, 16 or 17,
+    into chiprun_out/chip_smoke_<mode>.json."""
     import torch
 
     kernels_only = argv == ["--kernels"]
     mesh_only = argv == ["--mesh"]
     fleet_only = argv == ["--fleet"]
+    eager_only = argv == ["--eager"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
-    if argv and not (kernels_only or mesh_only or fleet_only or child
-                     or fleet_kid):
+    if argv and not (kernels_only or mesh_only or fleet_only or eager_only
+                     or child or fleet_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -3823,6 +4283,17 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_mesh.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if eager_only:
+        res = dict(card=card)
+        res["serve"], _ = serve_phase(torch)
+        res["eager"] = eager_phase(torch, res["serve"])
+        res["serve"]["tokens"] = None
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_eager.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -3893,7 +4364,10 @@ def main(argv) -> int:
     # 16. the fleet
     fleet = fleet_phase(torch, serve)
 
-    # 17. report
+    # 17. eager train and generate
+    eager = eager_phase(torch, serve)
+
+    # 18. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -3944,14 +4418,22 @@ def main(argv) -> int:
     # K3/K4 at the train path's own shape and dtype (bf16 under AMP)
     train_case = next(c for c in flash_cases if c["case"] == "train"
                       and c["dtype"] == "bfloat16")
+    gen = eager["generate"]
     for kern, (replaces, _, _) in FLASH_KERNELS.items():
         k = train_case["kernels"][kern]
         if kern == "fwd":  # every case of K3/K4, once
             k = dict(k, cases=flash_cases)
+        paths = dict(train=train["launches"][kern],
+                     eager_train=eager["eager_vs_train_step"]["launches"][
+                         kern])
+        if kern == "fwd":
+            paths.update(generate_concat=gen["concat"]["calls"]
+                         * gen["concat"]["k3_launches_per_call"],
+                         generate_prealloc=0)
         kernels.append(dict(
             name=f"flash_attention_{'bwd_' if kern != 'fwd' else ''}{kern}",
             route="cuda", source=FLASH_SOURCE, replaces=replaces,
-            launches=train["launches"][kern], **k,
+            launches=train["launches"][kern], launches_by_path=paths, **k,
             timed_case="train bfloat16 B=16 H=12 S=1024 D=64 causal",
             plain_call=("_composed_attention" if kern == "fwd" else
                         "flash_attention_bwd_reference (dq, dk and dv "
@@ -3967,6 +4449,10 @@ def main(argv) -> int:
     kernels.append(dict(
         name="layer_norm", route="cuda", source=LN_SOURCE,
         replaces=LN_REPLACES, launches=train_ln["launches"]["layer_norm"],
+        launches_by_path=dict(
+            train_layer_norm=train_ln["launches"]["layer_norm"],
+            eager_step_layer_norm=eager["eager_vs_train_step"][
+                "k5_step_launches"]["layer_norm"]),
         **{k: ln_head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
         timed_case=f"train {path_dtype} [16384, 768]",
@@ -3977,7 +4463,7 @@ def main(argv) -> int:
                   serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
                   serve_legacy=legacy, serve_reliability=reliability,
                   telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
-                  train=train, train_layer_norm=train_ln)
+                  train=train, train_layer_norm=train_ln, eager=eager)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -16,6 +16,8 @@ import threading
 
 import torch
 
+from ..core import flags as _flags
+
 __all__ = ["WHITE", "BLACK", "auto_cast", "is_auto_cast_enabled",
            "amp_state", "cast_inputs"]
 
@@ -32,9 +34,14 @@ def amp_state():
 
 
 @contextlib.contextmanager
-def auto_cast(enable=True, dtype="bfloat16"):
+def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
+              level="O1", dtype=None):
     """Run the enclosed functionals under the WHITE/BLACK cast rule, with
-    ``dtype`` ("bfloat16" or "float16") as the autocast dtype."""
+    ``dtype`` ("bfloat16" or "float16"; default ``FLAGS_amp_dtype``) as
+    the autocast dtype.  The custom lists and the level are taken for
+    Paddle's signature and not read, as in the JAX package."""
+    if dtype is None:
+        dtype = str(_flags.flag("amp_dtype"))
     prev = amp_state()
     _state.enabled, _state.dtype = bool(enable), _DTYPES[dtype]
     try:

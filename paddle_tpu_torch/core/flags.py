@@ -1,16 +1,22 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Forty-six flags work here;
-two more keep their default only, because the code they switch on is
+The names and defaults are paddle_tpu's.  Fifty-one flags work here.
+Three more keep their default only, because the code they switch on is
 not ported yet (or, for ``compile_cache_dir``, has no counterpart) —
 setting one of those to anything else raises NotImplementedError naming
-the slice or the reason.  As in paddle_tpu,
+the slice or the reason.  Three keep their default because eager torch
+has nothing for them to switch (`_FIXED`): any other value raises
+ValueError with the reason.  As in paddle_tpu,
 a flag's value is checked where it is read: `DecodeEngine` raises
 ValueError on a ``kv_quant`` or ``serve_weights`` mode other than "off"
-and "int8".
+and "int8".  Setting ``check_nan_inf`` or ``benchmark`` installs or
+removes `core.dispatch`'s checks, ``deterministic`` calls
+``torch.use_deterministic_algorithms``, ``log_level`` sets the level of
+the ``paddle_tpu_torch`` logger.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict
 
 __all__ = ["flag", "set_flags", "get_flags"]
@@ -95,6 +101,27 @@ _PORTED = {
     # host syncs a step, the pool audit)
     "kv_pool_debug": False,
     "sanitize": False,
+    # eager checks (core.dispatch): raise FloatingPointError on the first
+    # op output holding NaN or Inf; synchronize the device after every op
+    "check_nan_inf": False,
+    "benchmark": False,
+    # torch.use_deterministic_algorithms
+    "deterministic": False,
+    # the default dtype of amp.auto_cast
+    "amp_dtype": "bfloat16",
+    # verbosity of the paddle_tpu_torch logger: 0 warnings, 1 info, 2+ debug
+    "log_level": 0,
+}
+
+# flag -> (default, why eager torch has nothing for another value to switch)
+_FIXED = {
+    "eager_jit_ops": (True, "eager torch runs each op directly and has no "
+                            "per-op executable cache to turn off"),
+    "eager_cache_size": (4096, "eager torch runs each op directly and has "
+                               "no per-op executable cache to bound"),
+    "use_rbg_rng": (True, "dropout and the initializers draw from "
+                          "torch.Generator (core.framework); there is no "
+                          "TPU RBG generator to choose"),
 }
 
 # flag -> (default, the later slice that ports what it switches on)
@@ -106,10 +133,13 @@ _LATER = {
     # serialized, so a fresh process recaptures (no counterpart yet)
     "compile_cache_dir": ("", "persistent step-cache (CUDA graphs cannot "
                               "be serialized)"),
+    # the per-op dispatch table at exit: the eager profiler's to print
+    "eager_dispatch_report": (False, "eager profiler"),
 }
 
 _REGISTRY: Dict[str, Any] = dict(_PORTED)
 _REGISTRY.update({k: d for k, (d, _) in _LATER.items()})
+_REGISTRY.update({k: d for k, (d, _) in _FIXED.items()})
 
 
 def _key(name: str) -> str:
@@ -126,8 +156,23 @@ def set_flags(flags: Dict[str, Any]) -> None:
             raise NotImplementedError(
                 f"{k}={v!r} is not ported yet: it lands with the "
                 f"{_LATER[k][1]} slice of paddle_tpu_torch")
+        if k in _FIXED and v != _FIXED[k][0]:
+            raise ValueError(f"{k} keeps its default {_FIXED[k][0]!r} in "
+                             f"paddle_tpu_torch: {_FIXED[k][1]}")
     for k, v in items:
         _REGISTRY[k] = v
+    keys = {k for k, _ in items}
+    if keys & {"check_nan_inf", "benchmark"}:
+        from . import dispatch
+        dispatch.sync_mode()
+    if "deterministic" in keys:
+        import torch
+        torch.use_deterministic_algorithms(bool(_REGISTRY["deterministic"]))
+    if "log_level" in keys:
+        level = int(_REGISTRY["log_level"])
+        logging.getLogger("paddle_tpu_torch").setLevel(
+            logging.WARNING if level <= 0 else
+            logging.INFO if level == 1 else logging.DEBUG)
 
 
 def get_flags(names) -> Dict[str, Any]:

@@ -90,6 +90,7 @@ import torch.nn.functional as F
 
 from .. import observability as _obs
 from ..analysis import sanitizer as _san
+from ..core import dispatch as _dispatch
 from ..core import flags as _flags
 from ..observability import costmodel as _costmodel
 from ..device import resolve_device
@@ -393,14 +394,17 @@ class _StepGraph:
             # a dead engine and its graphs)
             gc_on = gc.isenabled()
             gc.disable()
-            graph.capture_begin(pool=mem.pool,
-                                capture_error_mode="thread_local")
-            try:
-                cap.out = self.fn(*cap.inputs)
-            finally:
-                graph.capture_end()
-                if gc_on:
-                    gc.enable()
+            # FLAGS_check_nan_inf / FLAGS_benchmark's mode syncs the host
+            # after an op: off the stack for the capture
+            with _dispatch.suspended():
+                graph.capture_begin(pool=mem.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    cap.out = self.fn(*cap.inputs)
+                finally:
+                    graph.capture_end()
+                    if gc_on:
+                        gc.enable()
         cur.wait_stream(mem.stream)
         if out is not None:
             out.record_stream(cur)
@@ -1279,8 +1283,14 @@ class DecodeEngine:
                  flight_window=None, flight_dir=None, cost_model=None,
                  cost_calibration=None, alerts=None, profile=None,
                  profile_sample_steps=None, serve_mesh=None, _adopt=None):
-        self.device = resolve_device(device)
         cfg = model.cfg
+        if getattr(cfg, "dropout", 0.0) and model.training:
+            # dropout is not part of the step functions: refuse rather
+            # than flip the caller's train/eval mode
+            raise ValueError(
+                "DecodeEngine serves inference only: call model.eval() "
+                "first (cfg.dropout > 0 and the model is in train mode)")
+        self.device = resolve_device(device)
         self._mesh_shards = None
         self._init_mesh(serve_mesh, cfg.num_heads, ragged_step)
         if _adopt is not None:

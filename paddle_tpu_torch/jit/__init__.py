@@ -4,7 +4,11 @@ The JAX package compiles forward, backward and the optimizer update into
 one jitted executable that donates the parameters and optimizer state.
 PyTorch runs eagerly, so `TrainStep` runs the same three stages in turn
 on the model's own parameters: the forward and ``backward`` through
-torch autograd, then the optimizer's in-place `apply_gradients`.
+torch autograd, then the optimizer's in-place `apply_gradients` (its
+clip, its decay and the parameters' ``ParamAttr.learning_rate``
+multipliers; not a parameter's own regularizer, as in the JAX package).
+Its optimizer slots and step count are its own, not the optimizer's
+eager ones.
 """
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ from typing import Callable
 
 import torch
 from torch import nn
+
+from ..optimizer.optimizer import collect_lr_mults
 
 __all__ = ["TrainStep", "train_step"]
 
@@ -28,6 +34,7 @@ class TrainStep:
         self.optimizer = optimizer
         self._params = {k: p for k, p in model.named_parameters()
                         if p.requires_grad}
+        self._lr_mults = collect_lr_mults(self._params)
         self._opt_state = None
         self._step = 0
 
@@ -41,7 +48,8 @@ class TrainStep:
         loss.backward()
         grads = {k: p.grad for k, p in self._params.items()}
         self.optimizer.apply_gradients(self._params, grads, self._opt_state,
-                                       self.optimizer.get_lr(), self._step)
+                                       self.optimizer.get_lr(), self._step,
+                                       lr_mults=self._lr_mults)
         for p in self._params.values():
             p.grad = None
         return loss.detach()

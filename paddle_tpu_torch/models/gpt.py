@@ -3,9 +3,9 @@
 
 `GPT` holds trainable parameters under the JAX package's names
 (``blocks.0.qkv.weight`` ...) and in its layout: every projection weight
-is ``[in, out]``.  Its ``forward`` (no KV cache) is the training path;
-the serving engine reads the same weights through `GPT.params`.  The
-cached ``forward`` and ``generate`` come with a later slice.
+is ``[in, out]``.  Its ``forward`` without a cache is the training path;
+with the concat or prealloc KV caches it is ``generate``'s eager decode;
+the serving engine reads the same weights through `GPT.params`.
 """
 from __future__ import annotations
 
@@ -15,13 +15,19 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..core.dtype import convert_dtype
 from ..device import resolve_device
 from ..nn import functional as F
+from ..nn import initializer as init
+from ..nn.decode import sample_logits
 from ..nn.functional.loss import cross_entropy
-from ..nn.layer import Dropout, Embedding, LayerList, LayerNorm, Linear
+from ..nn.layer import (Dropout, Embedding, Layer, LayerList, LayerNorm,
+                        Linear)
+from ..nn.layer.transformer import (PreallocKVCache, kv_cache_write,
+                                    kv_capacity_check, kv_valid_mask)
 from ..ops.math import matmul
 
-__all__ = ["GPTConfig", "GPTBlock", "GPT", "gpt_loss_fn"]
+__all__ = ["GPTConfig", "GPTBlock", "GPT", "init_params", "gpt_loss_fn"]
 
 
 @dataclass
@@ -89,7 +95,42 @@ def _embedding(w):
     return _adopt(Embedding(w.shape[0], w.shape[1], device="meta"), weight=w)
 
 
-class GPTBlock(nn.Module):
+def init_params(cfg: GPTConfig, device=None, dtype=torch.float32) -> dict:
+    """A weight tree drawn as the JAX package's ``GPT(cfg)`` draws its
+    parameters, from the default generator of ``device`` (default: the
+    card): ``wte`` N(0, 0.02) with ``use_parallel_layers`` (its
+    vocab-parallel embedding) else N(0, 1), ``wpe`` N(0, 1), projections
+    Xavier uniform with zero biases, the residual projections (``out``,
+    ``fc2``) N(0, 0.02 / sqrt(2 * num_layers)), LayerNorms weight 1 and
+    bias 0, an untied head Xavier uniform without bias."""
+    device = resolve_device(device)
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    xavier, one, zero = init.XavierUniform(), init.Constant(1.0), \
+        init.Constant(0.0)
+    resid = init.Normal(0.0, 0.02 / math.sqrt(2 * cfg.num_layers))
+
+    def draw(ini, *shape):
+        return ini._init(shape, dtype, device)
+
+    params = {"wte": draw(init.Normal(0.0, 0.02 if cfg.use_parallel_layers
+                                      else 1.0), cfg.vocab_size, h),
+              "wpe": draw(init.Normal(0.0, 1.0), cfg.max_seq_len, h)}
+    params["blocks"] = [{
+        "ln1_w": draw(one, h), "ln1_b": draw(zero, h),
+        "ln2_w": draw(one, h), "ln2_b": draw(zero, h),
+        "qkv_w": draw(xavier, h, 3 * h), "qkv_b": draw(zero, 3 * h),
+        "out_w": draw(resid, h, h), "out_b": draw(zero, h),
+        "fc1_w": draw(xavier, h, f), "fc1_b": draw(zero, f),
+        "fc2_w": draw(resid, f, h), "fc2_b": draw(zero, h),
+    } for _ in range(cfg.num_layers)]
+    params["lnf_w"], params["lnf_b"] = draw(one, h), draw(zero, h)
+    if not cfg.tie_embeddings:
+        params["head_w"], params["head_b"] = \
+            draw(xavier, h, cfg.vocab_size), None
+    return params
+
+
+class GPTBlock(Layer):
     def __init__(self, cfg: GPTConfig, p: dict):
         super().__init__()
         self.num_heads = cfg.num_heads
@@ -102,28 +143,63 @@ class GPTBlock(nn.Module):
         self.fc2 = _linear(p["fc2_w"], p["fc2_b"])
         self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x):
-        """The block without a KV cache: pre-LN causal self-attention and
-        a tanh-GELU MLP, each added to the residual.  x: [b, s, h]."""
+    def forward(self, x, cache=None, prealloc_mask=None):
+        """Pre-LN causal self-attention and a tanh-GELU MLP, each added to
+        the residual.  x: [b, s, h].  ``cache`` enables incremental
+        decode:
+
+        * ``("concat", k, v)`` or ``("concat", None, None)``: the growth
+          cache, K/V concatenated a step (a causal mask aligned
+          bottom-right, so an appended row sees the whole prefix);
+        * a `PreallocKVCache` (`GPT.gen_caches`): buffers written at
+          ``length``, attention under the validity mask ``prealloc_mask``
+          (`GPT.forward` builds it once a step; made here when None).
+
+        Returns ``x`` without a cache, else ``(x, new_cache)``."""
         b, s, h = x.shape
         qkv = self.qkv(self.ln1(x))
         qkv = qkv.reshape(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each [b, H, s, d]
-        attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        if cache is None:
+            attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        elif isinstance(cache, PreallocKVCache):
+            hoisted = prealloc_mask is not None
+            full_k = kv_cache_write(cache.k, k, cache.length,
+                                    check_capacity=not hoisted)
+            full_v = kv_cache_write(cache.v, v, cache.length,
+                                    check_capacity=False)
+            mask = prealloc_mask if hoisted else kv_valid_mask(
+                cache.length, s, full_k.shape[2], device=x.device)
+            attn = F.scaled_dot_product_attention(q, full_k, full_v,
+                                                  attn_mask=mask)
+            cache = PreallocKVCache(full_k, full_v, int(cache.length) + s)
+        else:
+            _, k_prev, v_prev = cache
+            if k_prev is not None:
+                k = torch.cat([k_prev, k], dim=2)
+                v = torch.cat([v_prev, v], dim=2)
+            cache = ("concat", k, v)
+            attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         attn = attn.permute(0, 2, 1, 3).reshape(b, s, h)
         x = x + self.dropout(self.out_proj(attn))
         y = self.ln2(x)
-        return x + self.dropout(self.fc2(F.gelu(self.fc1(y),
-                                                approximate=True)))
+        x = x + self.dropout(self.fc2(F.gelu(self.fc1(y), approximate=True)))
+        return x if cache is None else (x, cache)
 
 
-class GPT(nn.Module):
-    def __init__(self, cfg: GPTConfig, params: dict):
+class GPT(Layer):
+    def __init__(self, cfg: GPTConfig, params: dict = None, device=None,
+                 dtype=torch.float32):
         """``params``: the tensor tree of `params()` (the layout of
         paddle_tpu's ``_extract_gpt_params``), adopted as the model's
-        trainable parameters without a copy.  Use `from_params` or
-        `random` to build one."""
+        trainable parameters without a copy (`from_params`).  Without
+        it the weights are drawn on ``device`` (default: the card) as the
+        JAX package's ``GPT(cfg)`` draws them (`init_params`), from the
+        default generator (`seed`).  `random` is GPT-2's N(0, 0.02)
+        convention from a seed of its own."""
         super().__init__()
+        if params is None:
+            params = init_params(cfg, device, dtype)
         self.cfg = cfg
         self.wte = _embedding(params["wte"])
         self.wpe = _embedding(params["wpe"])
@@ -132,20 +208,120 @@ class GPT(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _linear(params["head_w"], params.get("head_b"))
 
-    def forward(self, input_ids):
-        """Logits [b, s, vocab] of token ids [b, s] (positions from 0),
-        without a KV cache.  The tied head is a WHITE ``matmul`` against
-        ``wte``, so under bf16 `amp.auto_cast` the logits are bf16 while
-        the residual stream stays f32."""
+    def forward(self, input_ids, caches=None, pos_start=0):
+        """Logits [b, s, vocab] of token ids [b, s] at positions
+        ``pos_start`` on; with ``caches`` (one a block, `gen_caches`)
+        returns ``(logits, new_caches)``.  A prealloc step checks the
+        horizon and builds the validity mask once for every block.  The
+        tied head is a WHITE ``matmul`` against ``wte``, so under bf16
+        `amp.auto_cast` the logits are bf16 while the residual stream
+        stays f32."""
         b, s = input_ids.shape
-        pos = torch.arange(s, device=input_ids.device)
+        pos = torch.arange(pos_start, pos_start + s, device=input_ids.device)
         x = self.wte(input_ids) + self.wpe(pos)
-        for blk in self.blocks:
-            x = blk(x)
+        new_caches = [] if caches is not None else None
+        prealloc_mask = None
+        if caches and isinstance(caches[0], PreallocKVCache):
+            smax = caches[0].k.shape[2]
+            kv_capacity_check(caches[0].length, s, smax)
+            prealloc_mask = kv_valid_mask(caches[0].length, s, smax,
+                                          device=x.device)
+        for i, blk in enumerate(self.blocks):
+            if caches is None:
+                x = blk(x)
+            else:
+                x, c = blk(x, cache=caches[i], prealloc_mask=prealloc_mask)
+                new_caches.append(c)
         x = self.ln_f(x)
         if self.cfg.tie_embeddings:
-            return matmul(x, self.wte.weight, transpose_y=True)
-        return self.lm_head(x)
+            logits = matmul(x, self.wte.weight, transpose_y=True)
+        else:
+            logits = self.lm_head(x)
+        return logits if caches is None else (logits, new_caches)
+
+    def gen_caches(self, batch_size, mode="prealloc", max_length=None,
+                   dtype=None):
+        """One decode cache a block.  ``prealloc`` allocates K/V buffers
+        of ``max_length`` (default: the position table) once, in
+        ``dtype`` (default: the weights'); ``concat`` is the growth
+        cache."""
+        if mode == "concat":
+            return [("concat", None, None) for _ in self.blocks]
+        if mode != "prealloc":
+            raise ValueError(
+                f"cache mode must be 'prealloc' or 'concat', got {mode!r}")
+        if max_length is None:
+            max_length = self.cfg.max_seq_len
+        w = self.wte.weight
+        dtype = w.dtype if dtype is None else convert_dtype(dtype)
+        caches = []
+        for blk in self.blocks:
+            shape = (batch_size, blk.num_heads, int(max_length),
+                     blk.head_dim)
+            caches.append(PreallocKVCache(
+                torch.zeros(shape, dtype=dtype, device=w.device),
+                torch.zeros(shape, dtype=dtype, device=w.device), 0))
+        return caches
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, eos_token_id=None,
+                 sampler="greedy", temperature=1.0, top_k=0, top_p=1.0,
+                 seed=0, use_cache="prealloc"):
+        """Eager autoregressive decode of ``input_ids`` [B, P] (the
+        single-model counterpart of `inference.serving.DecodeEngine`):
+        the prompt in one pass, then a token a pass through the
+        ``use_cache`` cache ("prealloc" or "concat"), each token chosen by
+        `nn.decode.sample_logits` (a sampler other than greedy draws
+        from a ``torch.Generator`` seeded with ``seed``).  Rows that
+        emitted ``eos_token_id`` keep emitting it; decoding stops when
+        every row has.  Returns the generated ids [B, <= max_new_tokens]
+        int32 on the model's device."""
+        b, p_len = input_ids.shape
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if self.cfg.dropout and self.training:
+            # the contract of DecodeEngine: decoding under live dropout
+            # would corrupt tokens and break cache-mode parity
+            raise ValueError(
+                "generate() is inference only: call model.eval() first "
+                "(cfg.dropout > 0 and the model is in train mode)")
+        if p_len + max_new_tokens > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt ({p_len}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_seq_len {self.cfg.max_seq_len}")
+        if use_cache == "prealloc":
+            caches = self.gen_caches(b, "prealloc",
+                                     max_length=p_len + max_new_tokens)
+        elif use_cache == "concat":
+            caches = self.gen_caches(b, "concat")
+        else:
+            raise ValueError(
+                f"use_cache must be 'prealloc' or 'concat', "
+                f"got {use_cache!r}")
+        device = self.wte.weight.device
+        input_ids = input_ids.to(device)
+        gen = None
+        if sampler != "greedy":
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(seed))
+        logits, caches = self(input_ids, caches=caches, pos_start=0)
+        out = []
+        finished = torch.zeros(b, dtype=torch.bool, device=device)
+        for step in range(max_new_tokens):
+            tok = sample_logits(logits[:, -1].float(), sampler=sampler,
+                                temperature=temperature, top_k=top_k,
+                                top_p=top_p, generator=gen)
+            if eos_token_id is not None:
+                tok = torch.where(finished, torch.full_like(
+                    tok, int(eos_token_id)), tok)
+                finished |= tok == eos_token_id
+            out.append(tok)
+            if step == max_new_tokens - 1 or (
+                    eos_token_id is not None and bool(finished.all())):
+                break
+            logits, caches = self(tok[:, None], caches=caches,
+                                  pos_start=p_len + step)
+        return torch.stack(out, dim=1)
 
     @classmethod
     def from_params(cls, cfg: GPTConfig, params: dict) -> "GPT":

@@ -8,7 +8,8 @@ powers are f32 scalars kept per parameter.  AdamW's decay is decoupled,
 ``p - lr * weight_decay * p_old``, and applies to every parameter
 (biases, LayerNorms and embeddings too), as in the JAX package, whose
 ``apply_decay_param_fun`` is stored and never read.  The other
-optimizers come with a later slice.
+optimizers come with a later slice.  `Optimizer` (optimizer.py) gives
+both the eager ``step()`` and the staged ``apply_gradients``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,10 @@ __all__ = ["Optimizer", "Adam", "AdamW", "lr"]
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
-                 grad_clip=None):
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -51,9 +54,12 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
-                 grad_clip=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip)
+                         weight_decay, grad_clip, lazy_mode, multi_precision,
+                         name)
+        self._apply_decay_param_fun = apply_decay_param_fun
 
     def _decoupled_weight_decay(self):
         return True

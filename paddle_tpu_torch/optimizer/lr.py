@@ -1,18 +1,30 @@
 """Learning-rate schedules (counterpart: paddle_tpu/optimizer/lr.py).
 
-Only the base class is ported: an optimizer takes a constant float
-learning rate or an `LRScheduler`, whose ``get_lr`` a subclass defines.
-The concrete schedulers come with a later slice.
+The JAX package's sixteen schedulers and their formulas, host-side
+Python: `LRScheduler` (the base, with ``state_dict``) and Noam,
+Piecewise, NaturalExp, InverseTime, Polynomial, LinearWarmup,
+Exponential, MultiStep, Step, Lambda, Multiplicative, CosineAnnealing,
+OneCycle, Cyclic and ReduceOnPlateau.  An optimizer reads the current
+rate through ``__call__``; ``step()`` advances it.
 """
 from __future__ import annotations
 
-__all__ = ["LRScheduler"]
+import math
+
+import torch
+
+__all__ = ["LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+           "InverseTimeDecay", "PolynomialDecay", "LinearWarmup",
+           "ExponentialDecay", "MultiStepDecay", "StepDecay", "LambdaDecay",
+           "MultiplicativeDecay", "CosineAnnealingDecay", "OneCycleLR",
+           "CyclicLR", "ReduceOnPlateau"]
 
 
 class LRScheduler:
-    def __init__(self, learning_rate=0.1, last_epoch=-1):
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
         self.base_lr = float(learning_rate)
         self.last_epoch = last_epoch
+        self.verbose = verbose
         self.last_lr = self.base_lr
         self.step()
 
@@ -20,8 +32,288 @@ class LRScheduler:
         return self.last_lr
 
     def step(self, epoch=None):
-        self.last_epoch = self.last_epoch + 1 if epoch is None else epoch
+        if epoch is None:
+            self.last_epoch += 1
+        else:
+            self.last_epoch = epoch
         self.last_lr = self.get_lr()
+        if self.verbose:
+            print(f"Epoch {self.last_epoch}: lr set to {self.last_lr}")
 
     def get_lr(self):
         raise NotImplementedError
+
+    def state_dict(self):
+        return {"last_epoch": self.last_epoch, "last_lr": self.last_lr}
+
+    def set_state_dict(self, state):
+        self.last_epoch = state.get("last_epoch", self.last_epoch)
+        self.last_lr = state.get("last_lr", self.last_lr)
+
+    set_dict = set_state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1,
+                 verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (self.base_lr * self.d_model**-0.5 *
+                min(step**-0.5, step * self.warmup_steps**-1.5))
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = boundaries
+        self.values = values
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / float(self.decay_steps)) or 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, self.decay_steps)
+        return ((self.base_lr - self.end_lr) *
+                (1 - step / decay_steps) ** self.power + self.end_lr)
+
+
+class LinearWarmup(LRScheduler):
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
+                 last_epoch=-1, verbose=False):
+        self.lr_sched = learning_rate if isinstance(learning_rate, LRScheduler) else None
+        self.target = learning_rate if not self.lr_sched else None
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        super().__init__(end_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (self.end_lr - self.start_lr) * (
+                self.last_epoch / float(self.warmup_steps)
+            ) + self.start_lr
+        if self.lr_sched is not None:
+            self.lr_sched.step(self.last_epoch - self.warmup_steps)
+            return self.lr_sched()
+        return self.target
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma**self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = milestones
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma**n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+    def set_state_dict(self, state):
+        # the running product is the last rate (the JAX package restarts
+        # it from the base rate, so a restored schedule there jumps back)
+        super().set_state_dict(state)
+        self._cur = self.last_lr
+
+    set_dict = set_state_dict
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return (self.eta_min + (self.base_lr - self.eta_min) *
+                (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2)
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        up_steps = int(self.total_steps * self.phase_pct)
+        step = min(self.last_epoch, self.total_steps)
+        if step <= up_steps and up_steps > 0:
+            pct = step / up_steps
+            return self.initial_lr + (self.max_lr - self.initial_lr) * (
+                1 - math.cos(math.pi * pct)) / 2
+        down = self.total_steps - up_steps
+        pct = (step - up_steps) / max(down, 1)
+        return self.end_lr + (self.max_lr - self.end_lr) * (
+            1 + math.cos(math.pi * pct)) / 2
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_up + self.step_down
+        cycle = self.last_epoch // total
+        pos = self.last_epoch % total
+        if pos < self.step_up:
+            pct = pos / self.step_up
+        else:
+            pct = 1 - (pos - self.step_up) / self.step_down
+        scale = 1.0
+        if self.mode == "triangular2":
+            scale = 1 / (2**cycle)
+        elif self.mode == "exp_range":
+            scale = self.exp_gamma**self.last_epoch
+        return self.base_lr + (self.max_lr - self.base_lr) * pct * scale
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        if isinstance(metrics, torch.Tensor):
+            metrics = float(metrics.detach().cpu())
+        self.last_epoch += 1
+        if self.best is None:
+            self.best = metrics
+            return
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        better = (metrics < self.best - (abs(self.best) * self.threshold
+                  if self.threshold_mode == "rel" else self.threshold)) \
+            if self.mode == "min" else \
+            (metrics > self.best + (abs(self.best) * self.threshold
+             if self.threshold_mode == "rel" else self.threshold))
+        if better:
+            self.best = metrics
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+                if self.verbose:
+                    print(f"ReduceOnPlateau: lr -> {self.last_lr}")
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0

@@ -61,18 +61,31 @@ def gpt2_small_train(device):
     taken, so that cuBLAS's handles and the first load of every kernel
     stay out of any timing."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
-                    num_heads=12, max_seq_len=1024, use_parallel_layers=False)
+    cfg = gpt2_small_config()
     model = GPT.random(cfg, seed=SEED, device=device)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 weight_decay=0.01)
     step = train_step(model, amp_loss_fn, opt)
-    rng = np.random.default_rng(SEED)
-    tokens, labels = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)).to(device)
-        for _ in range(2))
+    tokens, labels = train_batch(cfg, device)
     losses = [float(step(tokens, labels)) for _ in range(WARMUP_STEPS)]
     return model, step, tokens, labels, losses
+
+
+def gpt2_small_config() -> GPTConfig:
+    """``bench.py``'s GPT-2-small: vocab 50304, 768 wide, 12 layers and
+    heads, 1024 positions."""
+    return GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                     num_heads=12, max_seq_len=1024,
+                     use_parallel_layers=False)
+
+
+def train_batch(cfg, device):
+    """The train's fixed batch: `BATCH` x `SEQ` random int32 tokens and
+    labels from a numpy seed (`SEED`)."""
+    rng = np.random.default_rng(SEED)
+    return tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)).to(device)
+        for _ in range(2))
 
 
 def _train(step, tokens, labels, n):

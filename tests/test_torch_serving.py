@@ -325,7 +325,7 @@ bad = sorted(m for m in sys.modules
 # the serving modules this guard must see: the ragged step's, the
 # speculative decoder's, the serving stack around the engine, the
 # telemetry plane, the serving mesh, the port's telemetry tools, the
-# sanitizer and the fleet
+# sanitizer, the fleet, and the eager core and training
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -350,7 +350,26 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.observability.fleettrace",
                        "paddle_tpu_torch.fleet",
                        "paddle_tpu_torch.fleet.edge",
-                       "paddle_tpu_torch.fleet.router")
+                       "paddle_tpu_torch.fleet.router",
+                       "paddle_tpu_torch.core.framework",
+                       "paddle_tpu_torch.core.dtype",
+                       "paddle_tpu_torch.core.place",
+                       "paddle_tpu_torch.core.tensor",
+                       "paddle_tpu_torch.core.dispatch",
+                       "paddle_tpu_torch.autograd",
+                       "paddle_tpu_torch.nn.initializer",
+                       "paddle_tpu_torch.nn.layer.layers",
+                       "paddle_tpu_torch.nn.layer.transformer",
+                       "paddle_tpu_torch.framework.param_attr",
+                       "paddle_tpu_torch.framework.io",
+                       "paddle_tpu_torch.regularizer",
+                       "paddle_tpu_torch.utils.clip",
+                       "paddle_tpu_torch.optimizer.lr",
+                       "paddle_tpu_torch.io",
+                       "paddle_tpu_torch.metric",
+                       "paddle_tpu_torch.hapi.model",
+                       "paddle_tpu_torch.hapi.callbacks",
+                       "paddle_tpu_torch.hapi.summary")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)

@@ -337,13 +337,29 @@ def test_attention_and_layernorm_flags_default_only(name, other):
 
 
 def test_dropout_in_training_raises():
+    """Dropout with p > 0 is ported: in training it zeroes elements and
+    scales the rest by 1 / (1 - p) (rates and seeds:
+    tests/test_torch_eager.py); in eval mode and at p == 0 it is the
+    identity.  What raises is decoding under live dropout: ``generate``
+    and `DecodeEngine` refuse a model in train mode with
+    ``cfg.dropout > 0``, as the JAX package's do."""
     d = Dropout(0.1)
-    x = torch.ones(3)
-    with pytest.raises(NotImplementedError, match="slice"):
-        d(x)
+    x = torch.ones(64)
+    y = d(x)
+    assert bool(((y == 0) | torch.isclose(y, torch.tensor(1 / 0.9))).all())
     d.eval()
     assert d(x) is x
     assert Dropout(0.0)(x) is x
+    tm = TGPT.random(TGPTConfig(**dict(TINY, dropout=0.1)), seed=0,
+                     device="cpu")
+    ids = torch.zeros(1, 4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="eval"):
+        tm.generate(ids, max_new_tokens=2)
+    with pytest.raises(ValueError, match="eval"):
+        TS.DecodeEngine(tm, device="cpu", max_batch_size=1, max_seq_len=32,
+                        page_size=16)
+    tm.eval()
+    assert tm.generate(ids, max_new_tokens=2).shape == (1, 2)
 
 
 @pytest.mark.parametrize("mixed", [False, True])
