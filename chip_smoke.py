@@ -6,9 +6,11 @@
     python3 chip_smoke.py --mesh      # phases 1-2, 4, 6 and 15 only
     python3 chip_smoke.py --fleet     # phases 1-2, 4 and 16 only
     python3 chip_smoke.py --eager     # phases 1-2, 4 and 17 only
+    python3 chip_smoke.py --dist      # phases 1-2, 4 and 18 only
 
 (``--durability-child`` is phase 13's own child process,
-``--fleet-child`` phase 16's replica.)
+``--fleet-child`` phase 16's replica, ``--acp-child`` phase 18's
+auto-checkpoint job.)
 
 Phases, in order; any failure exits non-zero:
 
@@ -217,7 +219,34 @@ Phases, in order; any failure exits non-zero:
    with the flags off; on, a NaN put into a bias raises
    FloatingPointError, and a captured serve of two prompts gives 4's
    tokens;
-18. report — one JSON line of kernels, the card line, and the last line
+18. dist  — GPT-2-small at full width with bench.py's bf16 recipe
+   (AdamW 1e-4, the forward under bf16 ``auto_cast``): (a) two ranks
+   from ``paddle.distributed.spawn``, each ``fleet.init(is_collective=
+   True)``, ``fleet.distributed_model``, ``fleet.distributed_optimizer(
+   AdamW)`` and `DIST_STEPS` dygraph steps on its half (8 x 1024) of
+   the train batch, against one process on batch 16 from the same
+   weights: losses within `DIST_LOSS_TOL`, K3/K4 launched num_layers x
+   steps on each rank, every rank exits 0; ms a step, the all-reduce's
+   share (the reducer's host seconds), bytes reduced a step, peak memory
+   a rank; the backend is the rule's (gloo on one card, staged through
+   host memory; NCCL with a card a rank), and on four cards 4 ranks of
+   batch 4 run as well; (b) in this process, gradient
+   merge ``k_steps=2`` through ``fleet.build_train_step`` against the
+   batch-16 ``jit.TrainStep`` (`DIST_LOSS_TOL`), and recompute on
+   against off: equal losses and a lower peak; (c) each of the ten
+   optimizers (`DIST_OPTIMIZERS`), `OPT_STEPS` dygraph steps against
+   ``jit.TrainStep`` from the same weights and seed: bit-equal, finite
+   losses; (d) ``profiler.profiler()`` around two dygraph steps and a
+   captured serve of 4: the table's ``serving.*_step`` rows count the
+   serve's steps, the chrome trace has host events; a
+   ``start_trace``/``stop_trace`` of a dygraph step names K3/K4; a
+   ``RecordEvent``'s microseconds and the serve's ms a step with the
+   profiler armed against disarmed, in turns; (e) auto-checkpoint: a
+   child (``--acp-child``, GPT-2-small at dropout 0.1) killed with
+   SIGKILL after epoch 1 of ``train_epoch_range``, restarted from
+   another seed and init, resumes at epoch 2 and ends with an unbroken
+   child's parameters and losses, bit for bit;
+19. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -4219,23 +4248,543 @@ def eager_phase(torch, serve):
     return out
 
 
+DIST_ROOT = Path("build") / "chip_smoke_dist"
+DIST_RANKS = 2
+DIST_STEPS = 3
+# the data-parallel run (2 ranks x batch 8) against one process on batch
+# 16 from the same weights, bf16 AMP: step 1's loss differs only in the
+# bf16 rounding of the two half-batch forwards (the same products in
+# other tiles), ~1e-5 of a loss of ~10.9, and 1e-3 relative is allowed;
+# from step 2 the weights differ by the rounding of gradients averaged
+# as two half-batch means against one full-batch mean, which Adam's
+# normalized step turns into ~lr-sized moves of near-zero gradients:
+# 5e-3 relative
+DIST_LOSS_TOL = dict(first=1e-3, rest=5e-3)
+# gradient merge (two micro-batches of 8) against the batch-16 step: the
+# same bound, for the same reason
+STRATEGY_STEPS = 2
+# the ten optimizers at GPT-2-small: keywords, the same in both loops
+DIST_OPTIMIZERS = {
+    "SGD": dict(learning_rate=1e-2),
+    "Momentum": dict(learning_rate=1e-2, momentum=0.9),
+    "Adagrad": dict(learning_rate=1e-3),
+    "Adadelta": dict(learning_rate=1.0),
+    "Adamax": dict(learning_rate=2e-3),
+    "RMSProp": dict(learning_rate=1e-4),
+    "Lamb": dict(learning_rate=1e-3),
+    "Lars": dict(learning_rate=1e-2),
+    "Ftrl": dict(learning_rate=1e-2),
+    "Dpsgd": dict(learning_rate=1e-3, clip=1.0, batch_size=16.0, sigma=1.0),
+}
+OPT_STEPS = 3
+ACP_EPOCHS = 4
+PROFILE_RUNS = 3
+
+
+def dist_adamw(model):
+    """bench.py's optimizer: AdamW(1e-4, weight decay 0.01)."""
+    from paddle_tpu_torch import optimizer
+
+    return optimizer.AdamW(1e-4, parameters=model.parameters(),
+                           weight_decay=0.01)
+
+
+def dist_rank(out_dir, steps):
+    """One rank of 18(a), started by ``paddle.distributed.spawn``:
+    ``fleet.init``, ``distributed_model``, ``distributed_optimizer``
+    (AdamW) and ``steps`` dygraph steps on this rank's half of the train
+    batch; writes ``rank<r>.json``."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_init = time.perf_counter()
+    fleet.init(is_collective=True)
+    r, n = fleet.worker_index(), fleet.worker_num()
+    init_s = time.perf_counter() - t_init
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = tp.gpt2_small_config()
+    tokens, labels = tp.train_batch(cfg, dev)
+    per = tokens.shape[0] // n
+    x, y = tokens[r * per:(r + 1) * per], labels[r * per:(r + 1) * per]
+    model = GPT.random(cfg, seed=tp.SEED, device=dev)
+    dp = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(dist_adamw(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times, comm = [], [], []
+    for _ in range(steps):
+        before = dp.reducer_stats["comm_s"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tp.amp_loss_fn(dp, x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        comm.append(dp.reducer_stats["comm_s"] - before)
+        g = loss.detach().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.AVG)
+        losses.append(float(g))
+    res = dict(rank=r, world=n, device=str(dev),
+               backend=dist.parallel.backend(), launches=read_counts(),
+               losses=losses, step_s=times, comm_s=comm,
+               reducer=dp.reducer_stats, init_s=init_s,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               tokens_per_rank_step=x.numel())
+    (Path(out_dir) / f"rank{r}.json").write_text(json.dumps(res))
+
+
+def _dygraph_losses(torch, model, opt, loss_fn, batches):
+    out = []
+    for x, y in batches:
+        loss = loss_fn(model, x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        out.append(float(loss.detach()))
+    return out
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _check_losses(label, got, want):
+    rel = [_rel(a, b) for a, b in zip(got, want)]
+    if len(got) != len(want) or not all(math.isfinite(x) for x in got) \
+            or rel[0] > DIST_LOSS_TOL["first"] or \
+            any(e > DIST_LOSS_TOL["rest"] for e in rel[1:]):
+        fail(f"{label}: losses {got} against {want} (relative {rel}, "
+             f"tolerance {DIST_LOSS_TOL})")
+    return rel
+
+
+def dist_dp_check(torch, tp, cfg, tokens, labels, nranks=DIST_RANKS):
+    """(a) ``nranks`` ranks from ``paddle.distributed.spawn`` (the backend
+    rule: gloo when they share a card, NCCL with a card a rank) against
+    one process on batch 16 from the same weights and data."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models.gpt import GPT
+
+    model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    opt = dist_adamw(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = _dygraph_losses(torch, model, opt, tp.amp_loss_fn,
+                           [(tokens, labels)] * DIST_STEPS)
+    torch.cuda.synchronize()
+    single_s = (time.perf_counter() - t0) / DIST_STEPS
+    del model, opt
+    torch.cuda.empty_cache()
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    DIST_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dist.spawn(dist_rank, args=(str(DIST_ROOT), DIST_STEPS),
+               nprocs=nranks)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((DIST_ROOT / f"rank{r}.json").read_text())
+             for r in range(nranks)]
+    want_launch = cfg.num_layers * DIST_STEPS
+    for rk in ranks:
+        if any(rk["launches"][k] != want_launch for k in FLASH_KERNELS):
+            fail(f"dist rank {rk['rank']}: K3/K4 launches "
+                 f"{rk['launches']}, want {want_launch} each")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        fail(f"dist: the ranks' global losses differ: "
+             f"{[rk['losses'] for rk in ranks]}")
+    rel = _check_losses("dist (a)", ranks[0]["losses"], want)
+    med = statistics.median
+    step_ms = [med(rk["step_s"][1:]) * 1e3 for rk in ranks]
+    comm_ms = [med(rk["comm_s"][1:]) * 1e3 for rk in ranks]
+    bytes_step = ranks[0]["reducer"]["bytes"] / DIST_STEPS
+    res = dict(backend=ranks[0]["backend"], devices=[rk["device"]
+                                                     for rk in ranks],
+               ranks=nranks, batch_per_rank=tokens.shape[0] // nranks,
+               seq=tokens.shape[1], steps=DIST_STEPS,
+               losses=ranks[0]["losses"], single_process_losses=want,
+               loss_rel_err=rel, tol=DIST_LOSS_TOL,
+               launches_by_rank={rk["rank"]: rk["launches"] for rk in ranks},
+               ms_per_step_by_rank=step_ms,
+               allreduce_ms_per_step_by_rank=comm_ms,
+               allreduce_share=[c / s for c, s in zip(comm_ms, step_ms)],
+               bytes_reduced_per_step=bytes_step,
+               buckets_per_step=ranks[0]["reducer"]["buckets"] / DIST_STEPS,
+               tokens_per_s=tokens.numel() / (max(step_ms) / 1e3),
+               single_process_ms_per_step=single_s * 1e3,
+               peak_memory_bytes_by_rank=[rk["peak_memory_bytes"]
+                                          for rk in ranks],
+               init_s=[rk["init_s"] for rk in ranks], spawn_s=spawn_s,
+               nccl="ran" if ranks[0]["backend"] == "nccl" else
+               f"not run: {torch.cuda.device_count()} card(s), the rule "
+               f"gives gloo to ranks that share one")
+    res["card"] = card_line()
+    print("dist (a) data parallel: " + json.dumps(res), flush=True)
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    return res
+
+
+def dist_strategy_check(torch, tp, cfg, tokens, labels):
+    """(b) ``fleet.build_train_step`` in this process (world size 1):
+    gradient merge ``k_steps=2`` on batch 16 against the batch-16
+    ``jit.TrainStep``; recompute on against off: losses, and peak memory
+    lower with it."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.sharded_step import \
+        ShardedTrainStep
+    from paddle_tpu_torch.models.gpt import GPT
+
+    def run(make_step):
+        model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+        step = make_step(model, dist_adamw(model))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(tokens, labels)) for _ in range(STRATEGY_STEPS)]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del step, model
+        torch.cuda.empty_cache()
+        return losses, peak
+
+    base_l, base_peak = run(lambda m, o: jit.train_step(m, tp.amp_loss_fn,
+                                                        o))
+    st = fleet.DistributedStrategy()
+    st.gradient_merge = True
+    st.gradient_merge_configs = {"k_steps": 2, "avg": True}
+    fleet.init(is_collective=True, strategy=st)
+    gm_l, gm_peak = run(lambda m, o: fleet.build_train_step(
+        m, tp.amp_loss_fn, fleet.distributed_optimizer(o)))
+    fleet.init(is_collective=True)
+    gm_rel = _check_losses("dist (b) gradient merge", gm_l, base_l)
+    off_l, off_peak = run(lambda m, o: ShardedTrainStep(
+        m, tp.amp_loss_fn, o, recompute=False))
+    on_l, on_peak = run(lambda m, o: ShardedTrainStep(
+        m, tp.amp_loss_fn, o, recompute=True))
+    rc_rel = [_rel(a, b) for a, b in zip(on_l, off_l)]
+    res = dict(steps=STRATEGY_STEPS, train_step_losses=base_l,
+               gradient_merge_losses=gm_l, gradient_merge_rel_err=gm_rel,
+               train_step_peak_bytes=base_peak,
+               gradient_merge_peak_bytes=gm_peak,
+               recompute_off_losses=off_l, recompute_on_losses=on_l,
+               recompute_rel_err=rc_rel,
+               recompute_bit_equal=on_l == off_l,
+               recompute_off_peak_bytes=off_peak,
+               recompute_on_peak_bytes=on_peak,
+               recompute_saving=1 - on_peak / off_peak)
+    res["card"] = card_line()
+    print("dist (b) strategy: " + json.dumps(res), flush=True)
+    if any(e > 1e-5 for e in rc_rel) or not on_peak < off_peak:
+        fail(f"recompute: losses {on_l} against {off_l}, peak "
+             f"{on_peak} against {off_peak}")
+    return res
+
+
+def dist_optimizers_check(torch, tp, cfg, tokens, labels):
+    """(c) Each of the ten optimizers, `OPT_STEPS` steps of the dygraph
+    loop against ``jit.TrainStep`` from the same weights and generator
+    seed: bit-equal, finite losses."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.gpt import GPT
+
+    out = {}
+    batches = [(tokens, labels)] * OPT_STEPS
+    for name, kw in DIST_OPTIMIZERS.items():
+        runs = {}
+        for form in ("eager", "train_step"):
+            paddle.seed(SEED)
+            model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+            opt = getattr(optimizer, name)(parameters=model.parameters(),
+                                           **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if form == "eager":
+                losses = _dygraph_losses(torch, model, opt, tp.amp_loss_fn,
+                                         batches)
+            else:
+                step = jit.train_step(model, tp.amp_loss_fn, opt)
+                losses = [float(step(x, y)) for x, y in batches]
+            torch.cuda.synchronize()
+            runs[form] = (losses, (time.perf_counter() - t0) / OPT_STEPS)
+            del model, opt
+        out[name] = dict(eager=runs["eager"][0],
+                         train_step=runs["train_step"][0],
+                         bit_equal=runs["eager"][0] == runs["train_step"][0],
+                         eager_ms_per_step=runs["eager"][1] * 1e3,
+                         train_step_ms_per_step=runs["train_step"][1] * 1e3)
+        torch.cuda.empty_cache()
+    print("dist (c) optimizers: " + json.dumps(dict(out, card=card_line())),
+          flush=True)
+    bad = [n for n, r in out.items() if not r["bit_equal"] or not all(
+        math.isfinite(v) for v in r["eager"])]
+    if bad:
+        fail(f"optimizers: eager against TrainStep not bit-equal or not "
+             f"finite: {bad}")
+    return out
+
+
+def dist_profiler_check(torch, tp, cfg, tokens, labels):
+    """(d) ``profiler.profiler()`` around two dygraph steps and a captured
+    serve: the table's rows, the chrome trace's host track; a device
+    trace of a dygraph step naming K3/K4; a ``RecordEvent``'s cost and
+    the captured serve's ms a step with the profiler armed against
+    disarmed, in turns."""
+    import shutil
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.tools import serve_profile
+
+    root = DIST_ROOT / "profile"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    opt = dist_adamw(model)
+    smodel, prompts, new_engine = serve_profile.gpt2_small_serve("cuda")
+
+    def train_steps(n):
+        for _ in range(n):
+            with profiler.RecordEvent("train.dygraph_step"):
+                _dygraph_losses(torch, model, opt, tp.amp_loss_fn,
+                                [(tokens, labels)])
+                torch.cuda.synchronize()
+
+    trace_path = root / "merged.json"
+    with profiler.profiler(profile_path=str(trace_path)):
+        train_steps(2)
+        eng, _, _ = serve_once(torch, new_engine, prompts)
+    table = profiler.summary_string()
+    rows = {ln[:40].strip(): int(ln[40:48])
+            for ln in table.splitlines()[2:]}
+    host = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+            if e.get("pid") == 0 and e["ph"] == "X"]
+    steps = eng.decode_stats()["steps"]
+    serving_rows = {k: v for k, v in rows.items()
+                    if k.startswith("serving.")}
+    if rows.get("train.dygraph_step") != 2 or not serving_rows or \
+            sum(serving_rows.values()) != steps or not host:
+        fail(f"profiler: rows {rows}, serve steps {steps}, host events "
+             f"{len(host)}")
+    profiler.reset_profiler()
+
+    with profiler.trace(str(root / "device")):
+        train_steps(1)
+    files = list((root / "device").glob("trace_*.json"))
+    names = {e.get("name", "") for f in files
+             for e in json.loads(f.read_text())["traceEvents"]}
+    found = {k: any(f"{k}_kernel" in n for n in names)
+             for k in ("fwd", "dkv", "dq")}
+    if len(files) != 1 or not all(found.values()):
+        fail(f"device trace: {len(files)} files, K3/K4 names found {found}")
+
+    def event_us(armed, n=20000):
+        if armed:
+            profiler.start_profiler()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with profiler.RecordEvent("probe"):
+                pass
+        dt = (time.perf_counter() - t0) / n * 1e6
+        if armed:
+            profiler.stop_profiler(print_table=False)
+            profiler.reset_profiler()
+        return dt
+
+    turns = {"armed": [], "disarmed": []}
+    for i in range(PROFILE_RUNS):
+        for label in sorted(turns, reverse=bool(i % 2)):
+            if label == "armed":
+                profiler.start_profiler()
+            e, _, wall = serve_once(torch, new_engine, prompts)
+            if label == "armed":
+                profiler.stop_profiler(print_table=False)
+                profiler.reset_profiler()
+            turns[label].append(wall / e.decode_stats()["steps"] * 1e3)
+    med = statistics.median
+    res = dict(rows=rows, host_events=len(host),
+               serving_rows=serving_rows, serve_steps=steps,
+               device_trace_kernels=found,
+               record_event_us_armed=event_us(True),
+               record_event_us_disarmed=event_us(False),
+               serve_ms_per_step_armed=turns["armed"],
+               serve_ms_per_step_disarmed=turns["disarmed"],
+               armed_cost_ms_per_step=med(turns["armed"])
+               - med(turns["disarmed"]),
+               host_buffer_cap=tracing.MAX_HOST_EVENTS)
+    res["card"] = card_line()
+    print("dist (d) profiler: " + json.dumps(res), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def acp_child(argv) -> int:
+    """``--acp-child DIR JOB MODE``: one life of 18(e).  GPT-2-small at
+    ``dropout=0.1`` from ``GPT(cfg)``'s init under ``paddle.seed`` and
+    AdamW under ``train_epoch_range(ACP_EPOCHS)``, one dygraph step an
+    epoch; MODE "pause" stops at the start of epoch 2 (epoch 1 saved),
+    writes ``paused`` and waits to be killed; "run" trains to the end and
+    saves its parameters to ``final.pdparams``."""
+    import dataclasses
+    import os
+
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.checkpoint import auto_checkpoint as acp
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    root, job, mode = argv
+    os.environ.update(PADDLE_RUNNING_ENV="PADDLE_EDL_AUTO_CHECKPOINT",
+                      PADDLE_JOB_ID=job, PADDLE_EDL_CHECKPOINT_DIR=root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(tp.gpt2_small_config(), dropout=0.1,
+                              use_parallel_layers=True)
+    tokens, labels = tp.train_batch(cfg, "cuda")
+    paddle.seed(SEED + (0 if mode == "pause" or job == "unbroken" else 5))
+    model = GPT(cfg, device="cuda")
+    opt = dist_adamw(model)
+    acp.register(model=model, optimizer=opt)
+    d = Path(root) / job
+    ran, losses = [], []
+    for epoch in acp.train_epoch_range(ACP_EPOCHS):
+        if mode == "pause" and epoch == 2:
+            (d / "paused").write_text("1")
+            time.sleep(600)
+        ran.append(epoch)
+        losses += _dygraph_losses(torch, model, opt, tp.amp_loss_fn,
+                                  [(tokens, labels)])
+    paddle.save(model.state_dict(), str(d / "final.pdparams"))
+    (d / "ran.json").write_text(json.dumps(dict(epochs=ran, losses=losses)))
+    return 0
+
+
+def dist_acp_check(torch):
+    """(e) A child killed with SIGKILL after epoch 1 of
+    ``train_epoch_range``, restarted from another seed and init, resumes
+    at epoch 2 and ends with an unbroken run's parameters, bit for bit
+    (both children run at once: the unbroken one and the one killed)."""
+    import shutil
+    import signal
+
+    import paddle_tpu_torch as paddle
+
+    root = DIST_ROOT / "acp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    me = [sys.executable, str(Path(__file__).resolve()), "--acp-child",
+          str(root)]
+    t0 = time.perf_counter()
+    unbroken = subprocess.Popen(me + ["unbroken", "run"],
+                                stderr=subprocess.PIPE, text=True)
+    victim = subprocess.Popen(me + ["job", "pause"], stderr=subprocess.PIPE,
+                              text=True)
+    paused = root / "job" / "paused"
+    deadline = time.monotonic() + 600
+    while not paused.exists() and victim.poll() is None and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+    if not paused.exists():
+        victim.kill()
+        fail(f"acp: the child never reached epoch 2 (exit {victim.poll()})"
+             f":\n{victim.stderr.read()[-2000:]}")
+    meta = json.loads((root / "job" / "meta.json").read_text())
+    victim.send_signal(signal.SIGKILL)
+    victim.wait()
+    victim.stderr.close()
+    resumed = subprocess.run(me + ["job", "run"], capture_output=True,
+                             text=True, timeout=600)
+    unbroken_err = unbroken.communicate(timeout=600)[1]
+    if resumed.returncode != 0 or unbroken.returncode != 0:
+        fail(f"acp: resumed exit {resumed.returncode}, unbroken exit "
+             f"{unbroken.returncode}:\n{resumed.stderr[-2000:]}\n"
+             f"{unbroken_err[-2000:]}")
+    ran = json.loads((root / "job" / "ran.json").read_text())
+    ran_all = json.loads((root / "unbroken" / "ran.json").read_text())
+    a = paddle.load(str(root / "job" / "final.pdparams"), device="cpu")
+    b = paddle.load(str(root / "unbroken" / "final.pdparams"), device="cpu")
+    equal = sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                           for k in a)
+    res = dict(killed_after_epoch=meta["epoch_no"],
+               victim_exit=victim.returncode, resumed_epochs=ran["epochs"],
+               resumed_losses=ran["losses"],
+               unbroken_losses=ran_all["losses"], params_bit_equal=equal,
+               wall_s=time.perf_counter() - t0)
+    res["card"] = card_line()
+    print("dist (e) auto-checkpoint: " + json.dumps(res), flush=True)
+    if meta["epoch_no"] != 1 or victim.returncode != -signal.SIGKILL or \
+            ran["epochs"] != [2, 3] or not equal or \
+            ran["losses"] != ran_all["losses"][2:]:
+        fail(f"acp: resume {res}")
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def dist_phase(torch):
+    """Phase 18: (a)-(e) of data-parallel training and the rest of eager
+    training."""
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()  # the ranks and children share this card
+    cfg = tp.gpt2_small_config()
+    tokens, labels = tp.train_batch(cfg, "cuda")
+    card = card_line()
+    out = dict(card=card)
+    out["acp"] = dist_acp_check(torch)
+    out["data_parallel"] = dist_dp_check(torch, tp, cfg, tokens, labels)
+    if torch.cuda.device_count() >= 4:  # as --mesh runs mp=4 on four
+        out["data_parallel_4"] = dist_dp_check(torch, tp, cfg, tokens,
+                                               labels, nranks=4)
+    out["strategy"] = dist_strategy_check(torch, tp, cfg, tokens, labels)
+    out["optimizers"] = dist_optimizers_check(torch, tp, cfg, tokens,
+                                              labels)
+    out["profiler"] = dist_profiler_check(torch, tp, cfg, tokens, labels)
+    a, b = out["data_parallel"], out["strategy"]
+    print(f"dist: {a['ranks']} ranks on {a['backend']} "
+          f"{max(a['ms_per_step_by_rank']):.1f} ms a step "
+          f"({a['tokens_per_s']:.0f} tokens/s) against "
+          f"{a['single_process_ms_per_step']:.1f} ms in one process, "
+          f"all-reduce {max(a['allreduce_share']):.0%} of a step "
+          f"({a['bytes_reduced_per_step'] / 2**20:.1f} MiB a step), peak "
+          f"{max(a['peak_memory_bytes_by_rank']) / 2**30:.2f} GiB a rank; "
+          f"recompute saves {b['recompute_saving']:.0%} of peak; "
+          f"profiler armed costs "
+          f"{out['profiler']['armed_cost_ms_per_step']:.3f} ms a serve "
+          f"step; {card}", flush=True)
+    return out
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
     chip_smoke_kernels.json (a quick way to time K1/K2 of any checkout:
     copy this script into its root and run it there).  ``--mesh``,
-    ``--fleet``, ``--eager``: the serve of 4 and phase 15, 16 or 17,
-    into chiprun_out/chip_smoke_<mode>.json."""
+    ``--fleet``, ``--eager``, ``--dist``: the serve of 4 and phase 15,
+    16, 17 or 18, into chiprun_out/chip_smoke_<mode>.json."""
     import torch
 
     kernels_only = argv == ["--kernels"]
     mesh_only = argv == ["--mesh"]
     fleet_only = argv == ["--fleet"]
     eager_only = argv == ["--eager"]
+    dist_only = argv == ["--dist"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
+    acp_kid = argv[:1] == ["--acp-child"] and len(argv) == 4
     if argv and not (kernels_only or mesh_only or fleet_only or eager_only
-                     or child or fleet_kid):
+                     or dist_only or child or fleet_kid or acp_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -4252,6 +4801,8 @@ def main(argv) -> int:
         return durability_child(argv[1:])
     if fleet_kid:
         return fleet_child(argv[1:])
+    if acp_kid:
+        return acp_child(argv[1:])
 
     # 1. card
     card = card_line()
@@ -4294,6 +4845,17 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_eager.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if dist_only:
+        res = dict(card=card)
+        res["serve"], _ = serve_phase(torch)
+        res["dist"] = dist_phase(torch)
+        res["serve"]["tokens"] = None
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_dist.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -4367,7 +4929,11 @@ def main(argv) -> int:
     # 17. eager train and generate
     eager = eager_phase(torch, serve)
 
-    # 18. report
+    # 18. data-parallel training, the optimizers, the profiler,
+    # auto-checkpoint
+    distp = dist_phase(torch)
+
+    # 19. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -4425,7 +4991,9 @@ def main(argv) -> int:
             k = dict(k, cases=flash_cases)
         paths = dict(train=train["launches"][kern],
                      eager_train=eager["eager_vs_train_step"]["launches"][
-                         kern])
+                         kern],
+                     **{f"dist_train_rank{r}": n[kern] for r, n in
+                        distp["data_parallel"]["launches_by_rank"].items()})
         if kern == "fwd":
             paths.update(generate_concat=gen["concat"]["calls"]
                          * gen["concat"]["k3_launches_per_call"],
@@ -4463,7 +5031,8 @@ def main(argv) -> int:
                   serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
                   serve_legacy=legacy, serve_reliability=reliability,
                   telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
-                  train=train, train_layer_norm=train_ln, eager=eager)
+                  train=train, train_layer_norm=train_ln, eager=eager,
+                  dist=distp)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -7,7 +7,8 @@ a paged-KV continuous-batching `inference.serving.DecodeEngine` whose
 attention runs a hand-written CUDA kernel (`ops.paged_attention`), and
 trains it through the dygraph loop (``loss.backward(); opt.step()``),
 `jit.TrainStep` or `Model.fit`, with flash-attention kernels
-(`ops.flash_attention`).  The top level carries Paddle's surface:
+(`ops.flash_attention`), on one card or data-parallel over
+``torch.distributed`` (`distributed`, ``DataParallel``, ``fleet``).  The top level carries Paddle's surface:
 ``seed``, ``to_tensor``, ``grad``, ``no_grad``, ``save``, ``load``,
 ``Model``, ``summary``, places and dtypes.
 """
@@ -21,6 +22,8 @@ from .core.place import CPUPlace, CUDAPlace, Place, TPUPlace, XPUPlace
 from .core.tensor import is_tensor, to_tensor
 from . import amp, autograd, framework, io, jit, metric, nn, optimizer
 from . import regularizer
+from . import distributed, incubate, profiler
+from .distributed import DataParallel
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .framework import ParamAttr, load, save
@@ -33,5 +36,6 @@ __all__ = ["default_device", "resolve_device", "seed", "to_tensor",
            "ParamAttr", "set_flags", "get_flags", "Place", "CPUPlace",
            "CUDAPlace", "TPUPlace", "XPUPlace", "get_default_dtype",
            "set_default_dtype", "amp", "autograd", "framework", "io", "jit",
-           "metric", "nn", "optimizer", "regularizer", "hapi"]
+           "metric", "nn", "optimizer", "regularizer", "hapi",
+           "distributed", "incubate", "profiler", "DataParallel"]
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Fifty-one flags work here.
-Three more keep their default only, because the code they switch on is
+The names and defaults are paddle_tpu's.  Fifty-two flags work here.
+Two more keep their default only, because the code they switch on is
 not ported yet (or, for ``compile_cache_dir``, has no counterpart) —
 setting one of those to anything else raises NotImplementedError naming
 the slice or the reason.  Three keep their default because eager torch
@@ -9,8 +9,8 @@ has nothing for them to switch (`_FIXED`): any other value raises
 ValueError with the reason.  As in paddle_tpu,
 a flag's value is checked where it is read: `DecodeEngine` raises
 ValueError on a ``kv_quant`` or ``serve_weights`` mode other than "off"
-and "int8".  Setting ``check_nan_inf`` or ``benchmark`` installs or
-removes `core.dispatch`'s checks, ``deterministic`` calls
+and "int8".  Setting ``check_nan_inf``, ``benchmark`` or
+``eager_dispatch_report`` installs or removes `core.dispatch`'s mode, ``deterministic`` calls
 ``torch.use_deterministic_algorithms``, ``log_level`` sets the level of
 the ``paddle_tpu_torch`` logger.
 """
@@ -105,6 +105,8 @@ _PORTED = {
     # op output holding NaN or Inf; synchronize the device after every op
     "check_nan_inf": False,
     "benchmark": False,
+    # the per-op dispatch table (calls, wall time) printed at exit
+    "eager_dispatch_report": False,
     # torch.use_deterministic_algorithms
     "deterministic": False,
     # the default dtype of amp.auto_cast
@@ -133,8 +135,6 @@ _LATER = {
     # serialized, so a fresh process recaptures (no counterpart yet)
     "compile_cache_dir": ("", "persistent step-cache (CUDA graphs cannot "
                               "be serialized)"),
-    # the per-op dispatch table at exit: the eager profiler's to print
-    "eager_dispatch_report": (False, "eager profiler"),
 }
 
 _REGISTRY: Dict[str, Any] = dict(_PORTED)
@@ -162,7 +162,7 @@ def set_flags(flags: Dict[str, Any]) -> None:
     for k, v in items:
         _REGISTRY[k] = v
     keys = {k for k, _ in items}
-    if keys & {"check_nan_inf", "benchmark"}:
+    if keys & {"check_nan_inf", "benchmark", "eager_dispatch_report"}:
         from . import dispatch
         dispatch.sync_mode()
     if "deterministic" in keys:

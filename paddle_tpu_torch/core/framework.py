@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["no_grad_guard", "enable_grad_guard", "grad_enabled",
-           "Generator", "default_generator", "seed", "generator_for"]
+           "Generator", "default_generator", "seed", "generator_for",
+           "get_rng_state", "set_rng_state"]
 
 
 def grad_enabled() -> bool:
@@ -82,6 +83,32 @@ class Generator:
 
 
 default_generator = Generator(np.random.SeedSequence().entropy % (2 ** 31))
+
+
+def get_rng_state() -> dict:
+    """The default generator's seed and the state of each device's
+    ``torch.Generator`` made so far (``{"seed": s, "<device>":
+    ByteTensor}``): what a checkpoint keeps so a resumed run draws what an
+    unbroken run draws."""
+    g = default_generator
+    with g._lock:
+        out = {k: gen.get_state() for k, gen in g._gens.items()}
+        out["seed"] = g._seed
+    return out
+
+
+def set_rng_state(state: dict):
+    """Restore `get_rng_state`'s result: the seed, and each saved
+    device's generator (numpy arrays or tensors); the generators of other
+    devices start afresh from the seed."""
+    g = default_generator
+    g.seed(int(np.asarray(state["seed"])))
+    for dev, st in state.items():
+        if dev == "seed":
+            continue
+        st = st if isinstance(st, torch.Tensor) else \
+            torch.from_numpy(np.array(st, dtype=np.uint8))
+        g.for_device(dev).set_state(st.detach().cpu().to(torch.uint8))
 
 
 def seed(s: int) -> Generator:

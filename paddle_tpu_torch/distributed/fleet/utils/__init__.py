@@ -1,0 +1,2 @@
+from .recompute import recompute
+from .hybrid_parallel_util import fused_allreduce_gradients

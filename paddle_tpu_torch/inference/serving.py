@@ -98,7 +98,7 @@ from ..nn.decode import sample_logits
 from ..nn.functional.attention import _sdpa_reference
 from ..ops import paged_attention as pa
 from ..ops.layer_norm import layer_norm
-from ..profiler import DECODE_STAT_COUNTERS, _decode_stat_zero
+from ..profiler import DECODE_STAT_COUNTERS, RecordEvent, _decode_stat_zero
 from ..quantization.int8 import Q_MAX, quantize_weight
 from .errors import FaultInfo, PoolExhausted, StepFault
 
@@ -3124,14 +3124,16 @@ class DecodeEngine:
         if self._ragged:
             # a target at every position: the host picks each slot's
             # span-end row, and keeps NAN_TOKEN where the row faulted
-            with self._phase(phase_name):
+            with RecordEvent("serving.mixed_step"), \
+                    self._phase(phase_name):
                 out = self._dispatch(kind, fn, self._bt, self._lens,
                                      tokens, caps)
             toks = self._fetch(out)
             toks = np.where(sample_mask, toks[np.arange(slots), sample_idx],
                             0)
         else:
-            with self._phase(phase_name):
+            with RecordEvent("serving.mixed_step"), \
+                    self._phase(phase_name):
                 out = self._dispatch(kind, fn, self._bt, self._lens, tokens,
                                      caps, sample_idx, sample_mask)
             toks = self._fetch(out)
@@ -3207,7 +3209,7 @@ class DecodeEngine:
         self._flush_fresh_scales()
         t0 = time.perf_counter()
         t0_ns = _obs.now_ns()
-        with self._phase("decode"):
+        with RecordEvent("serving.decode_step"), self._phase("decode"):
             out = self._dispatch("decode", fn, self._bt, self._lens,
                                  self._last, self._active)
         toks = self._fetch(out)

@@ -54,6 +54,7 @@ import torch
 
 from .. import observability as _obs
 from ..core import flags as _flags
+from ..profiler import RecordEvent
 from .serving import (_EngineRef, _gpt_decode_step, _gpt_mixed_step,
                       _gpt_prefill, _gpt_ragged_step, _pool_shape,
                       _quantize_gpt_params, _scale_reset_graph, _StepGraph,
@@ -557,7 +558,7 @@ class SpeculativeDecoder:
         eng._step_no += 1
         t0 = time.perf_counter()
         tv_ns = _obs.now_ns()
-        with eng._phase("verify"):
+        with RecordEvent("serving.spec_verify_step"), eng._phase("verify"):
             out = eng._dispatch("ragged" if eng._ragged else "verify", fn,
                                 eng._bt, eng._lens, tokens, caps)
         targets = eng._fetch(out)

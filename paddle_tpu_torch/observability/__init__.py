@@ -6,7 +6,7 @@ imported).
   labeled series, near-zero cost when disabled;
 * `tracing`  — named-track span buffer + the merged chrome-trace
   exporter (engine step spans, request lifecycle spans, probed device
-  spans; the host track stays empty until the port has a host tracer);
+  spans; the host track holds the eager profiler's host events);
 * `reporter` — optional periodic snapshot thread
   (``FLAGS_metrics_report_interval_s``);
 * `flight`, `costmodel`, `profiling`, `alerts`, `opsserver` — the

@@ -4,9 +4,11 @@ paddle_tpu/observability/tracing.py, copied, not imported).
 A Python-side span buffer on named **tracks**, merged into ONE
 chrome://tracing JSON:
 
-* track ``host``     — pid 0.  The JAX package fills it with its native
-  host tracer's events; the port has no native host tracer yet, so the
-  track is present and empty;
+* track ``host``     — pid 0: the eager profiler's host events
+  (``profiler.RecordEvent``, one tid a thread), recorded while
+  ``profiler.start_profiler`` has the host tracer on.  The JAX package
+  keeps them in its native tracer (csrc); the port's is the bounded,
+  lock-guarded buffer below on the same clock as the spans;
 * track ``engine``   — decode / prefill / draft / verify step spans and
   ladder markers (one tid per engine instance);
 * track ``requests`` — per-request lifecycle spans, one tid per request
@@ -32,7 +34,8 @@ from .metrics import _state
 
 __all__ = ["now_ns", "record_span", "span", "spans", "clear_spans",
            "span_count", "dropped_span_count", "merged_chrome_trace",
-           "export_chrome_trace", "HOST_TRACK"]
+           "export_chrome_trace", "HOST_TRACK", "HOST_TRACER",
+           "host_record", "host_events", "clear_host_events"]
 
 HOST_TRACK = "host"
 
@@ -101,6 +104,55 @@ class span:
         return False
 
 
+# -- the host tracer ----------------------------------------------------
+# the cap of the host event buffer: a profiler left on must not grow it
+# without bound; events past the cap are dropped
+MAX_HOST_EVENTS = 1_000_000
+
+
+class _HostTracer:
+    """The eager profiler's switch: ``on`` is the one flag a
+    ``RecordEvent`` reads when the profiler is off."""
+    on = False
+
+
+HOST_TRACER = _HostTracer()
+_host_events: list = []
+_host_tids = threading.local()
+_host_next_tid = [0]
+
+
+def _host_tid() -> int:
+    tid = getattr(_host_tids, "tid", None)
+    if tid is None:
+        with _lock:
+            tid = _host_tids.tid = _host_next_tid[0]
+            _host_next_tid[0] += 1
+    return tid
+
+
+def host_record(name: str, start_ns: int, dur_ns: int):
+    """Append one host event (the native tracer's ``Record``): dropped
+    unless the host tracer is on."""
+    if not HOST_TRACER.on:
+        return
+    tid = _host_tid()
+    with _lock:
+        if len(_host_events) < MAX_HOST_EVENTS:
+            _host_events.append((name, int(start_ns), int(dur_ns), tid))
+
+
+def host_events():
+    """The host events as ``(name, start_ns, dur_ns, tid)``."""
+    with _lock:
+        return list(_host_events)
+
+
+def clear_host_events():
+    with _lock:
+        _host_events.clear()
+
+
 def spans():
     with _lock:
         return list(_spans)
@@ -123,10 +175,13 @@ def dropped_span_count() -> int:
 
 
 def merged_chrome_trace() -> dict:
-    """One chrome-trace dict: the host track (pid 0, empty in the port)
-    + every span track as its own named process."""
+    """One chrome-trace dict: the host track (pid 0, the host tracer's
+    events) + every span track as its own named process."""
     events = [{"ph": "M", "pid": 0, "name": "process_name",
                "args": {"name": HOST_TRACK}}]
+    events += [{"name": name, "ph": "X", "pid": 0, "tid": tid,
+                "ts": t0 / 1e3, "dur": dur / 1e3}
+               for name, t0, dur, tid in host_events()]
 
     pids = {HOST_TRACK: 0}
     for track, name, t0, dur, tid, args in spans():

@@ -21,7 +21,8 @@ a step.
   A pipe waits as long as an idle engine does, and reads end of file the
   moment its worker dies.  The activations' all-reduces go over a data
   group of the backend below.
-* **Backend rule** (stated here once; `Mesh.describe` shows it in
+* **Backend rule** (`choose_backend`, which data-parallel training's
+  `distributed.init_parallel_env` shares; `Mesh.describe` shows it in
   `statusz`): NCCL when every rank has a card of its own
   (``mp <= torch.cuda.device_count()``), gloo when ranks share a card or
   on the CPU.  Rank *i* runs on ``cuda:((c + i) % device_count)``, *c*
@@ -61,7 +62,7 @@ import numpy as np
 import torch
 
 __all__ = ["Mesh", "MeshShards", "MeshError", "get_mesh", "shutdown_all",
-           "rank_capacity", "MESH_TIMEOUT_S"]
+           "rank_capacity", "choose_backend", "MESH_TIMEOUT_S"]
 
 # seconds a live worker may stay silent (a reply, a collective) before
 # the controller gives up on it; a dead one raises at once
@@ -110,6 +111,17 @@ def _read_exact(fd: int, n: int, deadline=None, alive=None) -> bytes:
 def _read(fd: int, deadline=None, alive=None):
     (n,) = _HDR.unpack(_read_exact(fd, _HDR.size, deadline, alive))
     return pickle.loads(_read_exact(fd, n, deadline, alive))
+
+
+def choose_backend(device: torch.device, ranks: int) -> str:
+    """The port's backend rule, for the serving mesh and for data-parallel
+    training alike: "nccl" when the ranks run on CUDA and each has a card
+    of its own (``ranks <= torch.cuda.device_count()``), "gloo" when they
+    share a card or run on the CPU."""
+    if torch.device(device).type == "cuda" and \
+            ranks <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
 
 
 def _make_group(backend: str, store, rank: int, size: int):
@@ -197,10 +209,9 @@ class Mesh:
             self.device = torch.device("cuda", first)
             self.devices = [torch.device("cuda", (first + i) % count)
                             for i in range(mp)]
-            self.backend = "nccl" if mp <= count else "gloo"
         else:
             self.devices = [torch.device("cpu")] * mp
-            self.backend = "gloo"
+        self.backend = choose_backend(self.device, mp)
         self.capturable = self.backend == "nccl"
         self.broken: Optional[str] = None
         self.lock = threading.RLock()

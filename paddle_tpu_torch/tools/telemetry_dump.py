@@ -8,8 +8,8 @@ port's paged decode engine (optionally speculative), and writes
 * ``telemetry.prom``        — Prometheus text exposition;
 * ``telemetry.json``        — structured snapshot;
 * ``telemetry_trace.json``  — merged chrome-trace timeline (engine step
-  spans + request spans, one named track each; the host track is
-  empty);
+  spans + request spans, one named track each; the host track holds
+  the eager profiler's events, if it ran);
 * ``telemetry_flight.json`` — the flight-recorder window (what
   `paddle_tpu_torch.tools.explain_request` reads);
 * ``telemetry_statusz.json`` / ``telemetry_statusz.txt`` — the live

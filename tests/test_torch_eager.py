@@ -235,7 +235,7 @@ def test_new_flags_registered_with_jax_defaults(name):
     """Each flag under JAX's name and default.  The working ones take a
     value (and do what it says); ``eager_jit_ops``, ``eager_cache_size``
     and ``use_rbg_rng`` refuse any other value with ValueError naming the
-    reason; ``eager_dispatch_report`` names the slice it waits for."""
+    reason; ``eager_dispatch_report`` installs the mode and counts ops."""
     assert TF.flag(name) == JF.flag(name)
     other = {"check_nan_inf": True, "benchmark": True,
              "deterministic": True, "amp_dtype": "float16", "log_level": 2,
@@ -244,15 +244,17 @@ def test_new_flags_registered_with_jax_defaults(name):
     if name in ("eager_jit_ops", "eager_cache_size", "use_rbg_rng"):
         with pytest.raises(ValueError, match="torch"):
             TF.set_flags({name: other})
-    elif name == "eager_dispatch_report":
-        with pytest.raises(NotImplementedError, match="eager profiler"):
-            TF.set_flags({name: other})
     else:
         TF.set_flags({name: other})
         try:
             if name == "benchmark":
                 assert TD.active_mode() is not None
                 assert float(torch.ones(2).sum()) == 2.0
+            elif name == "eager_dispatch_report":
+                assert TD.active_mode() is not None
+                TD.reset_dispatch_stats()
+                torch.ones(2).sum()
+                assert TD.dispatch_stats()["sum"]["calls"] == 1
             elif name == "deterministic":
                 assert torch.are_deterministic_algorithms_enabled()
             elif name == "amp_dtype":

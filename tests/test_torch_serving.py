@@ -325,7 +325,8 @@ bad = sorted(m for m in sys.modules
 # the serving modules this guard must see: the ragged step's, the
 # speculative decoder's, the serving stack around the engine, the
 # telemetry plane, the serving mesh, the port's telemetry tools, the
-# sanitizer, the fleet, and the eager core and training
+# sanitizer, the fleet, the eager core and training, and the data-
+# parallel training, profiler and auto-checkpoint modules
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -369,7 +370,25 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.metric",
                        "paddle_tpu_torch.hapi.model",
                        "paddle_tpu_torch.hapi.callbacks",
-                       "paddle_tpu_torch.hapi.summary")
+                       "paddle_tpu_torch.hapi.summary",
+                       "paddle_tpu_torch.profiler",
+                       "paddle_tpu_torch.incubate.checkpoint.auto_checkpoint",
+                       "paddle_tpu_torch.distributed",
+                       "paddle_tpu_torch.distributed.parallel",
+                       "paddle_tpu_torch.distributed.collective",
+                       "paddle_tpu_torch.distributed.spawn",
+                       "paddle_tpu_torch.distributed.launch",
+                       "paddle_tpu_torch.distributed.topology",
+                       "paddle_tpu_torch.distributed.fleet",
+                       "paddle_tpu_torch.distributed.fleet.base",
+                       "paddle_tpu_torch.distributed.fleet.strategy",
+                       "paddle_tpu_torch.distributed.fleet.data_parallel",
+                       "paddle_tpu_torch.distributed.fleet.sharded_step",
+                       "paddle_tpu_torch.distributed.fleet."
+                       "meta_optimizers",
+                       "paddle_tpu_torch.distributed.fleet.utils.recompute",
+                       "paddle_tpu_torch.distributed.fleet.utils."
+                       "hybrid_parallel_util")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)
