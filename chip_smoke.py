@@ -7,6 +7,7 @@
     python3 chip_smoke.py --fleet     # phases 1-2, 4 and 16 only
     python3 chip_smoke.py --eager     # phases 1-2, 4 and 17 only
     python3 chip_smoke.py --dist      # phases 1-2, 4 and 18 only
+    python3 chip_smoke.py --hybrid    # phases 1-2, 4 and 19 only
 
 (``--durability-child`` is phase 13's own child process,
 ``--fleet-child`` phase 16's replica, ``--acp-child`` phase 18's
@@ -246,7 +247,30 @@ Phases, in order; any failure exits non-zero:
    SIGKILL after epoch 1 of ``train_epoch_range``, restarted from
    another seed and init, resumes at epoch 2 and ends with an unbroken
    child's parameters and losses, bit for bit;
-19. report — one JSON line of kernels, the card line, and the last line
+19. hybrid — GPT-2-small at full width, bench.py's bf16 recipe, ranks
+   from ``paddle.distributed.spawn`` (gloo on one card, NCCL with a card
+   a rank): (a) ``fleet`` with ``mp_degree=2``: the model's parallel
+   layers (6 heads a rank), 3 dygraph steps through
+   ``distributed_model`` (`TensorParallel`) and 3 ``build_train_step``
+   steps on the 8 x 1024 half of the train batch, the vocab-parallel
+   cross entropy; step 1's loss against one process on the same batch
+   (`DIST_LOSS_TOL`), K3/K4 launched num_layers x steps a rank; (b)
+   ``strategy.sharding`` at stages 1, 2, 3 and 1 with offload, dp = 2, 3
+   steps each on the batch-16 train batch against phase 18's
+   one-process steps (`DIST_LOSS_TOL`), peak memory a rank against the
+   data-parallel run's; (c) a `gpt_pipeline_layer` GPT at pp = 2,
+   ``accumulate_steps=4``, through ``build_train_step`` (the 1F1B
+   `PipelineTrainStep`), step 1 against one process; (e)
+   ``ring_attention`` at [4, 12, 1024, 64] bf16 causal, sp = 2, against
+   ``flash_attention_fwd`` in one process (`FLASH_TOL`), K3 launched
+   once on rank 0 and twice on rank 1, a backward's gradient finite;
+   (d) ``gpt_spmd.build_spmd_train_step`` at (1, 2, 2, 2) on 8 ranks,
+   batch 4 x 1024: f32 against the dense ``reference_loss`` and its SGD
+   update on the card (`SPMD_TOL`), then bf16: ms a step, K3 launched
+   a ring block (1 or 2 a layer by sp rank); for each part ms a step,
+   the collectives' share (`collective.comm_stats`: host seconds, which
+   over gloo are wall seconds), peak memory and K3/K4 launches a rank;
+20. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -4766,13 +4790,480 @@ def dist_phase(torch):
     return out
 
 
+HYBRID_ROOT = Path("build") / "chip_smoke_hybrid"
+HYBRID_STEPS = 3
+# (a) tensor parallel against one process on the same 8 x 1024 batch,
+# step 1: the row-split products' two partial sums are rounded to bf16
+# before the all-reduce sums them, where one process sums the whole K in
+# one bf16 product; the same order of differences as `DIST_LOSS_TOL`'s
+# step 1, and the same bound.  (b) ZeRO against phase 18's one-process
+# batch-16 steps: `DIST_LOSS_TOL`, for phase 18's reasons (the update of
+# each element is the data-parallel step's).  (c) the pipeline against
+# one process: four micro-batch means against one batch mean, the same
+# rows in other tiles: `DIST_LOSS_TOL`'s step-1 bound
+HYBRID_ZERO = (("stage1", 1, False), ("stage2", 2, False),
+               ("stage3", 3, False), ("stage1_offload", 1, True))
+HYBRID_PP_MICRO = 4
+# (d) gpt_spmd at (dp, pp, sp, mp) = (1, 2, 2, 2) on 8 ranks, batch 4 x
+# 1024, two micro-batches: in f32 against the dense `reference_loss` on
+# the card, JAX's bar (tests/test_gpt.py: rtol 1e-3 on the loss, atol
+# 2e-3 on the SGD update)
+SPMD_DEGREES = dict(pp=2, sp=2, mp=2)
+SPMD_BATCH, SPMD_MICRO, SPMD_LR = 4, 2, 1e-3
+SPMD_TOL = dict(loss_rtol=1e-3, update_atol=2e-3)
+# (e) ring attention at [4, 12, 1024, 64] bf16, causal, sp = 2, against
+# `flash_attention_fwd` in one process: K3's bf16 tolerance
+RING_SHAPE = (4, 12, 1024, 64)
+
+
+def _hybrid_fleet(**kw):
+    """``fleet.init`` of a strategy whose attributes are ``kw``."""
+    from paddle_tpu_torch.distributed import fleet
+
+    st = fleet.DistributedStrategy()
+    for k, v in kw.items():
+        setattr(st, k, v)
+    fleet.init(is_collective=True, strategy=st)
+    return fleet, fleet.get_hybrid_communicate_group()
+
+
+def _timed_part(torch, run_step, steps):
+    """``steps`` calls of ``run_step() -> loss``: the losses (global),
+    host seconds and collective seconds a step, the peak memory and the
+    kernels' launches."""
+    from paddle_tpu_torch.distributed.collective import comm_stats
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s, comm_s = [], [], []
+    for _ in range(steps):
+        comm_stats(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = run_step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        comm_s.append(comm_stats()["seconds"])
+        losses.append(float(loss))
+    return dict(losses=losses, step_s=step_s, comm_s=comm_s,
+                launches=read_counts(),
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hybrid_rank(out_dir):
+    """One of the two ranks of 19 (a), (b), (c) and (e), started by
+    ``paddle.distributed.spawn``; writes ``rank<r>.json``."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import parallel as par
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.mp_layers import \
+        parallel_cross_entropy
+    from paddle_tpu_torch.distributed.topology import (
+        HybridCommunicateGroup, set_hybrid_communicate_group)
+    from paddle_tpu_torch.models.gpt import GPT, gpt_pipeline_layer
+    from paddle_tpu_torch.nn.functional.loss import cross_entropy
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    dense = tp.gpt2_small_config()
+    cfg = dataclasses.replace(dense, use_parallel_layers=True)
+
+    # (a) tensor parallel, mp = 2
+    fleet, hcg = _hybrid_fleet(hybrid_configs={"mp_degree": 2})
+    r = par.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tokens, labels = tp.train_batch(dense, dev)
+    half = tokens.shape[0] // 2
+    x, y = tokens[:half], labels[:half]
+    group = hcg.get_model_parallel_group()
+
+    def tp_loss(model, xb, yb):
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            logits = model(xb, parallel_output=True)
+        return parallel_cross_entropy(logits, yb, group).mean()
+
+    model = GPT.random(cfg, seed=tp.SEED, device=dev)
+    wrapped = fleet.distributed_model(model)
+    opt = dist_adamw(model)
+
+    def dygraph():
+        loss = tp_loss(wrapped, x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    a = dict(wrapper=type(wrapped).__name__,
+             heads_local=model.blocks[0].num_heads,
+             qkv_shape=list(model.blocks[0].qkv.weight.shape),
+             dygraph=_timed_part(torch, dygraph, HYBRID_STEPS))
+    del model, wrapped, opt
+    _free(torch)
+    model = GPT.random(cfg, seed=tp.SEED, device=dev)
+    step = fleet.build_train_step(model, tp_loss, dist_adamw(model))
+    a["train_step"] = _timed_part(torch, lambda: step(x, y), HYBRID_STEPS)
+    out["tp"] = a
+    del model, step
+    _free(torch)
+
+    # (b) ZeRO over dp = 2: each rank its half of the batch-16 train batch
+    zero = {}
+    for label, stage, offload in HYBRID_ZERO:
+        fleet, hcg = _hybrid_fleet(
+            sharding=True, sharding_configs={"stage": stage,
+                                             "offload": offload,
+                                             "sharding_degree": 2})
+        model = GPT.random(dense, seed=tp.SEED, device=dev)
+        step = fleet.build_train_step(model, tp.amp_loss_fn,
+                                      dist_adamw(model))
+        part = _timed_part(torch, lambda: step(tokens, labels),
+                           HYBRID_STEPS)
+        part["at_rest"] = step.at_rest_bytes()
+        part["zero_stage"] = step.zero_stage
+        zero[label] = part
+        del model, step
+        _free(torch)
+    out["zero"] = zero
+
+    # (c) the GPT as a PipelineLayer, pp = 2, through build_train_step
+    fleet, hcg = _hybrid_fleet(hybrid_configs={"pp_degree": 2},
+                               pipeline=True,
+                               pipeline_configs={
+                                   "accumulate_steps": HYBRID_PP_MICRO})
+    tree = GPT.random(dense, seed=tp.SEED, device="cpu").params()
+    pl = gpt_pipeline_layer(dense, tree, device=dev)
+    del tree
+    step = fleet.build_train_step(
+        pl, lambda o, t: cross_entropy(o, t, reduction="mean"),
+        optimizer.AdamW(1e-4, parameters=[], weight_decay=0.01))
+
+    def pipe():
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            return step(x, y)
+
+    c = _timed_part(torch, pipe, HYBRID_STEPS)
+    c.update(stage=hcg.get_stage_id(), segments=pl.segment_parts,
+             p2p=step.stats, step_type=type(step).__name__)
+    out["pipeline"] = c
+    del pl, step
+    _free(torch)
+
+    # (e) ring attention, sp = 2, causal, bf16
+    hcg = HybridCommunicateGroup(sp=2)
+    set_hybrid_communicate_group(hcg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    reset_counts()
+    o = ring_attention(q, k, v, hcg, causal=True)
+    launches = read_counts()
+    if r == 0:
+        torch.save(o.cpu(), Path(out_dir) / "ring_out.pt")
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring_attention(q, k, v, hcg, causal=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    qg = q.clone().requires_grad_(True)
+    ring_attention(qg, k, v, hcg, causal=True).float().sum().backward()
+    out["ring"] = dict(launches=launches, ms=ms,
+                       grad_finite=bool(torch.isfinite(qg.grad).all()))
+    out.update(rank=r, device=str(dev), backend=par.backend())
+    (Path(out_dir) / f"rank{r}.json").write_text(json.dumps(out))
+
+
+def spmd_rank(out_dir):
+    """One of the eight ranks of 19 (d): `build_spmd_train_step` at
+    (1, 2, 2, 2) on GPT-2-small, f32 then bf16; rank 0 also holds the
+    f32 step against the dense `reference_loss` and its SGD update on the
+    card; writes ``rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import parallel as par
+    from paddle_tpu_torch.models import gpt_spmd as S
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet, hcg = _hybrid_fleet(hybrid_configs={
+        f"{k}_degree": v for k, v in SPMD_DEGREES.items()})
+    r = par.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = tp.gpt2_small_config()
+    whole = S.init_params(cfg, seed=tp.SEED, device="cpu")
+    local = S.shard_params(whole, hcg, device=dev)
+    rng = np.random.default_rng(tp.SEED)
+    toks, labs = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SPMD_BATCH, tp.SEQ)).astype(np.int64)).to(dev)
+        for _ in range(2))
+    step = S.build_spmd_train_step(cfg, hcg, num_micro=SPMD_MICRO,
+                                   lr=SPMD_LR, compute_dtype=torch.float32)
+    reset_counts()
+    loss, new = step(local, toks, labs)
+    f32 = dict(loss=float(loss), launches=read_counts())
+    gathered = S.gather_params(new, hcg)
+    del new
+    if r == 0:
+        p = {k: v.to(dev).requires_grad_(True) for k, v in whole.items()}
+        ref = S.reference_loss(cfg, p, toks, labs)
+        ref.backward()
+        f32["reference_loss"] = float(ref)
+        f32["update_max_abs_err"] = max(
+            float((gathered[k].to(dev) - (p[k] - SPMD_LR * p[k].grad))
+                  .abs().max()) for k in p)
+        del p, ref
+    del gathered, whole
+    _free(torch)
+    from paddle_tpu_torch.distributed.collective import barrier
+    barrier()
+    step = S.build_spmd_train_step(cfg, hcg, num_micro=SPMD_MICRO,
+                                   lr=SPMD_LR)
+    state = {"p": local}
+
+    def bf16_step():
+        loss, state["p"] = step(state["p"], toks, labs)
+        return loss
+
+    part = _timed_part(torch, bf16_step, HYBRID_STEPS)
+    res = dict(rank=r, coords=[hcg.axis_rank(a) for a in
+                               ("dp", "pp", "sp", "mp")],
+               f32=f32, bf16=part, backend=par.backend(),
+               local_param_bytes=sum(t.numel() * t.element_size()
+                                     for t in local.values()))
+    (Path(out_dir) / f"rank{r}.json").write_text(json.dumps(res))
+
+
+def _part_row(part):
+    med = statistics.median
+    step_ms = med(part["step_s"][1:]) * 1e3
+    comm_ms = med(part["comm_s"][1:]) * 1e3
+    return dict(ms_per_step=step_ms, collective_ms_per_step=comm_ms,
+                collective_share=comm_ms / step_ms,
+                peak_gib=part["peak_memory_bytes"] / 2 ** 30,
+                losses=part["losses"],
+                k3_k4=[part["launches"][k] for k in FLASH_KERNELS])
+
+
+def hybrid_phase(torch):
+    """Phase 19: (a)-(e) of hybrid-parallel training (see the module
+    docstring)."""
+    import shutil
+
+    import numpy as np
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    card = card_line()
+    cfg = tp.gpt2_small_config()
+    tokens, labels = tp.train_batch(cfg, "cuda")
+    half = tokens.shape[0] // 2
+    # one process: step 1 on the 8 x 1024 half, three steps on batch 16
+    model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    with torch.no_grad():
+        first_half = float(tp.amp_loss_fn(model, tokens[:half],
+                                          labels[:half]))
+    want16 = _dygraph_losses(torch, model, dist_adamw(model),
+                             tp.amp_loss_fn,
+                             [(tokens, labels)] * HYBRID_STEPS)
+    del model
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    ring_ref = flash_attention_fwd(q, k, v, is_causal=True).float().cpu()
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(HYBRID_ROOT, ignore_errors=True)
+    HYBRID_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dist.spawn(hybrid_rank, args=(str(HYBRID_ROOT),), nprocs=2)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((HYBRID_ROOT / f"rank{r}.json").read_text())
+             for r in range(2)]
+    out = dict(card=card, spawn_s=spawn_s, backend=ranks[0]["backend"],
+               one_process=dict(step1_loss_batch8=first_half,
+                                losses_batch16=want16))
+    nl = cfg.num_layers
+
+    # (a)
+    a = {}
+    for kind in ("dygraph", "train_step"):
+        rows = [_part_row(rk["tp"][kind]) for rk in ranks]
+        if ranks[0]["tp"][kind]["losses"] != ranks[1]["tp"][kind]["losses"]:
+            fail(f"hybrid (a) {kind}: the mp ranks' losses differ")
+        got = ranks[0]["tp"][kind]["losses"]
+        rel = _rel(got[0], first_half)
+        if not all(math.isfinite(x) for x in got) or \
+                rel > DIST_LOSS_TOL["first"]:
+            fail(f"hybrid (a) {kind}: step-1 loss {got[0]} against one "
+                 f"process's {first_half} (relative {rel})")
+        for row in rows:
+            if row["k3_k4"] != [nl * HYBRID_STEPS] * 3:
+                fail(f"hybrid (a) {kind}: K3/K4 launches {row['k3_k4']}, "
+                     f"want {nl * HYBRID_STEPS} each")
+        a[kind] = dict(by_rank=rows, step1_rel_err=rel)
+    if ranks[0]["tp"]["heads_local"] != cfg.num_heads // 2:
+        fail(f"hybrid (a): {ranks[0]['tp']['heads_local']} heads a rank")
+    a.update(wrapper=ranks[0]["tp"]["wrapper"],
+             qkv_shape=ranks[0]["tp"]["qkv_shape"])
+    out["tensor_parallel"] = a
+
+    # (b)
+    b = {}
+    for label, stage, offload in HYBRID_ZERO:
+        got = [rk["zero"][label]["losses"] for rk in ranks]
+        if got[0] != got[1]:
+            fail(f"hybrid (b) {label}: the ranks' losses differ: {got}")
+        rel = _check_losses(f"hybrid (b) {label}", got[0], want16)
+        rows = [_part_row(rk["zero"][label]) for rk in ranks]
+        want_k3 = nl * HYBRID_STEPS * (2 if stage == 3 else 1)
+        for row in rows:
+            if row["k3_k4"] != [want_k3] + [nl * HYBRID_STEPS] * 2:
+                fail(f"hybrid (b) {label}: K3/K4 launches {row['k3_k4']}")
+        b[label] = dict(by_rank=rows, loss_rel_err=rel,
+                        at_rest=[rk["zero"][label]["at_rest"]
+                                 for rk in ranks])
+    out["zero"] = b
+
+    # (c)
+    c = dict(by_rank=[_part_row(rk["pipeline"]) for rk in ranks],
+             segments=ranks[0]["pipeline"]["segments"],
+             p2p=[rk["pipeline"]["p2p"] for rk in ranks],
+             step_type=ranks[0]["pipeline"]["step_type"])
+    got = ranks[0]["pipeline"]["losses"]
+    if got != ranks[1]["pipeline"]["losses"] or \
+            c["step_type"] != "PipelineTrainStep":
+        fail(f"hybrid (c): {c['step_type']}, losses "
+             f"{[rk['pipeline']['losses'] for rk in ranks]}")
+    c["step1_rel_err"] = _rel(got[0], first_half)
+    if not all(math.isfinite(x) for x in got) or \
+            c["step1_rel_err"] > DIST_LOSS_TOL["first"]:
+        fail(f"hybrid (c): step-1 loss {got[0]} against {first_half}")
+    per_stage = (nl // 2) * HYBRID_PP_MICRO * HYBRID_STEPS
+    for row in c["by_rank"]:
+        if row["k3_k4"] != [per_stage] * 3:
+            fail(f"hybrid (c): K3/K4 launches {row['k3_k4']}, want "
+                 f"{per_stage} each")
+    out["pipeline"] = c
+
+    # (e)
+    ring_out = torch.load(HYBRID_ROOT / "ring_out.pt").float()
+    err = float((ring_out - ring_ref).abs().max())
+    e = dict(max_abs_err=err, tol=FLASH_TOL["bfloat16"]["out"],
+             launches=[rk["ring"]["launches"]["fwd"] for rk in ranks],
+             ms=[statistics.median(rk["ring"]["ms"]) for rk in ranks],
+             grad_finite=[rk["ring"]["grad_finite"] for rk in ranks])
+    if err > e["tol"] or e["launches"] != [1, 2] or not all(
+            e["grad_finite"]):
+        fail(f"hybrid (e) ring attention: {e}")
+    out["ring"] = e
+    shutil.rmtree(HYBRID_ROOT, ignore_errors=True)
+
+    # (d)
+    HYBRID_ROOT.mkdir(parents=True)
+    n = int(np.prod(list(SPMD_DEGREES.values())))
+    t0 = time.perf_counter()
+    dist.spawn(spmd_rank, args=(str(HYBRID_ROOT),), nprocs=n)
+    spmd_s = time.perf_counter() - t0
+    rs = [json.loads((HYBRID_ROOT / f"rank{r}.json").read_text())
+          for r in range(n)]
+    f32 = rs[0]["f32"]
+    d = dict(spawn_s=spmd_s, tol=SPMD_TOL, f32_loss=f32["loss"],
+             reference_loss=f32["reference_loss"],
+             loss_rel_err=_rel(f32["loss"], f32["reference_loss"]),
+             update_max_abs_err=f32["update_max_abs_err"],
+             bf16=[_part_row(rk["bf16"]) for rk in rs],
+             coords=[rk["coords"] for rk in rs],
+             local_param_bytes=[rk["local_param_bytes"] for rk in rs])
+    if len({rk["f32"]["loss"] for rk in rs}) != 1 or \
+            d["loss_rel_err"] > SPMD_TOL["loss_rtol"] or \
+            d["update_max_abs_err"] > SPMD_TOL["update_atol"]:
+        fail(f"hybrid (d) gpt_spmd f32: {d}")
+    for rk, row in zip(rs, d["bf16"]):
+        sp_rank = rk["coords"][2]
+        blocks = (nl // SPMD_DEGREES["pp"]) * SPMD_MICRO * HYBRID_STEPS
+        want = [blocks * (sp_rank + 1), 0, 0]
+        if row["k3_k4"] != want or not all(math.isfinite(x)
+                                           for x in row["losses"]):
+            fail(f"hybrid (d) rank {rk['rank']}: K3/K4 {row['k3_k4']} "
+                 f"(want {want}), losses {row['losses']}")
+    out["gpt_spmd"] = d
+    shutil.rmtree(HYBRID_ROOT, ignore_errors=True)
+
+    for label, rows in [("(a) mp=2 dygraph", a["dygraph"]["by_rank"]),
+                        ("(a) mp=2 build_train_step",
+                         a["train_step"]["by_rank"])] + \
+            [(f"(b) zero {k}", v["by_rank"]) for k, v in b.items()] + \
+            [("(c) pp=2", c["by_rank"]), ("(d) gpt_spmd bf16", d["bf16"])]:
+        print(f"hybrid {label}, by rank (ms a step, collectives' share, "
+              f"peak GiB, K3/K4 launches): " + json.dumps(
+                  [[round(r["ms_per_step"], 2),
+                    round(r["collective_share"], 4), round(r["peak_gib"], 3),
+                    r["k3_k4"]] for r in rows]), flush=True)
+    print(f"hybrid (e) ring: {json.dumps(e)}", flush=True)
+    dp_peak = 9.39  # GiB a rank, phase 18 (a), PERF.md section 5
+    print("hybrid: (a) mp=2 "
+          f"{a['dygraph']['by_rank'][0]['ms_per_step']:.0f} ms a dygraph "
+          f"step, collectives "
+          f"{a['dygraph']['by_rank'][0]['collective_share']:.0%}; (b) "
+          + ", ".join(f"{k} {v['by_rank'][0]['ms_per_step']:.0f} ms peak "
+                      f"{max(r['peak_gib'] for r in v['by_rank']):.2f} "
+                      f"GiB" for k, v in b.items())
+          + f" (DP {dp_peak} GiB); (c) pp=2 "
+          f"{c['by_rank'][0]['ms_per_step']:.0f} ms a step; (d) gpt_spmd "
+          f"bf16 {max(r['ms_per_step'] for r in d['bf16']):.0f} ms a step; "
+          f"(e) ring {max(e['ms']):.2f} ms; {card}", flush=True)
+    return out
+
+
+def hybrid_launches(hybrid, kern) -> dict:
+    """Phase 19's launches of one K3/K4 wrapper, by part and rank."""
+    i = list(FLASH_KERNELS).index(kern)
+    out = {}
+    for kind in ("dygraph", "train_step"):
+        for r, row in enumerate(hybrid["tensor_parallel"][kind]["by_rank"]):
+            out[f"hybrid_mp2_{kind}_rank{r}"] = row["k3_k4"][i]
+    for label, part in hybrid["zero"].items():
+        for r, row in enumerate(part["by_rank"]):
+            out[f"hybrid_zero_{label}_rank{r}"] = row["k3_k4"][i]
+    for r, row in enumerate(hybrid["pipeline"]["by_rank"]):
+        out[f"hybrid_pp2_stage{r}"] = row["k3_k4"][i]
+    if kern == "fwd":
+        for r, n in enumerate(hybrid["ring"]["launches"]):
+            out[f"hybrid_ring_sp2_rank{r}"] = n
+        for r, row in enumerate(hybrid["gpt_spmd"]["bf16"]):
+            out[f"hybrid_gpt_spmd_rank{r}"] = row["k3_k4"][i]
+    return out
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
     chip_smoke_kernels.json (a quick way to time K1/K2 of any checkout:
     copy this script into its root and run it there).  ``--mesh``,
-    ``--fleet``, ``--eager``, ``--dist``: the serve of 4 and phase 15,
-    16, 17 or 18, into chiprun_out/chip_smoke_<mode>.json."""
+    ``--fleet``, ``--eager``, ``--dist``, ``--hybrid``: the serve of 4
+    and phase 15, 16, 17, 18 or 19, into chiprun_out/
+    chip_smoke_<mode>.json."""
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -4780,11 +5271,13 @@ def main(argv) -> int:
     fleet_only = argv == ["--fleet"]
     eager_only = argv == ["--eager"]
     dist_only = argv == ["--dist"]
+    hybrid_only = argv == ["--hybrid"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
     acp_kid = argv[:1] == ["--acp-child"] and len(argv) == 4
     if argv and not (kernels_only or mesh_only or fleet_only or eager_only
-                     or dist_only or child or fleet_kid or acp_kid):
+                     or dist_only or hybrid_only or child or fleet_kid
+                     or acp_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -4856,6 +5349,17 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_dist.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if hybrid_only:
+        res = dict(card=card)
+        res["serve"], _ = serve_phase(torch)
+        res["hybrid"] = hybrid_phase(torch)
+        res["serve"]["tokens"] = None
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_hybrid.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -4933,7 +5437,11 @@ def main(argv) -> int:
     # auto-checkpoint
     distp = dist_phase(torch)
 
-    # 19. report
+    # 19. hybrid-parallel training: tensor, ZeRO, pipeline, sequence and
+    # the 4-axis GPT step
+    hybrid = hybrid_phase(torch)
+
+    # 20. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -4993,7 +5501,8 @@ def main(argv) -> int:
                      eager_train=eager["eager_vs_train_step"]["launches"][
                          kern],
                      **{f"dist_train_rank{r}": n[kern] for r, n in
-                        distp["data_parallel"]["launches_by_rank"].items()})
+                        distp["data_parallel"]["launches_by_rank"].items()},
+                     **hybrid_launches(hybrid, kern))
         if kern == "fwd":
             paths.update(generate_concat=gen["concat"]["calls"]
                          * gen["concat"]["k3_launches_per_call"],
@@ -5032,7 +5541,7 @@ def main(argv) -> int:
                   serve_legacy=legacy, serve_reliability=reliability,
                   telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
                   train=train, train_layer_norm=train_ln, eager=eager,
-                  dist=distp)
+                  dist=distp, hybrid=hybrid)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

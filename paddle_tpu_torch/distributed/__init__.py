@@ -1,9 +1,10 @@
 """``paddle.distributed`` (counterpart: paddle_tpu/distributed/): ranks
 as processes over ``torch.distributed`` — the parallel environment, the
-collectives, ``spawn`` and ``launch``, the data-parallel topology,
-``DataParallel`` and ``fleet``'s collective half.  The parameter
-server (``ps``) and the tensor, pipeline, sequence and ZeRO parallel
-halves are not ported."""
+collectives, ``spawn`` and ``launch``, the hybrid topology (data,
+pipeline, sequence, tensor and sharding groups), ``DataParallel``,
+``split`` and ``fleet``'s collective half (tensor, pipeline and ZeRO
+parallelism).  The parameter server (``ps``) and expert parallelism are
+not ported."""
 from . import collective
 from .collective import (Group, ReduceOp, all_gather, all_gather_object,
                          all_reduce, alltoall, barrier, broadcast, irecv,

@@ -26,9 +26,16 @@ all-reduce is.  The calls run synchronously; ``sync_op=False`` returns a
 task whose ``wait()`` is already satisfied, and `isend`/`irecv` return
 the backend's task.  A group is a set of ranks (``new_group``), or a
 mesh axis name for JAX's API (``axis_name``).
+
+`comm_stats` counts, process-wide, the calls, bytes and host seconds of
+the all-reduces and all-gathers made through `_reduce_inplace` and
+`_gather` (the hybrid layers', ZeRO's and the ring's) and of the
+pipeline's point-to-point traffic: over gloo, which runs synchronously
+here, the seconds are the collectives' wall time.
 """
 from __future__ import annotations
 
+import time
 from typing import List
 
 import torch
@@ -38,7 +45,26 @@ from . import parallel as _par
 __all__ = ["ReduceOp", "Group", "new_group", "all_reduce", "all_gather",
            "all_gather_object", "reduce_scatter", "broadcast", "reduce",
            "scatter", "alltoall", "send", "recv", "isend", "irecv",
-           "barrier", "wait", "split"]
+           "barrier", "wait", "split", "comm_stats"]
+
+_COMM = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def comm_stats(reset: bool = False) -> dict:
+    """``{"calls", "bytes", "seconds"}`` of the collectives counted so far
+    (see the module docstring); ``reset`` zeroes them after reading."""
+    out = dict(_COMM)
+    if reset:
+        _COMM.update(calls=0, bytes=0, seconds=0.0)
+    return out
+
+
+def account(nbytes: int, t0: float):
+    """Add one collective of ``nbytes`` started at ``t0``
+    (``time.perf_counter``) to `comm_stats`."""
+    _COMM["calls"] += 1
+    _COMM["bytes"] += int(nbytes)
+    _COMM["seconds"] += time.perf_counter() - t0
 
 
 class ReduceOp:
@@ -89,7 +115,10 @@ def new_group(ranks=None, backend=None, axis_name=None) -> Group:
     if d is not None:
         ranks = sorted(ranks) if ranks is not None else \
             list(range(d.get_world_size()))
-        pg = d.new_group(ranks=ranks, backend=backend)
+        # the default group's bound (`parallel.DIST_TIMEOUT_S`), not
+        # torch's half hour
+        pg = d.new_group(ranks=ranks, backend=backend,
+                         timeout=_par._STATE.get("timeout"))
     return Group(axis_name or "dp", ranks, id=_GROUP_COUNTER[0], pg=pg)
 
 
@@ -130,6 +159,7 @@ def _reduce_inplace(t: torch.Tensor, op, group) -> torch.Tensor:
     """Reduce ``t`` over the group in place (gloo: through a host copy)."""
     import torch.distributed as dist
 
+    t0 = time.perf_counter()
     buf = t.detach()
     if _staged(buf, group):
         h = buf.cpu()
@@ -137,6 +167,7 @@ def _reduce_inplace(t: torch.Tensor, op, group) -> torch.Tensor:
         buf.copy_(h)
     else:
         dist.all_reduce(buf, op=_torch_op(op), group=_pg(group))
+    account(buf.numel() * buf.element_size(), t0)
     if op == ReduceOp.AVG:
         if buf.is_floating_point():
             buf.div_(_nranks(group))
@@ -173,6 +204,7 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
 def _gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     import torch.distributed as dist
 
+    t0 = time.perf_counter()
     src = t.detach()
     staged = _staged(src, group)
     if staged:
@@ -182,6 +214,7 @@ def _gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     dist.all_gather(parts, src, group=_pg(group))
     if staged:
         parts = [p.to(t.device) for p in parts]
+    account(src.numel() * src.element_size() * len(parts), t0)
     return parts
 
 
@@ -373,9 +406,61 @@ def wait(tensor, group=None, use_calc_stream=True):
 
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
           weight_attr=None, bias_attr=None, name=None):
-    """Tensor-parallel layers (the JAX package builds them from
-    ``fleet.meta_parallel``'s ``mp_layers``): not ported yet."""
-    raise NotImplementedError(
-        "paddle.distributed.split builds tensor-parallel layers, which "
-        "come with fleet.meta_parallel's mp_layers (ROADMAP.md Queue 1, "
-        "item 2)")
+    """``paddle.distributed.split``: builds the tensor-parallel layer of
+    ``operation`` over the current hybrid group's ``mp`` axis (fresh
+    parameters, this rank's block of them), applies it to ``x`` and keeps
+    it as ``split.last_layer``, as the JAX package does.  ``"linear"``
+    with ``axis=0`` is a `RowParallelLinear` (``size = (in, out)``, the
+    input split on its last axis here), ``axis=1`` a
+    `ColumnParallelLinear` (gathered with ``gather_out``);
+    ``"embedding"`` (``axis=0``) a `VocabParallelEmbedding`.
+    ``num_partitions`` must equal the mp degree when that is above 1."""
+    from .fleet.meta_parallel.mp_layers import (ColumnParallelLinear,
+                                                RowParallelLinear,
+                                                VocabParallelEmbedding)
+    from .topology import get_hybrid_communicate_group
+
+    hcg = get_hybrid_communicate_group()
+    mp_deg = hcg.get_model_parallel_world_size() if hcg is not None \
+        else None
+    if mp_deg is not None and mp_deg > 1 and num_partitions != mp_deg:
+        raise ValueError(
+            f"num_partitions {num_partitions} must equal the mesh "
+            f"mp degree {mp_deg}")
+    shards = mp_deg if mp_deg and mp_deg > 1 else max(num_partitions, 1)
+    dev = x.device
+    if operation == "linear":
+        in_f, out_f = size
+        if axis == 0:
+            if in_f % shards:
+                raise ValueError(
+                    f"in_features {in_f} not divisible by {shards} "
+                    "partitions")
+            layer = RowParallelLinear(in_f, out_f, weight_attr=weight_attr,
+                                      has_bias=bias_attr is not False,
+                                      device=dev)
+        elif axis == 1:
+            if out_f % shards:
+                raise ValueError(
+                    f"out_features {out_f} not divisible by {shards} "
+                    "partitions")
+            layer = ColumnParallelLinear(in_f, out_f,
+                                         weight_attr=weight_attr,
+                                         has_bias=bias_attr is not False,
+                                         gather_output=gather_out,
+                                         device=dev)
+        else:
+            raise ValueError("linear split axis must be 0 or 1")
+    elif operation == "embedding":
+        if axis != 0:
+            raise ValueError("embedding split supports axis=0 (vocab)")
+        vocab, hidden = size
+        layer = VocabParallelEmbedding(vocab, hidden,
+                                       weight_attr=weight_attr, device=dev)
+    else:
+        raise ValueError(
+            f"unknown split operation {operation!r}; expected 'linear' or "
+            "'embedding'")
+    out = layer(x)
+    split.last_layer = layer
+    return out

@@ -1,10 +1,11 @@
 """fleet, the collective half (counterpart: paddle_tpu/distributed/
 fleet/__init__.py): the singleton's API at module level, as there.
-``dataset``, ``elastic``, ``meta_parallel`` and the pipeline step are
-not ported (ROADMAP.md Queue 1, item 2)."""
-from . import meta_optimizers, utils
+``dataset``, ``elastic`` and ``meta_parallel.moe_layer`` are not ported
+(ROADMAP.md Queue 1, item 2)."""
+from . import meta_optimizers, meta_parallel, utils
 from .base import Fleet, PaddleCloudRoleMaker, RoleMakerBase, fleet
 from .data_parallel import DataParallel
+from .pipeline_step import PipelineTrainStep
 from .sharded_step import ShardedTrainStep
 from .strategy import DistributedStrategy
 

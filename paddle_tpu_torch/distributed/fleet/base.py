@@ -2,18 +2,21 @@
 paddle_tpu/distributed/fleet/base.py).
 
 ``fleet.init(is_collective=True)`` joins the process group
-(`init_parallel_env`) and builds the data-parallel
-`HybridCommunicateGroup` over every rank; ``distributed_model`` wraps the
-model in `DataParallel` (buckets of the strategy's
-``fuse_grad_size_in_MB``); ``distributed_optimizer`` stacks the
-strategy's meta-optimizers (`StrategyCompiler`); ``build_train_step``
-gives the data-parallel step (`ShardedTrainStep`: gradient merge's
-``k_steps``, recompute).  Not ported, and refused with
-NotImplementedError: hybrid degrees above 1 on ``mp``, ``pp``, ``sp`` or
-``sharding``, ZeRO sharding, offload and the pipeline (ROADMAP.md Queue
-1, item 2), and the parameter-server half (``is_collective=False``, a
-server role, ``a_sync``, ``init_server`` / ``init_worker`` ...: the
-``distributed/ps`` slice).
+(`init_parallel_env`) and builds the `HybridCommunicateGroup` of the
+strategy's ``hybrid_configs`` (``dp_degree``, ``mp_degree``,
+``pp_degree``, ``sp_degree``, ``sharding_degree``; all 1: data parallel
+over every rank); ``distributed_model`` returns `PipelineParallel` for a
+`PipelineLayer`, `TensorParallel` under ``mp > 1`` and `DataParallel`
+otherwise; ``distributed_optimizer`` stacks the strategy's
+meta-optimizers (`StrategyCompiler`); ``build_train_step`` gives the
+1F1B `PipelineTrainStep` for a `PipelineLayer` under ``pp > 1``, else
+the `ShardedTrainStep` of the strategy (ZeRO ``stage`` and ``offload``
+from ``sharding_configs``, gradient merge's ``k_steps``, recompute).
+Not ported, and refused with NotImplementedError: expert parallelism
+(``moe_layer``: ROADMAP.md Queue 1, item 2) and the parameter-server
+half (``is_collective=False``, a server role, ``a_sync``,
+``init_server`` / ``init_worker`` ...: the ``distributed/ps`` slice,
+the same item).
 """
 from __future__ import annotations
 
@@ -27,9 +30,10 @@ from .strategy import DistributedStrategy
 
 __all__ = ["Fleet", "RoleMakerBase", "PaddleCloudRoleMaker", "fleet"]
 
-_LATER = "ROADMAP.md Queue 1, item 2"
 _PS = ("the parameter-server runtime comes with the distributed/ps slice "
-       "of paddle_tpu_torch")
+       "of paddle_tpu_torch (ROADMAP.md Queue 1, item 2)")
+_MOE = ("expert parallelism (meta_parallel.moe_layer) is not ported yet: "
+        "it comes with ROADMAP.md Queue 1, item 2")
 
 
 class RoleMakerBase:
@@ -90,18 +94,27 @@ class PaddleCloudRoleMaker(RoleMakerBase):
 
 
 def _refuse_unported(st: DistributedStrategy):
+    if getattr(st, "expert_parallel", False) or int(
+            st.expert_parallel_configs.get("expert_parallel_degree", 1)) > 1:
+        raise NotImplementedError(_MOE)
+
+
+def _degrees(st: DistributedStrategy):
     h = st.hybrid_configs
-    for key in ("mp_degree", "pp_degree", "sp_degree", "sharding_degree"):
-        if int(h.get(key, 1)) > 1:
-            raise NotImplementedError(
-                f"hybrid_configs[{key!r}] = {h[key]}: the port's fleet is "
-                f"data-parallel only; the rest comes with {_LATER}")
-    for switch, what in (("sharding", "ZeRO sharding"),
-                         ("pipeline", "pipeline parallelism"),
-                         ("tensor_parallel", "tensor parallelism")):
-        if getattr(st, switch, False):
-            raise NotImplementedError(
-                f"strategy.{switch} ({what}) comes with {_LATER}")
+    mp = int(h.get("mp_degree", 1))
+    if st.tensor_parallel:
+        mp = max(mp, int(st.tensor_parallel_configs.get(
+            "tensor_parallel_degree", 1)))
+    sp = int(h.get("sp_degree", 1))
+    if st.sequence_parallel:
+        sp = max(sp, int(st.sequence_parallel_configs.get(
+            "sequence_parallel_degree", 1)))
+    sharding = int(h.get("sharding_degree", 1))
+    if st.sharding:
+        sharding = max(sharding, int(st.sharding_configs.get(
+            "sharding_degree", 1)))
+    return dict(dp=int(h.get("dp_degree", 1)), mp=mp,
+                pp=int(h.get("pp_degree", 1)), sp=sp, sharding=sharding)
 
 
 class Fleet:
@@ -121,8 +134,15 @@ class Fleet:
         _refuse_unported(strategy)
         self._role_maker, self._strategy = role_maker, strategy
         _par.init_parallel_env()
-        dp = int(strategy.hybrid_configs.get("dp_degree", 1))
-        self._hcg = HybridCommunicateGroup(dp=None if dp == 1 else dp)
+        d = _degrees(strategy)
+        world = _par.get_world_size()
+        if d["dp"] == 1 and d["sharding"] <= 1 and \
+                d["mp"] * d["pp"] * d["sp"] < world:
+            d["dp"] = world // (d["mp"] * d["pp"] * d["sp"])
+        dp = d["dp"] * max(d["sharding"], 1)
+        self._hcg = HybridCommunicateGroup(dp=dp, pp=d["pp"], sp=d["sp"],
+                                           mp=d["mp"],
+                                           sharding=d["sharding"])
         set_hybrid_communicate_group(self._hcg)
         return self
 
@@ -163,19 +183,30 @@ class Fleet:
 
     def distributed_model(self, model):
         from .data_parallel import DataParallel
+        from .meta_parallel.mp_layers import TensorParallel
+        from .meta_parallel.pipeline_parallel import (PipelineLayer,
+                                                      PipelineParallel)
 
         if self._hcg is None:
             self.init()
         st = self._strategy
+        if isinstance(model, PipelineLayer):
+            return PipelineParallel(model, self._hcg, st)
+        if self._hcg.get_model_parallel_world_size() > 1:
+            return TensorParallel(model, self._hcg, st)
         return DataParallel(model, strategy=st,
                             comm_buffer_size=st.fuse_grad_size_in_MB,
                             find_unused_parameters=st.find_unused_parameters,
                             hcg=self._hcg)
 
     def build_train_step(self, model, loss_fn, optimizer=None):
-        """The data-parallel step of the strategy (`ShardedTrainStep`)
-        with ``loss_fn(model, *batch)`` over the global batch."""
+        """The strategy's step over the global batch: the 1F1B
+        `PipelineTrainStep` for a `PipelineLayer` under ``pp > 1``
+        (``loss_fn(output, label)``; ``accumulate_steps`` micro-batches
+        with ``strategy.pipeline``, else ``pp``), else `ShardedTrainStep`
+        (``loss_fn(model, *batch)``)."""
         from .meta_optimizers import MetaOptimizerBase
+        from .meta_parallel.pipeline_parallel import PipelineLayer
         from .sharded_step import ShardedTrainStep
 
         if self._hcg is None:
@@ -187,11 +218,23 @@ class Fleet:
         _refuse_unported(st)
         inner = model.network if hasattr(model, "network") else model
         inner = getattr(inner, "_layers", inner)
+        pp = self._hcg.get_pipe_parallel_world_size()
+        if pp > 1 and isinstance(inner, PipelineLayer):
+            from .pipeline_step import PipelineTrainStep
+
+            n_micro = int(st.pipeline_configs.get("accumulate_steps", pp)) \
+                if st.pipeline else pp
+            return PipelineTrainStep(inner, loss_fn, opt, self._hcg,
+                                     n_micro=n_micro)
         k = int(st.gradient_merge_configs.get("k_steps", 1)) \
             if st.gradient_merge else 1
+        zero = int(st.sharding_configs.get("stage", 1)) if st.sharding \
+            else 0
+        offload = bool(st.sharding and
+                       st.sharding_configs.get("offload", False))
         return ShardedTrainStep(
-            inner, loss_fn, opt, self._hcg.mesh, grad_accum=k,
-            recompute=bool(st.recompute),
+            inner, loss_fn, opt, self._hcg.mesh, zero_stage=zero,
+            grad_accum=k, recompute=bool(st.recompute), offload=offload,
             recompute_checkpoints=st.recompute_configs.get("checkpoints")
             if st.recompute else None, hcg=self._hcg)
 

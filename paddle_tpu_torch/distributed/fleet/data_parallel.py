@@ -67,9 +67,13 @@ def is_reduced(p: torch.Tensor) -> bool:
 def sync_params_buffers(model, comm_group=None, src_rank=0,
                         is_model_parallel=False):
     """Broadcast every parameter and buffer of ``model`` from
-    ``src_rank``."""
+    ``src_rank`` (a global rank; a group that does not hold it sends
+    from its first rank)."""
     if _par._dist() is None:
         return model
+    ranks = getattr(comm_group, "ranks", None)
+    if ranks and src_rank not in ranks:
+        src_rank = ranks[0]
     for t in list(model.parameters()) + list(model.buffers()):
         broadcast(t, src=src_rank, group=comm_group)
     return model

@@ -7,7 +7,8 @@ in place on the torch parameters.  Their collectives (`LocalSGD`'s
 parameter average, `FP16AllReduce`'s gradient all-reduce) go through
 `distributed.collective`, and are the identity at world size 1.
 `StrategyCompiler` stacks them from a `DistributedStrategy` as the JAX
-package does.  `DygraphShardingOptimizer` is ZeRO and raises.
+package does.  `DygraphShardingOptimizer` is ZeRO stage 1 for the
+dygraph loop (`fleet.zero`).
 """
 from __future__ import annotations
 
@@ -422,9 +423,72 @@ class StrategyCompiler:
 
 
 class DygraphShardingOptimizer(MetaOptimizerBase):
-    """ZeRO-1 optimizer-state sharding: not ported."""
+    """ZeRO-1 for the dygraph loop (``loss.backward(); opt.step()``): the
+    optimizer state of the inner optimizer's parameters is sharded over
+    the hybrid group's sharding group (`fleet.zero.FlatShard`).  ``step``
+    averages the gradients over that group (those a `DataParallel`
+    already reduced are left alone), updates this rank's range of the
+    flattened parameters with the inner optimizer's update and
+    all-gathers the ranges back; the strategy's
+    ``sharding_configs["offload"]`` keeps the slots in pinned host
+    memory.  The reference's signature ``(hcg, user_defined_strategy,
+    params, inner_optimizer_class, **inner_kw)``, or ``optimizer=`` a
+    built one."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DygraphShardingOptimizer shards optimizer state (ZeRO), which "
-            "comes with ROADMAP.md Queue 1, item 2")
+    def __init__(self, hcg=None, user_defined_strategy=None, params=None,
+                 inner_optimizer_class=None, optimizer=None, **inner_kw):
+        if optimizer is None:
+            if inner_optimizer_class is None:
+                raise TypeError(
+                    "DygraphShardingOptimizer needs inner_optimizer_class "
+                    "(reference signature) or optimizer=")
+            optimizer = inner_optimizer_class(parameters=params, **inner_kw)
+        super().__init__(optimizer)
+        from ...topology import get_hybrid_communicate_group
+
+        self._hcg = hcg if hcg is not None else \
+            get_hybrid_communicate_group()
+        st = user_defined_strategy
+        self._offload = bool(st is not None and st.sharding_configs.get(
+            "offload", False))
+        self._shard = None
+        self._count = 0
+
+    def _group(self):
+        from ...collective import Group
+
+        if self._hcg is not None:
+            return self._hcg.get_sharding_parallel_group()
+        return Group("sharding", None)
+
+    @torch.no_grad()
+    def step(self):
+        from ..utils.hybrid_parallel_util import _average
+        from ..zero import FlatShard, clip_views
+
+        inner = self._inner
+        params = [p for p in self._params() if p.requires_grad]
+        group = self._group()
+        if self._shard is None:
+            self._shard = FlatShard([(f"param{i}", p) for i, p in
+                                     enumerate(params)], group,
+                                    inner._elementwise_update)
+        sh = self._shard
+        _average(params, [group])
+        flat_g = sh.flatten([p.grad if p.grad is not None
+                             else torch.zeros_like(p) for p in params])
+        own = sh.own(sh.flatten([p.detach() for p in params])).clone()
+        if sh.slots is None:
+            sh.init_slots(inner, own, self._offload)
+        self._count += 1
+        inner._step_count = self._count
+        (views,) = clip_views(inner._grad_clip, [sh], [sh.views(own,
+                                                          sh.own(flat_g))],
+                              group)
+        sh.apply(inner, own, views, inner.get_lr(), self._count)
+        for p, t in zip(params, sh.unflatten(sh.gather(own))):
+            p.copy_(t)
+
+    def slot_bytes(self) -> int:
+        """Bytes of this rank's optimizer slots."""
+        return self._shard.slot_bytes() if self._shard is not None else 0

@@ -2,9 +2,12 @@
 strategy.py, copied).
 
 The switches and their configs under the JAX package's names and
-defaults.  `fleet.init` and `fleet.build_train_step` read them; those
-whose parallelism is not ported (sharding, pipeline, tensor and
-sequence parallel degrees above 1, ``a_sync``) raise there.
+defaults: ``sharding_configs`` (``stage``, ``offload``,
+``sharding_degree``), ``pipeline_configs`` (``accumulate_steps``,
+``micro_batch_size``), ``tensor_parallel_configs``, ``hybrid_configs``
+and the rest.  `fleet.init` and `fleet.build_train_step` read them; those
+whose parallelism is not ported (expert parallelism, ``a_sync``) raise
+there.
 """
 from __future__ import annotations
 
@@ -13,8 +16,8 @@ import json
 
 class DistributedStrategy:
     def __init__(self):
-        # the whole switch set; what the port lacks is refused at
-        # fleet.init / build_train_step
+        # the whole switch set; what the port lacks (experts, a_sync) is
+        # refused at fleet.init / build_train_step
         self.amp = False
         self.amp_configs = {"init_loss_scaling": 32768.0, "use_pure_fp16": False,
                             "use_bf16": True}

@@ -150,7 +150,7 @@ def init_parallel_env(coordinator_address=None, num_processes=None,
         dist.init_process_group(be, init_method=f"tcp://{addr}",
                                 world_size=nproc, rank=rank, timeout=td)
         atexit.register(_destroy)
-        _STATE.update(backend=be)
+        _STATE.update(backend=be, timeout=td)
         probe = torch.ones(1, device=dev)
         from .collective import _reduce_inplace
         _reduce_inplace(probe, dist.ReduceOp.SUM, None)

@@ -6,6 +6,20 @@
 is ``[in, out]``.  Its ``forward`` without a cache is the training path;
 with the concat or prealloc KV caches it is ``generate``'s eager decode;
 the serving engine reads the same weights through `GPT.params`.
+
+Under a tensor-parallel group (a `HybridCommunicateGroup` with ``mp >
+1``) and ``use_parallel_layers``, `GPT` builds the
+JAX package's parallel layers where it does: qkv and fc1 are
+`ColumnParallelLinear`, out and fc2 `RowParallelLinear`, ``wte`` a
+`VocabParallelEmbedding` (the tied head reads its rows, an untied head
+is column-split).  The weights given (or drawn) are the whole model's;
+each rank keeps its block (`parallel.partition.
+gpt_tensor_parallel_rules`).  qkv is split head-aligned: a rank holds q,
+k and v of its ``num_heads / mp`` whole heads, so its attention (kernels
+K3/K4 on the card) runs on its own heads.  The forward returns the whole
+logits (gathered over the group), or this rank's vocabulary block with
+``parallel_output=True``, which `gpt_loss_fn` feeds to the
+vocab-parallel cross entropy.
 """
 from __future__ import annotations
 
@@ -27,7 +41,8 @@ from ..nn.layer.transformer import (PreallocKVCache, kv_cache_write,
                                     kv_capacity_check, kv_valid_mask)
 from ..ops.math import matmul
 
-__all__ = ["GPTConfig", "GPTBlock", "GPT", "init_params", "gpt_loss_fn"]
+__all__ = ["GPTConfig", "GPTBlock", "GPT", "init_params", "gpt_loss_fn",
+           "gpt_pipeline_layer"]
 
 
 @dataclass
@@ -75,10 +90,41 @@ class GPTConfig:
 
 def _adopt(layer: nn.Module, **tensors) -> nn.Module:
     """``layer`` (built on the meta device) over the given tensors, each
-    wrapped as a parameter without a copy; a ``None`` tensor stays None."""
+    wrapped as a parameter without a copy (keeping the replaced one's
+    ``mesh_axes``); a ``None`` tensor stays None."""
     for name, t in tensors.items():
-        setattr(layer, name, None if t is None else nn.Parameter(t))
+        old = getattr(layer, name, None)
+        new = None if t is None else nn.Parameter(t)
+        if new is not None and hasattr(old, "mesh_axes"):
+            new.mesh_axes = old.mesh_axes
+            new.is_distributed = old.is_distributed
+        setattr(layer, name, new)
     return layer
+
+
+def _mp_linear(kind, w, b, group, full_in, full_out, **kw):
+    """A parallel linear over this rank's blocks ``w``/``b`` (no copy)."""
+    layer = kind(full_in, full_out, has_bias=b is not None, mp_group=group,
+                 device="meta", **kw)
+    return _adopt(layer, weight=w, bias=b)
+
+
+def _tp_group(cfg):
+    from ..distributed.fleet.meta_parallel.mp_layers import mp_group_of
+
+    return mp_group_of() if cfg.use_parallel_layers else None
+
+
+def _shard_tree(params: dict, group) -> dict:
+    """This rank's blocks of the whole tree (`gpt_tensor_parallel_rules`)."""
+    from ..parallel.partition import (gpt_tensor_parallel_rules,
+                                      match_partition_rules, shard_leaf,
+                                      _map, _at)
+
+    specs = match_partition_rules(gpt_tensor_parallel_rules(), params)
+    coords = {"mp": (group.rank, group.nranks)}
+    return _map(params, lambda path, t: shard_leaf(t, _at(specs, path),
+                                                   coords))
 
 
 def _linear(w, b):
@@ -131,16 +177,37 @@ def init_params(cfg: GPTConfig, device=None, dtype=torch.float32) -> dict:
 
 
 class GPTBlock(Layer):
-    def __init__(self, cfg: GPTConfig, p: dict):
+    def __init__(self, cfg: GPTConfig, p: dict, mp_group=None):
+        """``p``: the block's weights, this rank's blocks of them under a
+        tensor-parallel ``mp_group``."""
         super().__init__()
-        self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         self.ln1 = _layer_norm(p["ln1_w"], p["ln1_b"])
         self.ln2 = _layer_norm(p["ln2_w"], p["ln2_b"])
-        self.qkv = _linear(p["qkv_w"], p["qkv_b"])
-        self.out_proj = _linear(p["out_w"], p["out_b"])
-        self.fc1 = _linear(p["fc1_w"], p["fc1_b"])
-        self.fc2 = _linear(p["fc2_w"], p["fc2_b"])
+        if mp_group is None:
+            self.num_heads = cfg.num_heads
+            self.qkv = _linear(p["qkv_w"], p["qkv_b"])
+            self.out_proj = _linear(p["out_w"], p["out_b"])
+            self.fc1 = _linear(p["fc1_w"], p["fc1_b"])
+            self.fc2 = _linear(p["fc2_w"], p["fc2_b"])
+        else:
+            from ..distributed.fleet.meta_parallel.mp_layers import (
+                ColumnParallelLinear as Col, RowParallelLinear as Row)
+            from ..parallel.partition import QKV_HEADS
+
+            h, f = cfg.hidden_size, cfg.intermediate_size
+            self.num_heads = cfg.num_heads // mp_group.nranks
+            self.qkv = _mp_linear(Col, p["qkv_w"], p["qkv_b"], mp_group, h,
+                                  3 * h, gather_output=False)
+            self.qkv.weight.mesh_axes = (None, QKV_HEADS)
+            self.qkv.bias.mesh_axes = (QKV_HEADS,)
+            self.out_proj = _mp_linear(Row, p["out_w"], p["out_b"],
+                                       mp_group, h, h,
+                                       input_is_parallel=True)
+            self.fc1 = _mp_linear(Col, p["fc1_w"], p["fc1_b"], mp_group, h,
+                                  f, gather_output=False)
+            self.fc2 = _mp_linear(Row, p["fc2_w"], p["fc2_b"], mp_group, f,
+                                  h, input_is_parallel=True)
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, cache=None, prealloc_mask=None):
@@ -180,7 +247,7 @@ class GPTBlock(Layer):
                 v = torch.cat([v_prev, v], dim=2)
             cache = ("concat", k, v)
             attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        attn = attn.permute(0, 2, 1, 3).reshape(b, s, h)
+        attn = attn.permute(0, 2, 1, 3).reshape(b, s, -1)
         x = x + self.dropout(self.out_proj(attn))
         y = self.ln2(x)
         x = x + self.dropout(self.fc2(F.gelu(self.fc1(y), approximate=True)))
@@ -196,26 +263,46 @@ class GPT(Layer):
         it the weights are drawn on ``device`` (default: the card) as the
         JAX package's ``GPT(cfg)`` draws them (`init_params`), from the
         default generator (`seed`).  `random` is GPT-2's N(0, 0.02)
-        convention from a seed of its own."""
+        convention from a seed of its own.  Under a tensor-parallel group
+        (the current hybrid group's ``mp`` axis, with
+        ``use_parallel_layers``) ``params`` is the whole tree and the
+        model keeps this rank's blocks (the module docstring)."""
         super().__init__()
         if params is None:
             params = init_params(cfg, device, dtype)
         self.cfg = cfg
-        self.wte = _embedding(params["wte"])
+        self.mp_group = group = _tp_group(cfg)
+        if group is not None:
+            from ..distributed.fleet.meta_parallel.mp_layers import \
+                VocabParallelEmbedding
+
+            params = _shard_tree(params, group)
+            self.wte = _adopt(VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size, mp_group=group,
+                device="meta"), weight=params["wte"])
+        else:
+            self.wte = _embedding(params["wte"])
         self.wpe = _embedding(params["wpe"])
-        self.blocks = LayerList(GPTBlock(cfg, p) for p in params["blocks"])
+        self.blocks = LayerList(GPTBlock(cfg, p, group)
+                                for p in params["blocks"])
         self.ln_f = _layer_norm(params["lnf_w"], params["lnf_b"])
         if not cfg.tie_embeddings:
             self.lm_head = _linear(params["head_w"], params.get("head_b"))
+            if group is not None:
+                self.lm_head.weight.mesh_axes = (None, "mp")
+                self.lm_head.weight.is_distributed = True
 
-    def forward(self, input_ids, caches=None, pos_start=0):
+    def forward(self, input_ids, caches=None, pos_start=0,
+                parallel_output=False):
         """Logits [b, s, vocab] of token ids [b, s] at positions
         ``pos_start`` on; with ``caches`` (one a block, `gen_caches`)
         returns ``(logits, new_caches)``.  A prealloc step checks the
         horizon and builds the validity mask once for every block.  The
         tied head is a WHITE ``matmul`` against ``wte``, so under bf16
         `amp.auto_cast` the logits are bf16 while the residual stream
-        stays f32."""
+        stays f32.  Under a tensor-parallel group the logits are gathered
+        over it, unless ``parallel_output`` (this rank's vocabulary
+        block)."""
         b, s = input_ids.shape
         pos = torch.arange(pos_start, pos_start + s, device=input_ids.device)
         x = self.wte(input_ids) + self.wpe(pos)
@@ -233,10 +320,17 @@ class GPT(Layer):
                 x, c = blk(x, cache=caches[i], prealloc_mask=prealloc_mask)
                 new_caches.append(c)
         x = self.ln_f(x)
+        if self.mp_group is not None:
+            from ..distributed.fleet.meta_parallel.mp_layers import (
+                c_concat, c_identity)
+
+            x = c_identity(x, self.mp_group)
         if self.cfg.tie_embeddings:
             logits = matmul(x, self.wte.weight, transpose_y=True)
         else:
             logits = self.lm_head(x)
+        if self.mp_group is not None and not parallel_output:
+            logits = c_concat(logits, self.mp_group)
         return logits if caches is None else (logits, new_caches)
 
     def gen_caches(self, batch_size, mode="prealloc", max_length=None,
@@ -391,6 +485,87 @@ class GPT(Layer):
         return out
 
 
+def _inner_gpt(model):
+    while not isinstance(model, GPT) and hasattr(model, "_layers"):
+        model = model._layers
+    return model
+
+
 def gpt_loss_fn(model, input_ids, labels):
-    """Next-token cross entropy (the train-step loss callable)."""
-    return cross_entropy(model(input_ids), labels, reduction="mean")
+    """Next-token cross entropy (the train-step loss callable); a
+    tensor-parallel GPT (under any wrapper) takes its vocabulary block of
+    the logits through the vocab-parallel cross entropy, the same
+    mean."""
+    group = getattr(_inner_gpt(model), "mp_group", None)
+    if group is None:
+        return cross_entropy(model(input_ids), labels, reduction="mean")
+    from ..distributed.fleet.meta_parallel.mp_layers import \
+        parallel_cross_entropy
+
+    nll = parallel_cross_entropy(model(input_ids, parallel_output=True),
+                                 labels, group)
+    return nll.sum() / max(labels.numel(), 1)
+
+
+class _EmbedPipe(Layer):
+    """The pipeline's embedding (``wte`` and ``wpe``); as a shared layer
+    its ``wte`` is also the tied head (`_tied_head`)."""
+
+    def __init__(self, wte, wpe, device):
+        super().__init__()
+        self.wte = _embedding(torch.as_tensor(wte).to(device).clone())
+        self.wpe = _embedding(torch.as_tensor(wpe).to(device).clone())
+
+    def forward(self, input_ids):
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        return self.wte(input_ids) + self.wpe(pos)
+
+
+def _tied_head(embed, x):
+    return matmul(x, embed.wte.weight, transpose_y=True)
+
+
+class _BlockPipe(GPTBlock):
+    def __init__(self, cfg, p, device):
+        super().__init__(cfg, {k: torch.as_tensor(v).to(device).clone()
+                               for k, v in p.items()})
+
+
+class _NormPipe(Layer):
+    def __init__(self, w, b, device):
+        super().__init__()
+        self.ln_f = _layer_norm(torch.as_tensor(w).to(device).clone(),
+                                torch.as_tensor(b).to(device).clone())
+
+    def forward(self, x):
+        return self.ln_f(x)
+
+
+def gpt_pipeline_layer(cfg: GPTConfig, params: dict, num_stages=None,
+                       device=None, loss_fn=None):
+    """The GPT of ``params`` (the whole tree, e.g. ``GPT.random(cfg,
+    seed, device="cpu").params()``) as a `PipelineLayer`: the embedding,
+    the blocks, the final LayerNorm and the tied head, the embedding a
+    `SharedLayerDesc` read by the first and last stage.  Stages hold
+    equal numbers of blocks (``seg_method="layer:_BlockPipe"``); a rank
+    copies only its stage's weights onto ``device``.  ``loss_fn(logits,
+    labels)`` defaults to the mean cross entropy.  Tied embeddings
+    only."""
+    from ..distributed.fleet.meta_parallel.pipeline_parallel import (
+        LayerDesc, PipelineLayer, SharedLayerDesc)
+
+    if not cfg.tie_embeddings:
+        raise ValueError("gpt_pipeline_layer builds the tied GPT")
+    device = resolve_device(device)
+    descs = [SharedLayerDesc("embed", _EmbedPipe, None, "wte",
+                             params["wte"], params["wpe"], device)]
+    descs += [LayerDesc(_BlockPipe, cfg, blk, device)
+              for blk in params["blocks"]]
+    descs += [LayerDesc(_NormPipe, params["lnf_w"], params["lnf_b"], device),
+              SharedLayerDesc("embed", _EmbedPipe, _tied_head, "wte",
+                              params["wte"], params["wpe"], device)]
+    if loss_fn is None:
+        def loss_fn(logits, labels):
+            return cross_entropy(logits, labels, reduction="mean")
+    return PipelineLayer(descs, num_stages=num_stages, loss_fn=loss_fn,
+                         seg_method="layer:_BlockPipe")

@@ -213,6 +213,8 @@ class Lamb(Optimizer):
     0).  ``exclude_from_weight_decay_fn`` is stored and not read, as in
     the JAX package."""
 
+    _elementwise_update = False  # whole-parameter norms
+
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
                  grad_clip=None, exclude_from_weight_decay_fn=None,
@@ -245,6 +247,8 @@ class Lars(Momentum):
     """Momentum over ``g + lars_weight_decay * p`` at the local rate
     ``lars_coeff * |p| / (|g| + lars_weight_decay * |p| + epsilon)`` (1
     where either norm is 0)."""
+
+    _elementwise_update = False  # whole-parameter norms
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  lars_coeff=0.001, lars_weight_decay=0.0005, epsilon=1e-9,
@@ -308,6 +312,8 @@ class Dpsgd(Optimizer):
     ``jax.random`` keys folded from ``(seed, step, parameter)``: the two
     agree in distribution only, never draw for draw.  With ``sigma=0``
     no noise is added and the update is the JAX package's exactly."""
+
+    _elementwise_update = False  # whole-parameter norms
 
     def __init__(self, learning_rate=0.001, clip=10.0, batch_size=16.0,
                  sigma=1.0, parameters=None, seed=0, name=None, **kw):

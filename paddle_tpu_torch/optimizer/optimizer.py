@@ -46,6 +46,11 @@ def collect_lr_mults(params: Dict[str, torch.Tensor]) -> Optional[dict]:
 
 
 class Optimizer:
+    # an update that reads each element of a parameter alone (a ZeRO
+    # slice or a pipeline stage may cut a parameter); Lamb, Lars and
+    # Dpsgd read whole-parameter norms and set it False
+    _elementwise_update = True
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
                  multi_precision=False):

@@ -26,6 +26,15 @@ moves the 16384 bytes of the all-reduces alone.  It is the same function.
 The weight bridge: `shard_params` cuts the port's params dict (the output
 of `inference.weights.params_from_numpy` or `GPT.params()`, int8 weight
 pairs included) into one dict a rank, `gather_params` joins them back.
+
+Training's tables: `gpt_train_rules` (JAX's, for `models.gpt_spmd`'s
+stacked pytree over ``pp`` and ``mp``; its packed qkv axis is head-major
+there, so a contiguous ``mp`` split already holds whole heads) and
+`gpt_tensor_parallel_rules` (the `models.gpt.GPT` module under a
+tensor-parallel group: the serving table with the vocab-parallel ``wte``
+and the untied head split on its columns).  `shard_leaf` cuts a leaf by
+a spec of any number of sharded axes for one rank's coordinates
+(``{"mp": (rank, size), "pp": ...}``), `join_leaf` joins one axis back.
 """
 from __future__ import annotations
 
@@ -35,7 +44,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 __all__ = ["PartitionSpec", "P", "QKV_HEADS", "tree_path_names",
-           "match_partition_rules", "gpt_serving_rules", "kv_pages_spec",
+           "match_partition_rules", "gpt_serving_rules", "gpt_train_rules",
+           "gpt_tensor_parallel_rules", "shard_leaf", "join_leaf",
+           "kv_pages_spec",
            "kv_scales_spec", "parse_mesh_spec", "build_mesh",
            "shard_params", "gather_params", "collective_bytes"]
 
@@ -136,6 +147,47 @@ def gpt_serving_rules() -> List[Tuple[str, PartitionSpec]]:
     ]
 
 
+def gpt_train_rules() -> List[Tuple[str, PartitionSpec]]:
+    """JAX's rules for `models.gpt_spmd`'s parameter pytree: the stacked
+    block parameters lead with ``pp``, qkv and fc1 split their columns
+    over ``mp`` (the packed qkv axis is head-major, so contiguous shards
+    hold whole heads), out and fc2 their rows, a vocab-parallel ``wte``
+    and ``lm_head``, replicated norms, ``wpe`` and row-product biases."""
+    return [
+        (r"^wte$", P("mp", None)),
+        (r"^wpe$", P()),
+        (r"^(ln1|ln2)_(w|b)$", P("pp", None)),
+        (r"^w_qkv$", P("pp", None, "mp")),
+        (r"^b_qkv$", P("pp", "mp")),
+        (r"^w_out$", P("pp", "mp", None)),
+        (r"^w_fc1$", P("pp", None, "mp")),
+        (r"^b_fc1$", P("pp", "mp")),
+        (r"^w_fc2$", P("pp", "mp", None)),
+        (r"^(b_out|b_fc2)$", P("pp", None)),
+        (r"^lnf_(w|b)$", P()),
+        (r"^lm_head$", P(None, "mp")),
+    ]
+
+
+def gpt_tensor_parallel_rules() -> List[Tuple[str, PartitionSpec]]:
+    """The `models.gpt.GPT` params tree (``GPT.params()``'s layout) under
+    a tensor-parallel group: qkv head-aligned (`QKV_HEADS`), fc1 on its
+    columns, out and fc2 on their rows, the vocab-parallel ``wte`` on its
+    rows (the tied head reads it), an untied head on its columns, the
+    rest replicated."""
+    return [
+        (r"qkv_w$", P(None, QKV_HEADS)),
+        (r"qkv_b$", P(QKV_HEADS)),
+        (r"out_w$", P("mp", None)),
+        (r"fc1_w$", P(None, "mp")),
+        (r"fc1_b$", P("mp")),
+        (r"fc2_w$", P("mp", None)),
+        (r"^wte$", P("mp", None)),
+        (r"^head_w$", P(None, "mp")),
+        (r".*", P()),
+    ]
+
+
 def kv_pages_spec() -> PartitionSpec:
     """KV page pool [L, H, pages, page, D]: split on the head axis, so
     each rank holds its heads of every page; page ids, the allocator and
@@ -186,6 +238,41 @@ def build_mesh(spec: str, device=None):
 # ---------------------------------------------------------------------------
 # the weight bridge
 # ---------------------------------------------------------------------------
+def shard_leaf(t: torch.Tensor, spec, coords: dict) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec``: every axis whose entry
+    names a mesh axis in ``coords`` (``{axis: (rank, size)}``) is cut
+    into ``size`` contiguous blocks and the ``rank``-th kept; `QKV_HEADS`
+    cuts a packed ``(3, H, D)`` axis on ``H`` by the ``"mp"``
+    coordinate.  A copy when anything was cut."""
+    cut = False
+    for i, entry in enumerate(spec):
+        name = "mp" if entry == QKV_HEADS else entry
+        if name is None or name not in coords or coords[name][1] == 1:
+            continue
+        r, n = coords[name]
+        if entry == QKV_HEADS:
+            t = t.unflatten(i, (3, n, -1)).select(i + 1, r).flatten(i, i + 1)
+        else:
+            t = t.narrow(i, r * (t.shape[i] // n), t.shape[i] // n)
+        cut = True
+    return t.clone() if cut else t
+
+
+def join_leaf(parts, spec, axis: str) -> torch.Tensor:
+    """Join the blocks of the mesh axis ``axis`` (in rank order) back
+    along the tensor axis ``spec`` gives it: `shard_leaf`'s inverse for
+    one axis."""
+    for i, entry in enumerate(spec):
+        if entry == axis or (axis == "mp" and entry == QKV_HEADS):
+            break
+    else:
+        return parts[0]
+    if entry == QKV_HEADS:
+        return torch.stack([p.unflatten(i, (3, -1)) for p in parts],
+                           i + 1).flatten(i, i + 2)
+    return torch.cat(list(parts), i)
+
+
 def _shard(t: torch.Tensor, spec: PartitionSpec, mp: int, rank: int):
     ax = spec.axis()
     if ax is None or mp == 1:

@@ -156,8 +156,14 @@ def test_world_size_one_is_jax_identity():
     TD.barrier()
     assert TD.get_world_size() == JD.get_world_size() == 1
     assert TD.get_rank() == JD.get_rank() == 0
-    with pytest.raises(NotImplementedError, match="mp_layers"):
-        TD.split(tt, (3, 4), "linear")
+    # split builds a tensor-parallel layer of one rank: the dense layer
+    out = TD.split(tt, (3, 4), "linear", axis=1)
+    JD.split(jt, (3, 4), "linear", axis=1)
+    tl, jl = TD.split.last_layer, JD.split.last_layer
+    jl.weight.set_value(tl.weight.detach().numpy())
+    jl.bias.set_value(tl.bias.detach().numpy())
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jl(jt).numpy()), atol=1e-6)
 
 
 def test_device_and_backend_rule(monkeypatch):
@@ -250,12 +256,15 @@ def test_fleet_round_trip_and_gradient_merge_match_jax(cpu_ranks, tmp_path):
 
 
 def test_unported_strategies_raise(monkeypatch):
+    """What the port still refuses: expert parallelism and the parameter
+    server (ROADMAP.md Queue 1, item 2).  The hybrid degrees, ZeRO and
+    the pipeline build; a degree that does not fit the world is an
+    error, not a refusal."""
     monkeypatch.setenv("PADDLE_DEVICE", "cpu")
     from paddle_tpu_torch.distributed import fleet
 
     for attr, value, match in (
-            ("hybrid_configs", {"mp_degree": 2}, "Queue 1, item 2"),
-            ("sharding", True, "ZeRO"), ("pipeline", True, "pipeline"),
+            ("expert_parallel", True, "moe_layer"),
             ("a_sync", True, "distributed/ps")):
         st = fleet.DistributedStrategy()
         setattr(st, attr, value)
@@ -263,10 +272,15 @@ def test_unported_strategies_raise(monkeypatch):
             fleet.init(is_collective=True, strategy=st)
     with pytest.raises(NotImplementedError, match="distributed/ps"):
         fleet.init(is_collective=False)
-    with pytest.raises(NotImplementedError, match="ZeRO"):
-        ShardedTrainStep(torch.nn.Linear(2, 2), None, None, zero_stage=1)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="distributed/ps"):
+        fleet.fleet.init_server()
+    with pytest.raises(ValueError, match="zero_stage"):
+        ShardedTrainStep(torch.nn.Linear(2, 2), None, None, zero_stage=4)
+    with pytest.raises(ValueError, match="world size 1"):
         TD.HybridCommunicateGroup(mp=2)
+    hcg = TD.HybridCommunicateGroup()
+    assert hcg.get_parallel_mode() == "data_parallel"
+    assert hcg.is_first_stage() and hcg.is_last_stage()
     topo = TD.build_mesh(dp=2, mp=2)
     assert topo.shape == {"dp": 2, "pp": 1, "sp": 1, "mp": 2}
     assert topo.get_comm_list("mp") == [[0, 1], [2, 3]]

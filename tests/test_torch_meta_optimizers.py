@@ -149,8 +149,13 @@ def test_jax_scenarios():
         assert torch.allclose(p, torch.full((4,), 1.5))
     assert torch.allclose(p, torch.full((4,), 2.0))
 
-    with pytest.raises(NotImplementedError, match="ZeRO"):
-        TM.DygraphShardingOptimizer(optimizer=TO.SGD(0.1, parameters=[p]))
+    # ZeRO-1 over a sharding group of one rank: the inner update, whole
+    p = _param(0.0)
+    opt = TM.DygraphShardingOptimizer(optimizer=TO.SGD(0.1, parameters=[p]))
+    p.grad = torch.full((4,), 2.0)
+    opt.step()
+    assert torch.allclose(p, torch.full((4,), -0.2))
+    assert opt.slot_bytes() == 0  # SGD keeps no slot
 
 
 @pytest.mark.parametrize("switches", [

@@ -325,8 +325,9 @@ bad = sorted(m for m in sys.modules
 # the serving modules this guard must see: the ragged step's, the
 # speculative decoder's, the serving stack around the engine, the
 # telemetry plane, the serving mesh, the port's telemetry tools, the
-# sanitizer, the fleet, the eager core and training, and the data-
-# parallel training, profiler and auto-checkpoint modules
+# sanitizer, the fleet, the eager core and training, the data-
+# parallel training, profiler and auto-checkpoint modules, and the
+# hybrid-parallel ones
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -388,7 +389,16 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "meta_optimizers",
                        "paddle_tpu_torch.distributed.fleet.utils.recompute",
                        "paddle_tpu_torch.distributed.fleet.utils."
-                       "hybrid_parallel_util")
+                       "hybrid_parallel_util",
+                       "paddle_tpu_torch.distributed.fleet.zero",
+                       "paddle_tpu_torch.distributed.fleet.pipeline_step",
+                       "paddle_tpu_torch.distributed.fleet.meta_parallel."
+                       "mp_layers",
+                       "paddle_tpu_torch.distributed.fleet.meta_parallel."
+                       "pipeline_parallel",
+                       "paddle_tpu_torch.parallel.pipeline",
+                       "paddle_tpu_torch.parallel.ring_attention",
+                       "paddle_tpu_torch.models.gpt_spmd")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)
