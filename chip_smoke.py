@@ -250,15 +250,16 @@ Phases, in order; any failure exits non-zero:
 19. hybrid — GPT-2-small at full width, bench.py's bf16 recipe, ranks
    from ``paddle.distributed.spawn`` (gloo on one card, NCCL with a card
    a rank): (a) ``fleet`` with ``mp_degree=2``: the model's parallel
-   layers (6 heads a rank), 3 dygraph steps through
-   ``distributed_model`` (`TensorParallel`) and 3 ``build_train_step``
-   steps on the 8 x 1024 half of the train batch, the vocab-parallel
-   cross entropy; step 1's loss against one process on the same batch
-   (`DIST_LOSS_TOL`), K3/K4 launched num_layers x steps a rank; (b)
-   ``strategy.sharding`` at stages 1, 2, 3 and 1 with offload, dp = 2, 3
-   steps each on the batch-16 train batch against phase 18's
-   one-process steps (`DIST_LOSS_TOL`), peak memory a rank against the
-   data-parallel run's; (c) a `gpt_pipeline_layer` GPT at pp = 2,
+   layers (6 heads a rank), `HYBRID_STEPS` dygraph steps through
+   ``distributed_model`` (`TensorParallel`) and as many
+   ``build_train_step`` steps on the 8 x 1024 half of the train batch,
+   the vocab-parallel cross entropy; step 1's loss against one process
+   on the same batch (`DIST_LOSS_TOL`), K3/K4 launched num_layers x
+   steps a rank; (b) ``strategy.sharding`` at stages 1, 2, 3 and 1 with
+   offload, dp = 2, `HYBRID_STEPS` steps each on the batch-16 train
+   batch against phase 18's one-process steps (`DIST_LOSS_TOL`), peak
+   memory a rank against the data-parallel run's; (c) a
+   `gpt_pipeline_layer` GPT at pp = 2,
    ``accumulate_steps=4``, through ``build_train_step`` (the 1F1B
    `PipelineTrainStep`), step 1 against one process; (e)
    ``ring_attention`` at [4, 12, 1024, 64] bf16 causal, sp = 2, against
@@ -270,7 +271,33 @@ Phases, in order; any failure exits non-zero:
    a ring block (1 or 2 a layer by sp rank); for each part ms a step,
    the collectives' share (`collective.comm_stats`: host seconds, which
    over gloo are wall seconds), peak memory and K3/K4 launches a rank;
-20. report — one JSON line of kernels, the card line, and the last line
+20. moe-ps — the rest of distributed training, ranks from
+   ``paddle.distributed.spawn``: (a) JAX's tests/test_moe.py:87 net at
+   GPT-2-small's MLP width (`MoELayer(768, 3072, num_experts=8, k=2,
+   capacity_factor=1.25)` and a ``Linear(768, 768)`` head, f32, MSE plus
+   0.01 x the auxiliary loss, SGD): the explicit mode at ep = 2 (each
+   rank its 8 x 1024 half of 16 samples, 4 experts a rank, C = 2560, two
+   all-to-alls forward and one backward a step) against one process's
+   dense ``moe_forward`` of the same tokens with all 8 experts (outputs,
+   aux and step 1's gradients within `MOE_TOL`); then the fleet mode
+   (``ep_axis="mp"``, ``mp_degree=2``) through ``build_train_step``, 3
+   steps on batches of 8 x 1024 fed by a `DataLoader` with two worker
+   processes (bit-equal to the ``num_workers=0`` batches), against one
+   process's dense steps (`DIST_LOSS_TOL`); (b) the parameter server:
+   GPT-2-small's 124,475,904 f32 parameters as one dense table of
+   ``fleet.init_server`` (server-side SGD), two trainers through
+   ``fleet.init_worker()`` on their halves of the batch-16 train batch,
+   read from MultiSlot files this phase writes through
+   `InMemoryDataset` (equal to the in-memory batch), with bench.py's
+   bf16 forward and backward (K3/K4 num_layers x steps a trainer): 3
+   sync steps on one server, then on two (`ShardedPSClient`), each
+   trainer's pull after step 1 equal, bit for bit, to p0 - lr g_a - lr
+   g_b in one of the two orders the server can apply the pushes; then
+   geo with ``k_steps=2`` for 4 steps, the table against p0 plus the
+   merged deltas (`PS_GEO_TOL`); for each part ms a step, the
+   collectives' or the PS round trip's share, bytes moved and peak
+   memory a rank;
+21. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -4274,7 +4301,7 @@ def eager_phase(torch, serve):
 
 DIST_ROOT = Path("build") / "chip_smoke_dist"
 DIST_RANKS = 2
-DIST_STEPS = 3
+DIST_STEPS = 2
 # the data-parallel run (2 ranks x batch 8) against one process on batch
 # 16 from the same weights, bf16 AMP: step 1's loss differs only in the
 # bf16 rounding of the two half-batch forwards (the same products in
@@ -4300,8 +4327,8 @@ DIST_OPTIMIZERS = {
     "Ftrl": dict(learning_rate=1e-2),
     "Dpsgd": dict(learning_rate=1e-3, clip=1.0, batch_size=16.0, sigma=1.0),
 }
-OPT_STEPS = 3
-ACP_EPOCHS = 4
+OPT_STEPS = 2
+ACP_EPOCHS = 3
 PROFILE_RUNS = 3
 
 
@@ -4748,7 +4775,7 @@ def dist_acp_check(torch):
     res["card"] = card_line()
     print("dist (e) auto-checkpoint: " + json.dumps(res), flush=True)
     if meta["epoch_no"] != 1 or victim.returncode != -signal.SIGKILL or \
-            ran["epochs"] != [2, 3] or not equal or \
+            ran["epochs"] != list(range(2, ACP_EPOCHS)) or not equal or \
             ran["losses"] != ran_all["losses"][2:]:
         fail(f"acp: resume {res}")
     shutil.rmtree(root, ignore_errors=True)
@@ -4791,7 +4818,9 @@ def dist_phase(torch):
 
 
 HYBRID_ROOT = Path("build") / "chip_smoke_hybrid"
-HYBRID_STEPS = 3
+# two steps a part, for the whole run's time limit: step 1 against one
+# process, step 2's time
+HYBRID_STEPS = 2
 # (a) tensor parallel against one process on the same 8 x 1024 batch,
 # step 1: the row-split products' two partial sums are rounded to bf16
 # before the all-reduce sums them, where one process sums the whole K in
@@ -5077,7 +5106,7 @@ def hybrid_phase(torch):
     cfg = tp.gpt2_small_config()
     tokens, labels = tp.train_batch(cfg, "cuda")
     half = tokens.shape[0] // 2
-    # one process: step 1 on the 8 x 1024 half, three steps on batch 16
+    # one process: step 1 on the 8 x 1024 half, the steps on batch 16
     model = GPT.random(cfg, seed=tp.SEED, device="cuda")
     with torch.no_grad():
         first_half = float(tp.amp_loss_fn(model, tokens[:half],
@@ -5256,13 +5285,627 @@ def hybrid_launches(hybrid, kern) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: expert parallelism, the parameter server, the data feed
+# ---------------------------------------------------------------------------
+MOE_PS_ROOT = Path("build") / "chip_smoke_moe_ps"
+# (a) JAX's tests/test_moe.py:87 net at GPT-2-small's MLP width: an
+# 8-expert top-2 MoELayer(768, 3072) and a Linear(768, 768) head, f32, the
+# MSE loss plus 0.01 x the auxiliary loss, SGD
+MOE_H, MOE_F, MOE_E, MOE_K, MOE_CF = 768, 3072, 8, 2, 1.25
+MOE_SEQ = 1024
+MOE_LR = 0.01
+MOE_STEPS = 3
+MOE_SEED = 11
+# the explicit mode (ep = 2, each rank its 8 x 1024 tokens) against one
+# process's dense `moe_forward` of the same tokens with all 8 experts, in
+# f32 without TF32: the same products, the experts' batched over both
+# ranks' tokens (other GEMM shapes, other summation order), so max
+# |error| / max |reference| of the outputs, the auxiliary loss and step
+# 1's gradients within 1e-4
+MOE_TOL = 1e-4
+# (b) the parameter server: GPT-2-small's parameters as one dense table,
+# server-side SGD; two trainers a run
+PS_LR = 1e-3
+PS_STEPS = 3
+PS_GEO_STEPS = 4
+PS_GEO_K = 2
+# geo: the table against p0 plus both trainers' deltas summed in f64: the
+# server adds four f32 deltas in its own order, a few f32 roundings
+PS_GEO_TOL = 1e-6
+
+
+class MoEData:
+    """Phase 20 (a)'s samples: sample ``i`` is a ``[MOE_SEQ, MOE_H]`` f32
+    input and its target, drawn from numpy seed ``MOE_SEED + i`` (a
+    `paddle_tpu_torch.io.DataLoader` dataset; its workers import this
+    script)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        rng = np.random.default_rng(MOE_SEED + int(i))
+        return (rng.standard_normal((MOE_SEQ, MOE_H), dtype=np.float32),
+                rng.standard_normal((MOE_SEQ, MOE_H), dtype=np.float32))
+
+    def __len__(self):
+        return self.n
+
+
+def moe_net(torch, device, **moe_kw):
+    """The (a) net: `MoELayer` then a ``Linear(768, 768)`` head; its loss
+    is `moe_loss`."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import MoELayer
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.moe = MoELayer(MOE_H, MOE_F, MOE_E, k=MOE_K,
+                                capacity_factor=MOE_CF, device=device,
+                                **moe_kw)
+            self.head = nn.Linear(MOE_H, MOE_H, device=device)
+
+        def forward(self, x):
+            return self.head(self.moe(x))
+
+    return Net()
+
+
+def moe_loss(model, x, y):
+    inner = getattr(model, "_layers", model)
+    return ((model(x) - y) ** 2).mean() + 0.01 * inner.moe.aux_loss
+
+
+def _ps_flat(params):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in params])
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def moe_rank(out_dir):
+    """One of the two ranks of 20 (a), started by
+    ``paddle.distributed.spawn``: the explicit mode over
+    ``new_group(axis_name="ep")``, then the fleet mode at mp = 2 fed by a
+    `DataLoader` with two worker processes; writes ``rank<r>.json`` and
+    the tensors the parent holds against one process."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.collective import comm_stats
+    from paddle_tpu_torch.inference.weights import shard_state_dict
+    from paddle_tpu_torch.io import DataLoader
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(out_dir)
+    fleet, hcg = _hybrid_fleet()
+    r = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    whole = torch.load(out_dir / "moe_init.pt")
+    data = MoEData(16)
+    res = dict(rank=r, backend=dist.parallel.backend(), device=str(dev))
+
+    # explicit mode: 4 experts a rank, this rank's 8 x 1024 tokens
+    group = collective.new_group([0, 1], axis_name="ep")
+    net = moe_net(torch, dev, ep_axis="ep", ep_degree=2)
+    shard_state_dict(net, whole)
+    xs, ys = (torch.from_numpy(np.stack(
+        [data[i][j] for i in range(8 * r, 8 * r + 8)])).to(dev)
+        for j in (0, 1))
+    params = list(net.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for step in range(MOE_STEPS):
+        comm_stats(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net(xs)
+        loss = ((out - ys) ** 2).mean() + 0.01 * net.moe.aux_loss
+        loss.backward()
+        # the head is replicated over the ep ranks, as gate_weight is:
+        # its gradient summed over them (the MoE sums gate_weight's)
+        dist.all_reduce(net.head.weight.grad)
+        dist.all_reduce(net.head.bias.grad)
+        if step == 0:
+            torch.save(dict(out=out.detach().cpu(),
+                            aux=net.moe.aux_loss.detach().cpu(),
+                            **{f"grad.{n}": p.grad.detach().cpu()
+                               for n, p in net.named_parameters()}),
+                       out_dir / f"moe_ep_rank{r}.pt")
+        with torch.no_grad():
+            for p in params:
+                p -= MOE_LR * p.grad
+                p.grad = None
+        torch.cuda.synchronize()
+        st = comm_stats()
+        steps.append(dict(s=time.perf_counter() - t0, comm_s=st["seconds"],
+                          comm_bytes=st["bytes"],
+                          loss=float(loss.detach())))
+    cap = max(1, math.ceil(xs.shape[0] * xs.shape[1] * MOE_K / MOE_E
+                           * MOE_CF))
+    # two exchanges forward, one backward (the input tokens take no
+    # gradient, so the dispatch exchange's transpose never runs)
+    res["ep"] = dict(steps=steps, capacity=cap,
+                     a2a_bytes_per_step=3 * MOE_E * cap * MOE_H * 4,
+                     w1_local_shape=list(net.moe.w1.shape),
+                     in_scope=net.moe.ep_group() is group,
+                     peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del net, params, out, loss, xs, ys
+    _free(torch)
+
+    # fleet mode: the experts split over mp = 2, the batches from workers
+    fleet, hcg = _hybrid_fleet(hybrid_configs={"mp_degree": 2})
+    net = moe_net(torch, dev, ep_axis="mp")
+    shard_state_dict(net, whole)
+    step_fn = fleet.build_train_step(net, moe_loss, optimizer.SGD(
+        MOE_LR, parameters=net.parameters()))
+    feed = MoEData(8 * MOE_STEPS)
+    plain = list(DataLoader(feed, places=dev, batch_size=8))
+    loader = DataLoader(feed, places=dev, batch_size=8, num_workers=2,
+                        multiprocess_mode="process", persistent_workers=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, equal, pool_pids = [], [], set()
+    t_load = time.perf_counter()
+    batches = list(loader)
+    load_s = time.perf_counter() - t_load
+    pool = loader._pool
+    if pool is not None:
+        pool_pids = {p.pid for p in pool.workers}
+        pool.shutdown()
+    for (x, y), (px, py) in zip(batches, plain):
+        equal.append(bool(torch.equal(x, px) and torch.equal(y, py)))
+        comm_stats(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step_fn(x, y)
+        torch.cuda.synchronize()
+        st = comm_stats()
+        steps.append(dict(s=time.perf_counter() - t0, comm_s=st["seconds"],
+                          comm_bytes=st["bytes"], loss=float(loss)))
+    res["fleet"] = dict(steps=steps, batches_equal=equal,
+                        n_batches=len(batches), loader_s=load_s,
+                        worker_processes=len(pool_pids),
+                        w1_local_shape=list(net.moe.w1.shape),
+                        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    (out_dir / f"rank{r}.json").write_text(json.dumps(res))
+
+
+class _Slot:
+    """A MultiSlot variable: a name, an int64 dtype, a ``[-1, 1024]``
+    shape."""
+
+    def __init__(self, name):
+        self.name, self.dtype, self.shape = name, "int64", [-1, 1024]
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    import os
+
+    saved = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ps_trainer(out_dir, runs):
+    """One of the two trainers of 20 (b), started by
+    ``paddle.distributed.spawn``: its half of the batch from its MultiSlot
+    file through `InMemoryDataset`, then for each run ``(name, endpoints,
+    mode, steps)`` ``fleet.init(is_collective=False)``,
+    ``fleet.init_worker()`` and the steps (sync: pull, bf16 forward and
+    backward, push, barrier; geo: a local SGD step and the communicator's
+    ``geo_step``), then ``fleet.stop_worker()``; writes ``trainer<r>.json``
+    and the arrays the parent checks."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(out_dir)
+    r = int(os.environ["PADDLE_TRAINER_ID"])
+    dev = torch.device("cuda", r % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    cfg = tp.gpt2_small_config()
+    ds = fleet.InMemoryDataset()
+    ds.init(batch_size=tp.BATCH // 2, thread_num=1,
+            use_var=[_Slot("tokens"), _Slot("labels")])
+    ds.set_filelist([str(out_dir / f"part-{r}.txt")])
+    ds.load_into_memory()
+    (batch,) = list(ds.iter_batches())
+    tokens, labels = tp.train_batch(cfg, "cpu")
+    half = slice(r * tp.BATCH // 2, (r + 1) * tp.BATCH // 2)
+    res = dict(rank=r, device=str(dev), batch_equal=bool(
+        np.array_equal(batch["tokens"], tokens[half].numpy()) and
+        np.array_equal(batch["labels"], labels[half].numpy())))
+    x = torch.from_numpy(batch["tokens"]).to(dev)
+    y = torch.from_numpy(batch["labels"]).to(dev)
+    model = GPT(cfg, device=dev)
+    params = list(model.parameters())
+    flat = torch.empty(sum(p.numel() for p in params), device=dev)
+    off = 0
+    for p in params:  # the parameters become views of one flat buffer
+        n = p.numel()
+        flat[off:off + n].copy_(p.detach().reshape(-1))
+        p.data = flat[off:off + n].view_as(p)
+        off += n
+    size = flat.numel()
+    runs_out = {}
+    for name, eps, mode, steps in runs:
+        st = fleet.DistributedStrategy()
+        if mode == "geo":
+            st.a_sync = True
+            st.a_sync_configs = {"k_steps": PS_GEO_K}
+        with _env(TRAINING_ROLE="TRAINER",
+                  PADDLE_PSERVERS_IP_PORT_LIST=",".join(eps)):
+            fleet.init(is_collective=False, strategy=st)
+        client = fleet.init_worker()
+        comm = fleet.fleet._ps_communicator
+        flat.copy_(torch.from_numpy(client.pull_dense(0, size)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        log, delta_sum = [], None
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt = 0.0
+            if mode == "sync" and step:
+                t1 = time.perf_counter()
+                pulled = client.pull_dense(0, size)
+                rt += time.perf_counter() - t1
+                if step == 1 and r == 0:
+                    np.save(out_dir / f"{name}_p1.npy", pulled)
+                flat.copy_(torch.from_numpy(pulled))
+            loss = tp.amp_loss_fn(model, x, y)
+            loss.backward()
+            g = _ps_flat([p.grad for p in params])
+            for p in params:
+                p.grad = None
+            if mode == "sync":
+                g_host = g.cpu().numpy()
+                if step == 0:
+                    np.save(out_dir / f"{name}_g1_rank{r}.npy", g_host)
+                t1 = time.perf_counter()
+                client.push_dense_grad(0, g_host)
+                client.barrier(trainer_id=r)
+                rt += time.perf_counter() - t1
+            else:
+                with torch.no_grad():
+                    flat -= PS_LR * g
+                local = flat.cpu().numpy()
+                t1 = time.perf_counter()
+                if (step + 1) % PS_GEO_K == 0:
+                    d = local - comm._geo_old.get(0, local)
+                    delta_sum = d if delta_sum is None else delta_sum + d
+                back = comm.geo_step(0, local)
+                rt += time.perf_counter() - t1
+                if back is not local:
+                    flat.copy_(torch.from_numpy(back))
+            torch.cuda.synchronize()
+            log.append(dict(s=time.perf_counter() - t0, ps_s=rt,
+                            loss=float(loss.detach())))
+        if delta_sum is not None:
+            np.save(out_dir / f"{name}_deltas_rank{r}.npy", delta_sum)
+        runs_out[name] = dict(
+            steps=log, launches=read_counts(), mode=comm.mode,
+            client=type(client).__name__, bytes_each_way=size * 4,
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+        fleet.stop_worker()
+    res.update(runs=runs_out, params=size)
+    (out_dir / f"trainer{r}.json").write_text(json.dumps(res))
+
+
+def _ps_servers(endpoints, table):
+    """A `Fleet` per endpoint in the server role, each `init_server` of
+    ``table`` (the global dense size cut per server)."""
+    from paddle_tpu_torch.distributed.fleet.base import (
+        Fleet, PaddleCloudRoleMaker)
+
+    out = []
+    for ep in endpoints:
+        with _env(TRAINING_ROLE="PSERVER",
+                  PADDLE_PSERVERS_IP_PORT_LIST=",".join(endpoints),
+                  PADDLE_CURRENT_ENDPOINT=ep, PADDLE_TRAINERS_NUM=2):
+            f = Fleet().init(role_maker=PaddleCloudRoleMaker(False),
+                             is_collective=False)
+            f.init_server(tables={0: table})
+        out.append(f)
+    return out
+
+
+def _sgd_orders(p0, g1, g2, lr):
+    import numpy as np
+
+    lr = np.float32(lr)
+    return [(p0 - lr * a) - lr * b for a, b in ((g1, g2), (g2, g1))]
+
+
+def moe_ps_phase(torch):
+    """Phase 20: (a) expert parallelism and (b) the parameter server (see
+    the module docstring)."""
+    import shutil
+
+    import numpy as np
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import moe_forward
+    from paddle_tpu_torch.distributed.spawn import free_port
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    card = card_line()
+    med = statistics.median
+    shutil.rmtree(MOE_PS_ROOT, ignore_errors=True)
+    MOE_PS_ROOT.mkdir(parents=True)
+    out = dict(card=card)
+
+    # (a) one process: the dense net and its steps
+    import paddle_tpu_torch as paddle
+
+    paddle.seed(MOE_SEED)
+    net = moe_net(torch, "cuda")
+    whole = {k: v.detach().cpu().clone() for k, v in
+             net.state_dict().items()}
+    torch.save(whole, MOE_PS_ROOT / "moe_init.pt")
+    data = MoEData(8 * MOE_STEPS)
+    feed = [tuple(torch.from_numpy(np.stack([data[i][j] for i in range(
+        8 * t, 8 * t + 8)])).cuda() for j in (0, 1))
+        for t in range(MOE_STEPS)]
+    opt = optimizer.SGD(MOE_LR, parameters=net.parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = _dygraph_losses(torch, net, opt, moe_loss, feed)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / MOE_STEPS * 1e3
+    del net, opt, feed
+    _free(torch)
+    t0 = time.perf_counter()
+    dist.spawn(moe_rank, args=(str(MOE_PS_ROOT),), nprocs=2)
+    moe_spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((MOE_PS_ROOT / f"rank{r}.json").read_text())
+             for r in range(2)]
+    # the explicit mode against one process's dense moe_forward on each
+    # rank's tokens with all 8 experts
+    ref = moe_net(torch, "cuda")
+    ref.set_state_dict(whole)
+    errs = []
+    got = [torch.load(MOE_PS_ROOT / f"moe_ep_rank{r}.pt") for r in range(2)]
+    for r in range(2):
+        x, y = (torch.from_numpy(np.stack([data[i][j] for i in range(
+            8 * r, 8 * r + 8)])).cuda() for j in (0, 1))
+        m = ref.moe
+        o, aux = moe_forward(x.reshape(-1, MOE_H), m.gate_weight, m.w1,
+                             m.b1, m.w2, m.b2, k=MOE_K,
+                             capacity_factor=MOE_CF)
+        o = ref.head(o.reshape(x.shape))
+        loss = ((o - y) ** 2).mean() + 0.01 * aux
+        loss.backward()  # the gradients sum over both ranks' losses
+        errs.append(dict(out=_rel_err(got[r]["out"].cuda(), o.detach()),
+                         aux=abs(float(got[r]["aux"])
+                                 - float(aux.detach()))))
+        del x, y, o, aux, loss
+    grads = {n: p.grad for n, p in ref.named_parameters()}
+    for r in range(2):
+        for n, g in grads.items():
+            if n.startswith("moe.") and n != "moe.gate_weight":
+                g = g.chunk(2, 0)[r]
+            errs[r][f"grad.{n}"] = _rel_err(got[r][f"grad.{n}"].cuda(), g)
+    del ref, grads, got
+    _free(torch)
+    worst = max(v for e in errs for v in e.values())
+    ep = ranks[0]["ep"]
+    a = dict(
+        spawn_s=moe_spawn_s, backend=ranks[0]["backend"],
+        single_process_ms_per_step=single_ms,
+        explicit=dict(
+            errors_by_rank=errs, worst_error=worst, tol=MOE_TOL,
+            capacity=ep["capacity"], w1_local_shape=ep["w1_local_shape"],
+            a2a_bytes_per_step=ep["a2a_bytes_per_step"],
+            by_rank=[dict(
+                ms_per_step=med(s["s"] for s in rk["ep"]["steps"][1:]) * 1e3,
+                collective_share=med(s["comm_s"] / s["s"]
+                                     for s in rk["ep"]["steps"][1:]),
+                collective_bytes_per_step=rk["ep"]["steps"][-1][
+                    "comm_bytes"],
+                peak_gib=rk["ep"]["peak_memory_bytes"] / 2 ** 30,
+                losses=[s["loss"] for s in rk["ep"]["steps"]])
+                for rk in ranks]))
+    if worst > MOE_TOL or not all(rk["ep"]["in_scope"] for rk in ranks) \
+            or ep["w1_local_shape"] != [MOE_E // 2, MOE_H, MOE_F]:
+        fail(f"moe (a) explicit ep=2 against one process: {a['explicit']}")
+    fl = [rk["fleet"] for rk in ranks]
+    losses = [[s["loss"] for s in f["steps"]] for f in fl]
+    if losses[0] != losses[1]:
+        fail(f"moe (a) fleet: the mp ranks' losses differ: {losses}")
+    rel = _check_losses("moe (a) fleet mp=2", losses[0], want)
+    if not all(all(f["batches_equal"]) and f["n_batches"] == MOE_STEPS
+               and f["worker_processes"] == 2 for f in fl) or \
+            fl[0]["w1_local_shape"] != [MOE_E // 2, MOE_H, MOE_F]:
+        fail(f"moe (a) fleet: the DataLoader's worker batches {fl}")
+    a["fleet"] = dict(
+        losses=losses[0], single_process_losses=want, loss_rel_err=rel,
+        tol=DIST_LOSS_TOL, loader_s=[f["loader_s"] for f in fl],
+        by_rank=[dict(
+            ms_per_step=med(s["s"] for s in f["steps"][1:]) * 1e3,
+            collective_share=med(s["comm_s"] / s["s"]
+                                 for s in f["steps"][1:]),
+            collective_bytes_per_step=f["steps"][-1]["comm_bytes"],
+            peak_gib=f["peak_memory_bytes"] / 2 ** 30) for f in fl])
+    out["moe"] = a
+
+    # (b) the parameter server at GPT-2-small's width
+    cfg = tp.gpt2_small_config()
+    model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    p0 = _ps_flat(list(model.parameters())).cpu().numpy()
+    del model
+    _free(torch)
+    n = p0.size
+    tokens, labels = tp.train_batch(cfg, "cpu")
+    half = tp.BATCH // 2
+    for r in range(2):  # each trainer's MultiSlot file
+        lines = [f"{tp.SEQ} " + " ".join(map(str, tokens[i].tolist()))
+                 + f" {tp.SEQ} " + " ".join(map(str, labels[i].tolist()))
+                 for i in range(r * half, (r + 1) * half)]
+        (MOE_PS_ROOT / f"part-{r}.txt").write_text("\n".join(lines) + "\n")
+    eps = {k: [f"127.0.0.1:{free_port()}" for _ in range(m)]
+           for k, m in (("sync", 1), ("sharded", 2), ("geo", 1))}
+    servers = {k: _ps_servers(v, ("dense", n, PS_LR,
+                                  "sum" if k == "geo" else "sgd"))
+               for k, v in eps.items()}
+    t0 = time.perf_counter()
+    for k, v in eps.items():
+        c = ps.ShardedPSClient(v) if len(v) > 1 else \
+            ps.PSClient("127.0.0.1", int(v[0].rsplit(":", 1)[1]))
+        c.set_dense(0, p0)
+        c.close()
+    set_s = time.perf_counter() - t0
+    runs = [("sync", eps["sync"], "sync", PS_STEPS),
+            ("sharded", eps["sharded"], "sync", PS_STEPS),
+            ("geo", eps["geo"], "geo", PS_GEO_STEPS)]
+    t0 = time.perf_counter()
+    dist.spawn(ps_trainer, args=(str(MOE_PS_ROOT), runs), nprocs=2)
+    ps_spawn_s = time.perf_counter() - t0
+    trainers = [json.loads((MOE_PS_ROOT / f"trainer{r}.json").read_text())
+                for r in range(2)]
+    if not all(t["batch_equal"] for t in trainers):
+        fail("ps (b): a trainer's InMemoryDataset batch differs from the "
+             "train batch")
+    b = dict(params=n, bytes_each_way_per_step=n * 4, spawn_s=ps_spawn_s,
+             set_dense_s=set_s, runs={})
+    nl = cfg.num_layers
+    for name, _, mode, steps in runs:
+        rows = [t["runs"][name] for t in trainers]
+        row = dict(mode=rows[0]["mode"], client=rows[0]["client"],
+                   by_rank=[dict(
+                       ms_per_step=med(s["s"] for s in rr["steps"][1:])
+                       * 1e3,
+                       ps_share=med(s["ps_s"] / s["s"]
+                                    for s in rr["steps"][1:]),
+                       peak_gib=rr["peak_memory_bytes"] / 2 ** 30,
+                       losses=[s["loss"] for s in rr["steps"]],
+                       k3_k4=[rr["launches"][k] for k in FLASH_KERNELS])
+                       for rr in rows])
+        for rr in row["by_rank"]:
+            if rr["k3_k4"] != [nl * steps] * 3 or not all(
+                    math.isfinite(x) for x in rr["losses"]):
+                fail(f"ps (b) {name}: K3/K4 launches {rr['k3_k4']} (want "
+                     f"{nl * steps} each), losses {rr['losses']}")
+        if mode == "sync":
+            p1 = np.load(MOE_PS_ROOT / f"{name}_p1.npy")
+            g = [np.load(MOE_PS_ROOT / f"{name}_g1_rank{r}.npy")
+                 for r in range(2)]
+            sizes = ps.shard_dense_sizes(n, len(eps[name]))
+            off, exact = 0, []
+            for s in sizes:  # each server applies the pushes in its order
+                sl = slice(off, off + s)
+                exact.append(any(np.array_equal(p1[sl], o) for o in
+                                 _sgd_orders(p0[sl], g[0][sl], g[1][sl],
+                                             PS_LR)))
+                off += s
+            row["step1_equals_one_process_update"] = exact
+            if not all(exact) or rows[0]["client"] != (
+                    "ShardedPSClient" if len(sizes) > 1 else "PSClient"):
+                fail(f"ps (b) {name}: the pulled parameters after step 1 "
+                     f"are not p0 - lr g_a - lr g_b ({exact}, "
+                     f"{rows[0]['client']})")
+            del p1, g
+        else:
+            c = ps.PSClient("127.0.0.1", int(eps[name][0].rsplit(":", 1)[1]))
+            table = c.pull_dense(0, n)
+            c.close()
+            want_t = p0.astype(np.float64) + sum(
+                np.load(MOE_PS_ROOT / f"{name}_deltas_rank{r}.npy")
+                .astype(np.float64) for r in range(2))
+            row["table_max_abs_err"] = float(np.abs(table - want_t).max())
+            row["tol"] = PS_GEO_TOL
+            if row["table_max_abs_err"] > PS_GEO_TOL or row["mode"] != "geo":
+                fail(f"ps (b) geo: the table against p0 + the merged "
+                     f"deltas: {row['table_max_abs_err']} ({row['mode']})")
+            del table, want_t
+        b["runs"][name] = row
+    for fl_ in servers.values():
+        for f in fl_:
+            f.stop_server()
+    out["ps"] = b
+    shutil.rmtree(MOE_PS_ROOT, ignore_errors=True)
+
+    e, f_ = a["explicit"], a["fleet"]
+    print("moe (a) explicit ep=2, by rank (ms a step, collectives' share, "
+          "collective bytes a step, peak GiB): " + json.dumps(
+              [[round(x["ms_per_step"], 2), round(x["collective_share"], 4),
+                x["collective_bytes_per_step"], round(x["peak_gib"], 3)]
+               for x in e["by_rank"]]) + f"; all-to-all bytes a step "
+          f"{e['a2a_bytes_per_step']}; worst error {e['worst_error']:.3g} "
+          f"(tol {MOE_TOL})", flush=True)
+    print("moe (a) fleet mp=2, by rank (ms a step, collectives' share, "
+          "collective bytes a step, peak GiB): " + json.dumps(
+              [[round(x["ms_per_step"], 2), round(x["collective_share"], 4),
+                x["collective_bytes_per_step"], round(x["peak_gib"], 3)]
+               for x in f_["by_rank"]]) + f"; losses {f_['losses']} against "
+          f"{f_['single_process_losses']}", flush=True)
+    for name, row in b["runs"].items():
+        print(f"ps (b) {name} ({row['client']}, {row['mode']}), by rank (ms "
+              f"a step, PS round trip's share, peak GiB, K3/K4): "
+              + json.dumps([[round(x["ms_per_step"], 2),
+                             round(x["ps_share"], 4), round(x["peak_gib"], 3),
+                             x["k3_k4"]] for x in row["by_rank"]])
+              + f"; {n * 4} bytes pushed and {n * 4} pulled a step",
+              flush=True)
+    print(f"moe_ps: explicit ep=2 "
+          f"{e['by_rank'][0]['ms_per_step']:.0f} ms a step, fleet mp=2 "
+          f"{f_['by_rank'][0]['ms_per_step']:.0f} ms (one process "
+          f"{a['single_process_ms_per_step']:.0f}); PS sync "
+          f"{b['runs']['sync']['by_rank'][0]['ms_per_step']:.0f} ms, "
+          f"sharded {b['runs']['sharded']['by_rank'][0]['ms_per_step']:.0f}"
+          f" ms, geo {b['runs']['geo']['by_rank'][0]['ms_per_step']:.0f} ms "
+          f"a step; {card}", flush=True)
+    return out
+
+
+def moe_ps_launches(moe_ps, kern) -> dict:
+    """Phase 20's launches of one K3/K4 wrapper, by run and trainer."""
+    i = list(FLASH_KERNELS).index(kern)
+    return {f"ps_{name}_trainer{r}": row["k3_k4"][i]
+            for name, run in moe_ps["ps"]["runs"].items()
+            for r, row in enumerate(run["by_rank"])}
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
     chip_smoke_kernels.json (a quick way to time K1/K2 of any checkout:
     copy this script into its root and run it there).  ``--mesh``,
-    ``--fleet``, ``--eager``, ``--dist``, ``--hybrid``: the serve of 4
-    and phase 15, 16, 17, 18 or 19, into chiprun_out/
+    ``--fleet``, ``--eager``, ``--dist``, ``--hybrid``, ``--moe-ps``: the
+    serve of 4 and phase 15, 16, 17, 18, 19 or 20, into chiprun_out/
     chip_smoke_<mode>.json."""
     import torch
 
@@ -5272,12 +5915,13 @@ def main(argv) -> int:
     eager_only = argv == ["--eager"]
     dist_only = argv == ["--dist"]
     hybrid_only = argv == ["--hybrid"]
+    moe_ps_only = argv == ["--moe-ps"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
     acp_kid = argv[:1] == ["--acp-child"] and len(argv) == 4
     if argv and not (kernels_only or mesh_only or fleet_only or eager_only
-                     or dist_only or hybrid_only or child or fleet_kid
-                     or acp_kid):
+                     or dist_only or hybrid_only or moe_ps_only or child
+                     or fleet_kid or acp_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -5363,6 +6007,17 @@ def main(argv) -> int:
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
+    if moe_ps_only:
+        res = dict(card=card)
+        res["serve"], _ = serve_phase(torch)
+        res["moe_ps"] = moe_ps_phase(torch)
+        res["serve"]["tokens"] = None
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_moe_ps.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
     if fleet_only:
         res = dict(card=card)
         res["serve"], _ = serve_phase(torch)
@@ -5386,62 +6041,76 @@ def main(argv) -> int:
     if spilled:
         fail(f"kernels at head_dim 64 use local memory: {spilled}")
 
+    # each phase's wall seconds, printed as it ends and kept in the result
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
     # 3. K1 and K2 against their plain version
-    cases = kernel_phase(torch)
-    q_cases = kernel_phase(torch, quant=True)
+    cases, q_cases = timed("3 kernel", lambda: (
+        kernel_phase(torch), kernel_phase(torch, quant=True)))
 
     # 4. serve
-    serve, launches = serve_phase(torch)
+    serve, launches = timed("4 serve", serve_phase, torch)
 
     # 5. quantized serve
-    serve_q, launches_q = serve_quant_phase(torch, serve)
+    serve_q, launches_q = timed("5 quant", serve_quant_phase, torch, serve)
 
     # 6. the serve through the unified ragged step, f32 and int8
-    ragged = ragged_serve_phase(torch, serve)
+    ragged = timed("6 ragged", ragged_serve_phase, torch, serve)
 
     # 7. speculative serves
-    spec = spec_serve_phase(torch, serve)
+    spec = timed("7 spec", spec_serve_phase, torch, serve)
 
     # 8. K3/K4 against their plain versions
-    flash_cases = flash_phase(torch)
+    flash_cases = timed("8 flash", flash_phase, torch)
 
     # 9. train
-    train = train_phase(torch)
+    train = timed("9 train", train_phase, torch)
 
     # 10. K5 against its plain version
-    ln_cases = ln_phase(torch)
+    ln_cases = timed("10 ln", ln_phase, torch)
 
     # 11. train with K5
-    train_ln = ln_train_phase(torch, train)
+    train_ln = timed("11 ln train", ln_train_phase, torch, train)
 
     # 12. the legacy one-shot prefill, f32 and int8
-    legacy = legacy_serve_phase(torch, serve)
+    legacy = timed("12 legacy", legacy_serve_phase, torch, serve)
 
     # 13. frontend, containment, recovery, durability, watchdog
-    reliability = reliability_phase(torch, serve, serve_q["tokens"])
+    reliability = timed("13 reliability", reliability_phase, torch, serve,
+                        serve_q["tokens"])
 
     # 14. the telemetry plane
-    telemetry = telemetry_phase(torch, serve, serve_q["tokens"],
-                                ragged["f32"]["tokens"])
+    telemetry = timed("14 telemetry", telemetry_phase, torch, serve,
+                      serve_q["tokens"], ragged["f32"]["tokens"])
 
     # 15. tensor-parallel serving
-    mesh = mesh_phase(torch, ragged)
+    mesh = timed("15 mesh", mesh_phase, torch, ragged)
 
     # 16. the fleet
-    fleet = fleet_phase(torch, serve)
+    fleet = timed("16 fleet", fleet_phase, torch, serve)
 
     # 17. eager train and generate
-    eager = eager_phase(torch, serve)
+    eager = timed("17 eager", eager_phase, torch, serve)
 
     # 18. data-parallel training, the optimizers, the profiler,
     # auto-checkpoint
-    distp = dist_phase(torch)
+    distp = timed("18 dist", dist_phase, torch)
 
     # 19. hybrid-parallel training: tensor, ZeRO, pipeline, sequence and
     # the 4-axis GPT step
-    hybrid = hybrid_phase(torch)
+    hybrid = timed("19 hybrid", hybrid_phase, torch)
 
-    # 20. report
+    # 20. expert parallelism, the parameter server, the data feed
+    moe_ps = timed("20 moe-ps", moe_ps_phase, torch)
+
+    # 21. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -5502,7 +6171,8 @@ def main(argv) -> int:
                          kern],
                      **{f"dist_train_rank{r}": n[kern] for r, n in
                         distp["data_parallel"]["launches_by_rank"].items()},
-                     **hybrid_launches(hybrid, kern))
+                     **hybrid_launches(hybrid, kern),
+                     **moe_ps_launches(moe_ps, kern))
         if kern == "fwd":
             paths.update(generate_concat=gen["concat"]["calls"]
                          * gen["concat"]["k3_launches_per_call"],
@@ -5535,13 +6205,14 @@ def main(argv) -> int:
         timed_case=f"train {path_dtype} [16384, 768]",
         plain_call="ops.layer_norm.layer_norm",
         library_call="torch.nn.functional.layer_norm", cases=ln_cases))
-    result = dict(card=card, build_s=build_s, kernel_build=builds,
+    result = dict(card=card, build_s=build_s, phase_s=phase_s,
+                  kernel_build=builds,
                   kernels=kernels, serve=serve,
                   serve_quant=serve_q, serve_ragged=ragged, serve_spec=spec,
                   serve_legacy=legacy, serve_reliability=reliability,
                   telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
                   train=train, train_layer_norm=train_ln, eager=eager,
-                  dist=distp, hybrid=hybrid)
+                  dist=distp, hybrid=hybrid, moe_ps=moe_ps)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -2,9 +2,9 @@
 as processes over ``torch.distributed`` — the parallel environment, the
 collectives, ``spawn`` and ``launch``, the hybrid topology (data,
 pipeline, sequence, tensor and sharding groups), ``DataParallel``,
-``split`` and ``fleet``'s collective half (tensor, pipeline and ZeRO
-parallelism).  The parameter server (``ps``) and expert parallelism are
-not ported."""
+``split``, ``fleet`` (tensor, pipeline, ZeRO and expert parallelism,
+the parameter-server roles, the datasets, elastic membership) and the
+parameter server (``ps``)."""
 from . import collective
 from .collective import (Group, ReduceOp, all_gather, all_gather_object,
                          all_reduce, alltoall, barrier, broadcast, irecv,
@@ -16,6 +16,7 @@ from .topology import (CommunicateTopology, HybridCommunicateGroup,
                        build_mesh, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
 from . import fleet
+from . import ps
 from .fleet.data_parallel import DataParallel
 from .spawn import spawn
 
@@ -26,4 +27,4 @@ __all__ = ["collective", "Group", "ReduceOp", "all_gather",
            "ParallelEnv", "get_rank", "get_world_size", "init_parallel_env",
            "CommunicateTopology", "HybridCommunicateGroup", "build_mesh",
            "get_hybrid_communicate_group", "set_hybrid_communicate_group",
-           "fleet", "DataParallel", "spawn"]
+           "fleet", "ps", "DataParallel", "spawn"]

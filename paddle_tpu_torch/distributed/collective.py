@@ -17,7 +17,9 @@ The JAX package has no cross-process form of `reduce_scatter`, `scatter`,
 `alltoall` and the point-to-point calls; here they have Paddle's
 semantics: rank *r* receives the reduced ``tensor_list[r]`` (or the
 *r*-th chunk of the reduced ``tensor``), ``src``'s ``tensor_list[r]``,
-every rank's ``in_tensor_list[r]``, and the peer's tensor.
+every rank's ``in_tensor_list[r]``, and the peer's tensor.  `alltoall`
+is one ``all_to_all_single`` (`_AllToAll`, differentiable: its backward
+is the reverse exchange), the expert-parallel MoE's exchange.
 
 With no process group (world size 1) every call is the JAX package's
 identity path.  A gloo collective of a CUDA tensor is staged through
@@ -28,8 +30,10 @@ the backend's task.  A group is a set of ranks (``new_group``), or a
 mesh axis name for JAX's API (``axis_name``).
 
 `comm_stats` counts, process-wide, the calls, bytes and host seconds of
-the all-reduces and all-gathers made through `_reduce_inplace` and
-`_gather` (the hybrid layers', ZeRO's and the ring's) and of the
+the all-reduces, all-gathers and all-to-alls made through
+`_reduce_inplace`, `_gather` and `_exchange` (the hybrid layers',
+ZeRO's, the ring's and the MoE's; an all-to-all counts its input's
+bytes) and of the
 pipeline's point-to-point traffic: over gloo, which runs synchronously
 here, the seconds are the collectives' wall time.
 """
@@ -45,7 +49,7 @@ from . import parallel as _par
 __all__ = ["ReduceOp", "Group", "new_group", "all_reduce", "all_gather",
            "all_gather_object", "reduce_scatter", "broadcast", "reduce",
            "scatter", "alltoall", "send", "recv", "isend", "irecv",
-           "barrier", "wait", "split", "comm_stats"]
+           "barrier", "wait", "split", "comm_stats", "axis_group"]
 
 _COMM = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
@@ -104,6 +108,9 @@ class Group:
 
 
 _GROUP_COUNTER = [0]
+# the newest group a ``new_group(..., axis_name=...)`` made with this rank
+# in it, by axis name (`axis_group`)
+_AXIS_GROUPS = {}
 
 
 def new_group(ranks=None, backend=None, axis_name=None) -> Group:
@@ -119,7 +126,27 @@ def new_group(ranks=None, backend=None, axis_name=None) -> Group:
         # torch's half hour
         pg = d.new_group(ranks=ranks, backend=backend,
                          timeout=_par._STATE.get("timeout"))
-    return Group(axis_name or "dp", ranks, id=_GROUP_COUNTER[0], pg=pg)
+    g = Group(axis_name or "dp", ranks, id=_GROUP_COUNTER[0], pg=pg)
+    if axis_name and g.rank >= 0:
+        _AXIS_GROUPS[axis_name] = g
+    return g
+
+
+def axis_group(name):
+    """This rank's group along the mesh axis ``name``: the current hybrid
+    group's when it has that axis, else the newest ``new_group`` of that
+    ``axis_name`` holding this rank; None when neither gives the axis
+    more than one rank (the counterpart of JAX's axis being in scope)."""
+    from .topology import AXIS_ORDER, get_hybrid_communicate_group
+
+    if not name:
+        return None
+    hcg = get_hybrid_communicate_group()
+    if hcg is not None and (name in AXIS_ORDER or name == "sharding"):
+        g = hcg.axis_group(name)
+    else:
+        g = _AXIS_GROUPS.get(name)
+    return g if g is not None and g.nranks > 1 else None
 
 
 def _pg(group):
@@ -298,10 +325,53 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     return _ret(tensor, sync_op)
 
 
+class _AllToAll(torch.autograd.Function):
+    """Block *j* of dim 0 goes to rank *j* of ``group``; block *i* of the
+    result came from rank *i*.  The exchange is its own transpose, so the
+    backward runs it again on the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+@torch.no_grad()
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """``dist.all_to_all_single`` of ``x`` in equal dim-0 blocks (gloo:
+    through a host copy), counted in `comm_stats` at ``x``'s size."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    src = x.detach().contiguous()
+    staged = _staged(src, group)
+    if staged:
+        src = src.cpu()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=_pg(group))
+    if staged:
+        out = out.to(x.device)
+    account(src.numel() * src.element_size(), t0)
+    return out
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The differentiable exchange of `_AllToAll`: ``x``'s dim 0 holds one
+    block a rank of ``group``; the identity without a collective."""
+    if not _active(group):
+        return x
+    return _AllToAll.apply(x, group)
+
+
 def alltoall(in_tensor_list, out_tensor_list=None, group=None, sync_op=True):
     """Rank *r* receives every rank's ``in_tensor_list[r]``, in rank order
     (appended to ``out_tensor_list``); returns them concatenated on dim 0.
-    (Over an all-gather: gloo has no all-to-all.)"""
+    A tensor instead of a list is cut into one dim-0 block a rank.  One
+    ``all_to_all_single``: each block crosses once; differentiable."""
     if not _active(group):
         if out_tensor_list is not None and \
                 isinstance(in_tensor_list, (list, tuple)):
@@ -310,14 +380,13 @@ def alltoall(in_tensor_list, out_tensor_list=None, group=None, sync_op=True):
             return torch.cat(list(in_tensor_list), 0)
         return in_tensor_list
     n = _nranks(group)
-    me = group.rank if isinstance(group, Group) else _par.get_rank()
     if isinstance(in_tensor_list, (list, tuple)):
-        stacked = torch.stack([t.detach() for t in in_tensor_list])
+        stacked = torch.stack(list(in_tensor_list))
     else:
-        stacked = in_tensor_list.detach().reshape(
+        stacked = in_tensor_list.reshape(
             (n, in_tensor_list.shape[0] // n) + tuple(
                 in_tensor_list.shape[1:]))
-    got = [p[me] for p in _gather(stacked, group)]
+    got = list(_AllToAll.apply(stacked, group).unbind(0))
     if out_tensor_list is not None:
         out_tensor_list.extend(got)
     return torch.cat(got, 0)

@@ -1,9 +1,10 @@
-"""fleet, the collective half (counterpart: paddle_tpu/distributed/
-fleet/__init__.py): the singleton's API at module level, as there.
-``dataset``, ``elastic`` and ``meta_parallel.moe_layer`` are not ported
-(ROADMAP.md Queue 1, item 2)."""
+"""fleet (counterpart: paddle_tpu/distributed/fleet/__init__.py): the
+singleton's API at module level, the datasets and the meta-parallel
+layers, as there; ``elastic`` is a submodule, as there."""
 from . import meta_optimizers, meta_parallel, utils
 from .base import Fleet, PaddleCloudRoleMaker, RoleMakerBase, fleet
+from .dataset import (DatasetBase, DatasetFactory, InMemoryDataset,
+                      QueueDataset)
 from .data_parallel import DataParallel
 from .pipeline_step import PipelineTrainStep
 from .sharded_step import ShardedTrainStep
@@ -19,3 +20,8 @@ is_first_worker = fleet.is_first_worker
 barrier_worker = fleet.barrier_worker
 get_hybrid_communicate_group = fleet.get_hybrid_communicate_group
 minimize = fleet.minimize
+init_server = fleet.init_server
+run_server = fleet.run_server
+init_worker = fleet.init_worker
+stop_worker = fleet.stop_worker
+stop_server = fleet.stop_server

@@ -11,12 +11,20 @@ otherwise; ``distributed_optimizer`` stacks the strategy's
 meta-optimizers (`StrategyCompiler`); ``build_train_step`` gives the
 1F1B `PipelineTrainStep` for a `PipelineLayer` under ``pp > 1``, else
 the `ShardedTrainStep` of the strategy (ZeRO ``stage`` and ``offload``
-from ``sharding_configs``, gradient merge's ``k_steps``, recompute).
-Not ported, and refused with NotImplementedError: expert parallelism
-(``moe_layer``: ROADMAP.md Queue 1, item 2) and the parameter-server
-half (``is_collective=False``, a server role, ``a_sync``,
-``init_server`` / ``init_worker`` ...: the ``distributed/ps`` slice,
-the same item).
+from ``sharding_configs``, gradient merge's ``k_steps``, recompute).  A
+model holding `MoELayer(ep_axis="mp")` splits its experts over the
+tensor-parallel group; ``expert_parallel`` and its configs are kept and
+ignored, as in the JAX package.
+
+The parameter-server half (JAX's ``init_server`` ... ``stop_server``):
+a server role (``TRAINING_ROLE=PSERVER``), ``is_collective=False`` or
+``a_sync`` makes ``init`` join no process group; ``init_server`` builds
+a `ps.PSServer` whose dense tables hold this server's block of the
+global size (`ps.shard_dense_sizes` over
+``PADDLE_PSERVERS_IP_PORT_LIST``), ``run_server`` blocks until a stop,
+``init_worker`` connects a `ps.PSClient` (a `ps.ShardedPSClient` over
+more than one endpoint) and a `ps.Communicator` in the strategy's mode
+(``a_sync_configs["k_steps"] > 0``: geo; ``a_sync``: async; else sync).
 """
 from __future__ import annotations
 
@@ -29,12 +37,6 @@ from ..topology import (HybridCommunicateGroup,
 from .strategy import DistributedStrategy
 
 __all__ = ["Fleet", "RoleMakerBase", "PaddleCloudRoleMaker", "fleet"]
-
-_PS = ("the parameter-server runtime comes with the distributed/ps slice "
-       "of paddle_tpu_torch (ROADMAP.md Queue 1, item 2)")
-_MOE = ("expert parallelism (meta_parallel.moe_layer) is not ported yet: "
-        "it comes with ROADMAP.md Queue 1, item 2")
-
 
 class RoleMakerBase:
     def __init__(self, is_collective=True):
@@ -93,12 +95,6 @@ class PaddleCloudRoleMaker(RoleMakerBase):
             return 0
 
 
-def _refuse_unported(st: DistributedStrategy):
-    if getattr(st, "expert_parallel", False) or int(
-            st.expert_parallel_configs.get("expert_parallel_degree", 1)) > 1:
-        raise NotImplementedError(_MOE)
-
-
 def _degrees(st: DistributedStrategy):
     h = st.hybrid_configs
     mp = int(h.get("mp_degree", 1))
@@ -129,10 +125,11 @@ class Fleet:
     def init(self, role_maker=None, is_collective=True, strategy=None):
         role_maker = role_maker or PaddleCloudRoleMaker(is_collective)
         strategy = strategy or DistributedStrategy()
-        if not is_collective or role_maker.is_server() or strategy.a_sync:
-            raise NotImplementedError(_PS)
-        _refuse_unported(strategy)
         self._role_maker, self._strategy = role_maker, strategy
+        if not is_collective or role_maker.is_server() or strategy.a_sync:
+            # the parameter-server mode: no process group; the tables and
+            # clients come with init_server / init_worker
+            return self
         _par.init_parallel_env()
         d = _degrees(strategy)
         world = _par.get_world_size()
@@ -170,7 +167,6 @@ class Fleet:
     # -- strategy wiring ----------------------------------------------------
     def distributed_optimizer(self, optimizer, strategy=None):
         if strategy is not None:
-            _refuse_unported(strategy)
             self._strategy = strategy
         st = self._strategy or DistributedStrategy()
         from .meta_optimizers import StrategyCompiler
@@ -215,7 +211,6 @@ class Fleet:
         while isinstance(opt, MetaOptimizerBase):
             opt = opt.inner  # the step merges and reduces by itself
         st = self._strategy
-        _refuse_unported(st)
         inner = model.network if hasattr(model, "network") else model
         inner = getattr(inner, "_layers", inner)
         pp = self._hcg.get_pipe_parallel_world_size()
@@ -245,10 +240,105 @@ class Fleet:
         return self._user_optimizer.minimize(loss)
 
     # -- the parameter-server half ------------------------------------------
-    def init_server(self, *args, **kwargs):
-        raise NotImplementedError(_PS)
+    def init_server(self, tables=None, port=None, n_trainers=None):
+        """Build the native server with ``tables``: ``{table_id: ("dense",
+        size, lr, optimizer) | ("sparse", dim, lr, optimizer)}``.  With
+        several configured servers ``size`` is the global dense size and
+        this server holds its contiguous block (`shard_dense_sizes`), the
+        trainers' `ShardedPSClient` routing.  Returns the bound port."""
+        from ..ps import PSServer, shard_dense_sizes
 
-    run_server = stop_server = init_worker = stop_worker = init_server
+        eps = getattr(self._role_maker, "get_pserver_endpoints",
+                      lambda: [])() or []
+        n_servers = max(1, len(eps))
+        my_idx = getattr(self._role_maker, "server_index", lambda: 0)() \
+            if n_servers > 1 else 0
+        srv = PSServer()
+        for tid, spec in (tables or {}).items():
+            kind, *rest = spec
+            if kind == "dense":
+                size = rest[0]
+                if n_servers > 1:
+                    size = shard_dense_sizes(size, n_servers)[my_idx]
+                lr = rest[1] if len(rest) > 1 else 0.01
+                opt = rest[2] if len(rest) > 2 else "sgd"
+                srv.create_dense_table(tid, size, lr, opt)
+            elif kind == "sparse":
+                dim = rest[0]
+                lr = rest[1] if len(rest) > 1 else 0.01
+                opt = rest[2] if len(rest) > 2 else "sgd"
+                srv.create_sparse_table(tid, dim, lr, opt)
+            else:
+                raise ValueError(f"unknown table kind {spec[0]}")
+        ep = getattr(self._role_maker, "_current_endpoint", "127.0.0.1:0")
+        if port is None:
+            port = int(ep.rsplit(":", 1)[1]) if ":" in ep else 0
+        # a loopback endpoint stays loopback; a routable one must accept
+        # remote trainers
+        host = ep.rsplit(":", 1)[0] if ":" in ep else "127.0.0.1"
+        bind = "127.0.0.1" if host in ("127.0.0.1", "localhost") \
+            else "0.0.0.0"
+        self._ps_server = srv
+        self._ps_port = srv.start(port, n_trainers or self.worker_num(),
+                                  host=bind)
+        return self._ps_port
+
+    def run_server(self):
+        """Serve until a stop (local `stop_server` or a client's
+        ``stop_server``)."""
+        import time
+
+        srv = getattr(self, "_ps_server", None)
+        while srv is not None and not srv.is_stopped():
+            time.sleep(0.2)
+        if srv is not None:
+            srv.stop()  # joins the native threads after a remote stop
+
+    def init_worker(self, endpoint=None, mode=None):
+        """Connect this trainer to the servers and start its
+        `Communicator` (async mode: its merge thread)."""
+        from ..ps import Communicator, PSClient, ShardedPSClient
+
+        if endpoint is None:
+            eps = self._role_maker.get_pserver_endpoints()
+            if len(eps) > 1:
+                self._ps_client = ShardedPSClient(eps)
+            else:
+                endpoint = eps[0] if eps else "127.0.0.1:0"
+        if endpoint is not None:
+            host, port = endpoint.rsplit(":", 1)
+            self._ps_client = PSClient(host, int(port))
+        st = self._strategy or DistributedStrategy()
+        if mode is None:
+            k = int(st.a_sync_configs.get("k_steps", -1))
+            mode = "geo" if k > 0 else ("async" if st.a_sync else "sync")
+        self._ps_communicator = Communicator(
+            self._ps_client, mode=mode,
+            k_steps=max(1, int(st.a_sync_configs.get("k_steps", 1))))
+        if mode == "async":
+            self._ps_communicator.start()
+        return self._ps_client
+
+    def stop_worker(self):
+        comm = getattr(self, "_ps_communicator", None)
+        if comm is not None:
+            comm.stop()
+        client = getattr(self, "_ps_client", None)
+        if client is not None:
+            try:
+                client.barrier(trainer_id=self.worker_index())
+            except RuntimeError:
+                pass  # the server is stopping already
+            client.close()
+
+    def stop_server(self):
+        srv = getattr(self, "_ps_server", None)
+        if srv is not None:
+            srv.stop()
+
+    def save_persistables(self, executor=None, dirname=None,
+                          main_program=None):
+        pass
 
 
 fleet = Fleet()

@@ -1,6 +1,6 @@
-"""Tensor and pipeline parallelism (counterpart: paddle_tpu/distributed/
-fleet/meta_parallel/).  ``moe_layer`` is not ported (ROADMAP.md Queue 1,
-item 2)."""
+"""Tensor, pipeline and expert parallelism (counterpart: paddle_tpu/
+distributed/fleet/meta_parallel/)."""
+from .moe_layer import MoELayer, moe_forward, moe_gating
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
                         RowParallelLinear, TensorParallel,
                         VocabParallelEmbedding)
@@ -10,4 +10,5 @@ from .pipeline_parallel import (LayerDesc, PipelineLayer, PipelineParallel,
 __all__ = ["ColumnParallelLinear", "ParallelCrossEntropy",
            "RowParallelLinear", "TensorParallel", "VocabParallelEmbedding",
            "LayerDesc", "PipelineLayer", "PipelineParallel",
-           "SegmentLayers", "SharedLayerDesc"]
+           "SegmentLayers", "SharedLayerDesc", "MoELayer", "moe_forward",
+           "moe_gating"]

@@ -5,9 +5,10 @@ The switches and their configs under the JAX package's names and
 defaults: ``sharding_configs`` (``stage``, ``offload``,
 ``sharding_degree``), ``pipeline_configs`` (``accumulate_steps``,
 ``micro_batch_size``), ``tensor_parallel_configs``, ``hybrid_configs``
-and the rest.  `fleet.init` and `fleet.build_train_step` read them; those
-whose parallelism is not ported (expert parallelism, ``a_sync``) raise
-there.
+and the rest.  `fleet.init` and `fleet.build_train_step` read them;
+``a_sync`` and ``a_sync_configs`` choose the parameter-server mode,
+``expert_parallel`` and its configs are kept and ignored, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -16,8 +17,7 @@ import json
 
 class DistributedStrategy:
     def __init__(self):
-        # the whole switch set; what the port lacks (experts, a_sync) is
-        # refused at fleet.init / build_train_step
+        # the whole switch set, as in the JAX package
         self.amp = False
         self.amp_configs = {"init_loss_scaling": 32768.0, "use_pure_fp16": False,
                             "use_bf16": True}

@@ -4,8 +4,11 @@ launch.py, the same arguments).
 Builds the endpoint model from the arguments, starts one process a
 rank of this node with its ``PADDLE_*`` environment, and watches them:
 the first that fails has every other terminated (SIGTERM, then SIGKILL
-at exit).  ``--servers``/``--workers`` (parameter-server mode) raise
-NotImplementedError, naming the distributed/ps slice.
+at exit).  With ``--servers`` (parameter-server mode) it starts this
+node's servers (``TRAINING_ROLE=PSERVER``, ``PADDLE_PORT``,
+``PADDLE_CURRENT_ENDPOINT``, ``PADDLE_PSERVERS_IP_PORT_LIST``) and then
+its workers (``--workers``, else ``nproc_per_node`` on loopback), as
+the JAX package does; they join no process group.
 
 Usage:
     python -m paddle_tpu_torch.distributed.launch [--nproc_per_node N]
@@ -92,12 +95,45 @@ def launch(training_script: str, training_script_args: List[str],
         e.update(env_extra or {})
         return e
 
-    if cluster["servers"] or cluster["workers"]:
-        raise NotImplementedError(
-            "--servers/--workers start a parameter-server job, which comes "
-            "with the distributed/ps slice of paddle_tpu_torch")
     try:
-        eps = cluster["trainers"]
+        if cluster["servers"]:
+            # parameter-server mode: this node's servers, then its workers
+            for i, ep in enumerate(cluster["servers"]):
+                if not _is_local(ep):
+                    continue
+                env = base_env()
+                env.update({
+                    "TRAINING_ROLE": "PSERVER",
+                    "PADDLE_PORT": ep.rsplit(":", 1)[1],
+                    "PADDLE_CURRENT_ENDPOINT": ep,
+                    "PADDLE_PSERVERS_IP_PORT_LIST": ",".join(
+                        cluster["servers"]),
+                    "PADDLE_TRAINERS_NUM": str(
+                        len(cluster["workers"]) or nproc_per_node),
+                })
+                procs.append(_spawn(
+                    [sys.executable, "-u", training_script,
+                     *training_script_args], env, log_dir, "serverlog", i))
+            worker_eps = cluster["workers"] or [
+                f"127.0.0.1:{start_port + 1000 + i}"
+                for i in range(nproc_per_node)]
+            for i, wep in enumerate(worker_eps):
+                if not _is_local(wep):
+                    continue
+                env = base_env()
+                env.update({
+                    "TRAINING_ROLE": "TRAINER",
+                    "PADDLE_TRAINER_ID": str(i),
+                    "PADDLE_TRAINERS_NUM": str(len(worker_eps)),
+                    "PADDLE_CURRENT_ENDPOINT": wep,
+                    "PADDLE_TRAINER_ENDPOINTS": ",".join(worker_eps),
+                    "PADDLE_PSERVERS_IP_PORT_LIST": ",".join(
+                        cluster["servers"]),
+                })
+                procs.append(_spawn(
+                    [sys.executable, "-u", training_script,
+                     *training_script_args], env, log_dir, "workerlog", i))
+        eps = [] if cluster["servers"] else cluster["trainers"]
         for i, ep in enumerate(eps):
             if not _is_local(ep):
                 continue

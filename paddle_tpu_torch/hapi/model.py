@@ -9,7 +9,7 @@ Batches go to the device of the network's parameters.
 ``amp_configs`` ("O1", or a dict with ``dtype``) runs the forward under
 `amp.auto_cast` and the loss outside it (the JAX package takes the
 argument and ignores it).  ``save(training=False)`` is export, which
-comes with a later slice.
+comes with a later slice (ROADMAP.md Queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -240,7 +240,7 @@ class Model:
             raise NotImplementedError(
                 "Model.save(training=False) exports an inference program "
                 "(jit.save), which lands with the export slice of "
-                "paddle_tpu_torch")
+                "paddle_tpu_torch (ROADMAP.md Queue 1, item 4)")
         fsave(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:
             fsave(self._optimizer.state_dict(), path + ".pdopt")

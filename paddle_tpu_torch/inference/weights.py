@@ -67,10 +67,6 @@ def params_to_numpy(tree: dict) -> dict:
     return _map_tree(tree, leaf)
 
 
-def _mp_coords(group):
-    return {"mp": (group.rank, group.nranks)} if group is not None else {}
-
-
 def _mp_of(model):
     from ..distributed.fleet.meta_parallel.mp_layers import mp_group_of
 
@@ -80,16 +76,30 @@ def _mp_of(model):
     return mp_group_of(getattr(inner, "mp_group", None))
 
 
+def _axis_groups(model, group) -> dict:
+    """``{parameter name: {axis: group}}``: the tensor-parallel ``group``
+    for every parameter, and an explicit-mode `MoELayer`'s expert
+    parameters its ``ep_axis`` group."""
+    from ..distributed.fleet.meta_parallel.moe_layer import ep_groups
+
+    base = {"mp": group} if group is not None else {}
+    out = {name: base for name in model.state_dict(keep_vars=True)}
+    for name, (axis, g) in ep_groups(model).items():
+        out[name] = dict(base, **{axis: g})
+    return out
+
+
 @torch.no_grad()
 def shard_state_dict(model, state: dict, group=None) -> list:
     """Copy the whole arrays of ``state`` (by ``model.state_dict()``'s
     names) into ``model``, each parameter taking its block under its
     ``mesh_axes`` for this rank of the tensor-parallel ``group`` (default:
-    the model's).  Returns the names ``state`` did not have."""
+    the model's), an explicit-mode `MoELayer`'s experts theirs over its
+    ``ep_axis``.  Returns the names ``state`` did not have."""
     from ..parallel.partition import shard_leaf
 
     group = group if group is not None else _mp_of(model)
-    coords = _mp_coords(group)
+    groups = _axis_groups(model, group)
     missing = []
     for name, t in model.state_dict(keep_vars=True).items():
         if name not in state:
@@ -100,7 +110,8 @@ def shard_state_dict(model, state: dict, group=None) -> list:
             torch.from_numpy(np.array(v))
         spec = getattr(t, "mesh_axes", None)
         if spec:
-            v = shard_leaf(v, spec, coords)
+            v = shard_leaf(v, spec, {a: (g.rank, g.nranks)
+                                     for a, g in groups[name].items()})
         t.copy_(v.to(device=t.device, dtype=t.dtype))
     return missing
 
@@ -108,18 +119,21 @@ def shard_state_dict(model, state: dict, group=None) -> list:
 @torch.no_grad()
 def full_state_dict(model, group=None) -> dict:
     """``model.state_dict()`` with every split parameter gathered over the
-    tensor-parallel ``group`` (default: the model's) into the whole
-    tensor, on the CPU; every rank returns it."""
+    tensor-parallel ``group`` (default: the model's), or an explicit-mode
+    `MoELayer`'s experts over its ``ep_axis``, into the whole tensor, on
+    the CPU; every rank returns it."""
     from ..distributed.collective import _gather
     from ..parallel.partition import join_leaf
 
     group = group if group is not None else _mp_of(model)
+    groups = _axis_groups(model, group)
     out = {}
     for name, t in model.state_dict(keep_vars=True).items():
         spec = getattr(t, "mesh_axes", None)
         t = t.detach()
-        if spec and group is not None and any(
-                a is not None and str(a).startswith("mp") for a in spec):
-            t = join_leaf(_gather(t.contiguous(), group), spec, "mp")
+        for axis, g in groups[name].items():
+            if spec and any(a is not None and str(a).startswith(axis)
+                            for a in spec):
+                t = join_leaf(_gather(t.contiguous(), g), spec, axis)
         out[name] = t.cpu()
     return out

@@ -21,8 +21,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if soft_label or not use_softmax or weight is not None:
         raise NotImplementedError(
             "cross_entropy with soft labels, without softmax or with class "
-            "weights is not ported yet: it lands with the eager-core slice "
-            "of paddle_tpu_torch")
+            "weights is not ported yet: it lands with the op long-tail "
+            "slice of paddle_tpu_torch (ROADMAP.md Queue 1, item 3)")
     li = label.long()
     if li.dim() == input.dim():
         li = li.squeeze(axis)

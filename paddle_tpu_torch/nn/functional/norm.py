@@ -14,8 +14,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
     if len(normalized_shape) != 1 or weight is None or bias is None:
         raise NotImplementedError(
             "layer_norm over several axes or without weight and bias is not "
-            "ported yet: it lands with the eager-core slice of "
-            "paddle_tpu_torch")
+            "ported yet: it lands with the op long-tail slice of "
+            "paddle_tpu_torch (ROADMAP.md Queue 1, item 3)")
     shape = x.shape
     return fused_layer_norm(x.reshape(-1, shape[-1]), weight, bias,
                             epsilon).reshape(shape)

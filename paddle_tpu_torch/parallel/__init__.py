@@ -15,7 +15,8 @@ serving half).
   block on kernel K3 on the card.
 
 Training's rules (`gpt_train_rules`, `gpt_tensor_parallel_rules`) are in
-`partition`; the serving mesh's dp axis is not ported."""
+`partition`.  Serving meshes are ``mp=N`` only, as in the JAX package
+(which has no serving ``dp`` axis)."""
 from .partition import (PartitionSpec, QKV_HEADS, build_mesh,
                         collective_bytes, gather_params, gpt_serving_rules,
                         gpt_tensor_parallel_rules, gpt_train_rules,

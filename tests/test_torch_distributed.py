@@ -256,24 +256,37 @@ def test_fleet_round_trip_and_gradient_merge_match_jax(cpu_ranks, tmp_path):
 
 
 def test_unported_strategies_raise(monkeypatch):
-    """What the port still refuses: expert parallelism and the parameter
-    server (ROADMAP.md Queue 1, item 2).  The hybrid degrees, ZeRO and
-    the pipeline build; a degree that does not fit the world is an
-    error, not a refusal."""
+    """Expert parallelism and the parameter-server modes are accepted now
+    (``expert_parallel`` is kept and ignored, as in the JAX package;
+    ``a_sync`` and ``is_collective=False`` join no process group); the
+    hybrid degrees, ZeRO and the pipeline build; a degree that does not
+    fit the world is an error, not a refusal."""
     monkeypatch.setenv("PADDLE_DEVICE", "cpu")
+    from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import parallel as par
 
-    for attr, value, match in (
-            ("expert_parallel", True, "moe_layer"),
-            ("a_sync", True, "distributed/ps")):
-        st = fleet.DistributedStrategy()
-        setattr(st, attr, value)
-        with pytest.raises(NotImplementedError, match=match):
-            fleet.init(is_collective=True, strategy=st)
-    with pytest.raises(NotImplementedError, match="distributed/ps"):
-        fleet.init(is_collective=False)
-    with pytest.raises(NotImplementedError, match="distributed/ps"):
-        fleet.fleet.init_server()
+    joined = []
+    monkeypatch.setattr(par, "init_parallel_env",
+                        lambda *a, **k: joined.append(1))
+    before = TD.get_hybrid_communicate_group()
+    try:
+        for attr in ("expert_parallel", "a_sync"):
+            st = fleet.DistributedStrategy()
+            setattr(st, attr, True)
+            st.expert_parallel_configs = {"expert_parallel_degree": 2}
+            f = fleet.Fleet()
+            assert f.init(is_collective=True, strategy=st) is f
+            # experts: a process group and the hybrid group; a_sync: none
+            assert (f._hcg is not None) == (attr == "expert_parallel")
+            opt = optimizer.SGD(0.1, parameters=torch.nn.Linear(
+                2, 2).parameters())
+            assert f.distributed_optimizer(opt, strategy=st) is not None
+        f = fleet.Fleet()
+        assert f.init(is_collective=False) is f and f._hcg is None
+        assert joined == [1] and par._dist() is None
+    finally:
+        TD.set_hybrid_communicate_group(before)
     with pytest.raises(ValueError, match="zero_stage"):
         ShardedTrainStep(torch.nn.Linear(2, 2), None, None, zero_stage=4)
     with pytest.raises(ValueError, match="world size 1"):

@@ -457,9 +457,18 @@ def test_dataloader_order_matches_jax_under_np_seed():
     np.random.seed(5)
     ts = TIO.random_split(TIO.TensorDataset([rows]), [10, 13])
     assert [s.indices for s in ts] == [s.indices for s in js]
-    with pytest.raises(NotImplementedError, match="worker slice"):
-        TIO.DataLoader(TIO.TensorDataset([rows]), places="cpu",
-                       num_workers=2)
+    # workers (threads here; processes in test_torch_elastic_data.py)
+    # give the same batches in the same order
+    np.random.seed(4)
+    threaded = [tuple(t.numpy() for t in b)
+                for b in TIO.DataLoader(TIO.TensorDataset([rows, labels]),
+                                        places="cpu", batch_size=5,
+                                        shuffle=True, num_workers=2,
+                                        multiprocess_mode="thread")]
+    assert len(threaded) == len(got)
+    for g, w in zip(threaded, got):
+        np.testing.assert_array_equal(g[0], w[0])
+        np.testing.assert_array_equal(g[1], w[1])
     dist = TIO.DistributedBatchSampler(TIO.TensorDataset([rows]), 4,
                                        num_replicas=2, rank=1)
     jdist = JIO.DistributedBatchSampler(JIO.TensorDataset([rows]), 4,

@@ -75,6 +75,7 @@ def _inputs():
     from test_torch_tensor_parallel import _inputs as tp_inputs
 
     a.update({k: v for k, v in tp_inputs().items() if k.startswith("mlp")})
+    a.update(R.moe_inputs())
     return a
 
 

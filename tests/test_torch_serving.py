@@ -396,6 +396,13 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "mp_layers",
                        "paddle_tpu_torch.distributed.fleet.meta_parallel."
                        "pipeline_parallel",
+                       "paddle_tpu_torch.distributed.fleet.meta_parallel."
+                       "moe_layer",
+                       "paddle_tpu_torch.distributed.fleet.elastic",
+                       "paddle_tpu_torch.distributed.fleet.dataset",
+                       "paddle_tpu_torch.distributed.ps",
+                       "paddle_tpu_torch.distributed.ps._native",
+                       "paddle_tpu_torch.io.worker",
                        "paddle_tpu_torch.parallel.pipeline",
                        "paddle_tpu_torch.parallel.ring_attention",
                        "paddle_tpu_torch.models.gpt_spmd")

@@ -80,14 +80,19 @@ def _jax_gpt(seed):
 
 
 def _prepare_tp(out):
-    a = _inputs()
+    a = dict(_inputs(), **R.moe_inputs())
     np.savez(out + ".npz", **a)
     paddle.save(_jax_gpt(R.GPT_SEED + 10).state_dict(), out + ".jax.pdparams")
 
 
+def tp_job(tmp_path_factory):
+    """The two-rank job (also read by test_torch_moe.py)."""
+    return shared_run(tmp_path_factory, "tp", R.tp_worker, 2, _prepare_tp)
+
+
 @pytest.fixture(scope="module")
 def tp(tmp_path_factory):
-    return shared_run(tmp_path_factory, "tp", R.tp_worker, 2, _prepare_tp)
+    return tp_job(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

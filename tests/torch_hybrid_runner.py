@@ -1,6 +1,7 @@
 """Rank programs of the hybrid-parallel port tests
 (tests/test_torch_tensor_parallel.py, test_torch_zero.py,
-test_torch_pipeline.py, test_torch_ring_spmd.py), on the CPU over gloo.
+test_torch_pipeline.py, test_torch_ring_spmd.py, test_torch_moe.py), on
+the CPU over gloo.
 
 Each function is a ``paddle_tpu_torch.distributed.spawn`` target: it
 reads its inputs (numpy arrays the test made, from the JAX package or
@@ -29,6 +30,37 @@ LR = 1e-3
 SPMD_CFG = dict(vocab_size=32, hidden_size=16, num_layers=2, num_heads=2,
                 max_seq_len=16)
 PIPE_HID = 8
+# the MoE checks (test_torch_moe.py): explicit expert parallelism with
+# `MOE_T` tokens a rank over 2 and 4 ranks, and the fleet mode's net (JAX's
+# tests/test_moe.py:87: MoELayer(8, 16, 4, k=2, capacity_factor=4.0,
+# ep_axis="mp") and a Linear(8, 4) head) at dp = 2 x mp = 2
+MOE_T, MOE_H, MOE_F, MOE_E, MOE_K, MOE_CF = 8, 8, 16, 8, 2, 2.0
+MOE_FLEET_STEPS = 3
+
+
+def moe_inputs():
+    """The MoE checks' arrays (seeded numpy): the experts, gate and tokens
+    of the explicit mode (``moe_*``, up to 4 ranks' tokens) and the fleet
+    net's whole weights (``moef.<name>``) and batches."""
+    f = np.float32
+    rng = np.random.RandomState(21)
+    a = {"moe_x": rng.randn(4 * MOE_T, MOE_H).astype(f),
+         "moe_gw": rng.randn(MOE_H, MOE_E).astype(f),
+         "moe_w1": (rng.randn(MOE_E, MOE_H, MOE_F) * 0.3).astype(f),
+         "moe_b1": (rng.randn(MOE_E, MOE_F) * 0.1).astype(f),
+         "moe_w2": (rng.randn(MOE_E, MOE_F, MOE_H) * 0.3).astype(f),
+         "moe_b2": (rng.randn(MOE_E, MOE_H) * 0.1).astype(f)}
+    rng = np.random.RandomState(22)
+    a.update({"moef.moe.gate_weight": rng.randn(8, 4).astype(f),
+              "moef.moe.w1": (rng.randn(4, 8, 16) * 0.3).astype(f),
+              "moef.moe.b1": (rng.randn(4, 16) * 0.1).astype(f),
+              "moef.moe.w2": (rng.randn(4, 16, 8) * 0.3).astype(f),
+              "moef.moe.b2": (rng.randn(4, 8) * 0.1).astype(f),
+              "moef.head.weight": (rng.randn(8, 4) * 0.3).astype(f),
+              "moef.head.bias": (rng.randn(4) * 0.1).astype(f),
+              "moef_x": rng.randn(MOE_FLEET_STEPS, 8, 6, 8).astype(f),
+              "moef_y": rng.randn(MOE_FLEET_STEPS, 8, 6, 4).astype(f)})
+    return a
 
 
 def gpt_batches(steps=GPT_STEPS):
@@ -68,6 +100,100 @@ def _fleet(**degrees):
 
 def _mse(m, x, y):
     return torch.mean((m(x) - y) ** 2)
+
+
+def _moe_ep_checks(a):
+    """Explicit expert parallelism over every rank (``new_group(...,
+    axis_name="ep")``): the layer's experts loaded from the whole arrays
+    by ``shard_state_dict`` and gathered back by ``full_state_dict``; for
+    tokens sharded (this rank's ``MOE_T`` rows) and replicated (all
+    ranks' rows on each), the output, the auxiliary loss and the
+    gradients of ``gate_weight`` and ``w1`` of this rank's share of JAX's
+    test_ep_gradients_flow loss (the shares sum to it)."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import MoELayer
+    from paddle_tpu_torch.inference.weights import (full_state_dict,
+                                                    shard_state_dict)
+
+    n = torch.distributed.get_world_size()
+    r = torch.distributed.get_rank()
+    group = collective.new_group(list(range(n)), axis_name="ep")
+    layer = MoELayer(MOE_H, MOE_F, MOE_E, k=MOE_K, capacity_factor=MOE_CF,
+                     ep_axis="ep", ep_degree=n, device="cpu")
+    whole = {k: a[f"moe_{v}"] for k, v in (
+        ("gate_weight", "gw"), ("w1", "w1"), ("b1", "b1"), ("w2", "w2"),
+        ("b2", "b2"))}
+    shard_state_dict(layer, whole)
+    res = {"n": n, "w1_local_shape": list(layer.w1.shape),
+           "in_scope": layer.ep_group() is group,
+           "full": {k: _np(v) for k, v in full_state_dict(layer).items()},
+           "a2a_bytes": []}
+    # collective.alltoall: rank r sends [r * 10 + j] to rank j, twice
+    # over (a list and a tensor), and its gradient comes back the same way
+    src = torch.tensor([[r * 10.0 + j] for j in range(n)],
+                       requires_grad=True)
+    collective.comm_stats(reset=True)
+    got = collective.alltoall(list(src.unbind(0)), group=group)
+    res["alltoall"] = _np(got)
+    res["alltoall_bytes"] = collective.comm_stats()["bytes"]
+    (got * torch.arange(n, dtype=torch.float32)).sum().backward()
+    res["alltoall_grad"] = _np(src.grad)
+    res["alltoall_tensor"] = _np(collective.alltoall(src.detach(),
+                                                     group=group))
+    xs = torch.from_numpy(a["moe_x"][:n * MOE_T])
+    for layout, x in (("sharded", xs[r * MOE_T:(r + 1) * MOE_T]),
+                      ("replicated", xs)):
+        for p in layer.parameters():
+            p.grad = None
+        collective.comm_stats(reset=True)
+        out = layer(x)
+        res["a2a_bytes"].append(collective.comm_stats()["bytes"])
+        aux = layer.aux_loss
+        if layout == "sharded":
+            loss = (out ** 2).sum() / (n * out.numel()) + 0.01 * aux / n
+        else:
+            loss = ((out ** 2).mean() + 0.01 * aux) / n
+        loss.backward()
+        res[layout] = {"out": _np(out), "aux": float(aux),
+                       "gw_grad": _np(layer.gate_weight.grad),
+                       "w1_grad": _np(torch.cat(collective._gather(
+                           layer.w1.grad, group), 0))}
+    return res
+
+
+def _moe_fleet_run(a):
+    """dp = 2 x mp = 2: the fleet-mode net (experts split over mp) from
+    the whole weights, `MOE_FLEET_STEPS` ``build_train_step`` steps (SGD
+    0.01, MSE), the losses and the weights gathered whole."""
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import MoELayer
+    from paddle_tpu_torch.inference.weights import (full_state_dict,
+                                                    shard_state_dict)
+
+    fleet, hcg = _fleet(dp=2, mp=2)
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.moe = MoELayer(8, 16, 4, k=2, capacity_factor=4.0,
+                                ep_axis="mp", device="cpu")
+            self.head = nn.Linear(8, 4, device="cpu")
+
+        def forward(self, x):
+            return self.head(self.moe(x))
+
+    net = Net()
+    res = {"w1_local_shape": list(net.moe.w1.shape),
+           "missing": shard_state_dict(net, {
+               k[len("moef."):]: v for k, v in a.items()
+               if k.startswith("moef.")})}
+    step = fleet.build_train_step(net, _mse, optimizer.SGD(
+        0.01, parameters=net.parameters()))
+    res["losses"] = [float(step(torch.from_numpy(a["moef_x"][t]),
+                                torch.from_numpy(a["moef_y"][t])))
+                     for t in range(MOE_FLEET_STEPS)]
+    res["params"] = {k: _np(v) for k, v in full_state_dict(net).items()}
+    return res
 
 
 def _tp_mlp(a, group=None):
@@ -243,6 +369,7 @@ def tp_worker(out):
     res["restored_shards"] = {k: _np(v) for k, v in
                               model3.state_dict().items()}
     res["restored_logits"] = _np(model3(torch.from_numpy(batches[0][0])))
+    res["moe_ep"] = _moe_ep_checks(a)
     _dump(out, r, res)
 
 
@@ -521,6 +648,8 @@ def pipe_worker(out):
     set_hybrid_communicate_group(hcg3)
     res["ring4"] = _ring_checks(a, hcg3, "ring4", ring_attention)
     res["dpmp"] = _dpmp_checks(a)
+    res["moe_ep"] = _moe_ep_checks(a)
+    res["moe_fleet"] = _moe_fleet_run(a)
     _dump(out, g, res)
 
 
