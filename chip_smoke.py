@@ -8,6 +8,8 @@
     python3 chip_smoke.py --eager     # phases 1-2, 4 and 17 only
     python3 chip_smoke.py --dist      # phases 1-2, 4 and 18 only
     python3 chip_smoke.py --hybrid    # phases 1-2, 4 and 19 only
+    python3 chip_smoke.py --moe-ps    # phases 1-2, 4 and 20 only
+    python3 chip_smoke.py --tensor-api  # phases 1-2 and 21 only
 
 (``--durability-child`` is phase 13's own child process,
 ``--fleet-child`` phase 16's replica, ``--acp-child`` phase 18's
@@ -297,7 +299,23 @@ Phases, in order; any failure exits non-zero:
    merged deltas (`PS_GEO_TOL`); for each part ms a step, the
    collectives' or the PS round trip's share, bytes moved and peak
    memory a rank;
-21. report — one JSON line of kernels, the card line, and the last line
+21. tensor-api — the port's functional tensor API and nn's activations,
+   losses and norms (`tensor_api_phase`): (a) the op tables of
+   ``tests/torch_op_tables.py`` (the CPU parity tests' own) on the card
+   against the port on the CPU, elementwise ops and reductions on
+   `TA_STREAM` in f32 and in bf16 under ``auto_cast``, scans, sorts and
+   searches on the logits `TA_LOGITS`, linear algebra at `TA_LINALG` (a
+   decomposition held by the CPU tests' own invariants,
+   ``torch_op_tables.linalg_excess``), the norms on `TA_NORMS` (ResNet's
+   first stage), each within `TA_TOL`; (b) every creation and random op,
+   ``to_tensor`` and a new layer without a place on the current card
+   (cuda:0; cuda:1 after ``torch.cuda.set_device(1)`` where there is a
+   second card), on the CPU after ``set_device("cpu")``; (c) `TA_DRAWS` draws of each distribution:
+   moments, Kolmogorov-Smirnov and chi-square tests, and ``paddle.seed``
+   repeating a draw; (d) ``nn.LayerNorm(768)`` and ``F.layer_norm`` under
+   ``FLAGS_use_pallas_layernorm`` on [16384, 768]: K5 launched once a call,
+   within `LN_TOL`; a few op times with the card line;
+22. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -305,6 +323,7 @@ imports nothing of JAX.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -5899,6 +5918,440 @@ def moe_ps_launches(moe_ps, kern) -> dict:
             for r, row in enumerate(run["by_rank"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the functional tensor API and nn's activations, losses, norms
+# ---------------------------------------------------------------------------
+# the op tables of tests/torch_op_tables.py (the CPU parity tests' own) at
+# GPT-2-small widths: elementwise ops and reductions on the residual
+# stream, search on the logits, linear algebra on a projection and on a
+# layer's per-head blocks, the norms on ResNet's first stage
+TA_STREAM = (8, 1024, 768)
+TA_LOGITS = (8, 50304)
+TA_LINALG = ((768, ()), (64, (12,)))
+TA_NORMS = (32, 256, 56, 56)
+TA_DRAWS = 2 ** 24
+TA_LN_ROWS, TA_LN_STEPS = 16384, 3
+TA_CPU_THREADS = 4
+# the card against the port on the CPU, by family and dtype, (rtol, atol):
+# f32 elementwise ops are one rounding of one formula through another
+# math library (CUDA's libdevice: a few ulps), special functions the CPU
+# tests' bound; a reduction sums in another order (a tree on the card,
+# cascades or a sequence on the CPU): rtol 1e-4 and an absolute 1e-4,
+# which a row's ``acc`` scales by the n terms behind one output: by
+# sqrt(n) for a sum or scan of O(1) terms (random-walk partial sums of
+# size sqrt(n), rounded at eps each), by 1/sqrt(n) for a mean, var or
+# std (that sum over n), not at all for a selection (max, median,
+# quantile), a product or a log-sum; bf16 results round the same f32 value to bf16 on
+# both sides and may sit across a rounding edge: two bf16 ulps (2**-6
+# relative); linear algebra, LAPACK against cuSOLVER at n = 768 with
+# condition ~3: n eps cond ~ 1.4e-4, held at 1e-3; the norms' statistics
+# sum 1e5 terms a channel: 1e-4 on their O(1) outputs
+TA_TOL = {"float32": {"ew": (1e-5, 1e-6), "special": (1e-5, 5e-6),
+                      "reduce": (1e-4, 1e-4), "linalg": (1e-3, 1e-3),
+                      "norm": (1e-4, 1e-4)},
+          "bfloat16": {"ew": (2.0 ** -6, 1e-5), "special": (2.0 ** -6, 1e-5),
+                       "reduce": (2.0 ** -6, 1e-4)}}
+
+
+def _op_tables():
+    """tests/torch_op_tables.py, beside this script (loaded from its
+    file: ``sys.path`` stays as it was)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_op_tables.py"
+    spec = importlib.util.spec_from_file_location("torch_op_tables", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ta_excess(torch, got, ref, family, dtype, n_terms=1, acc=None):
+    """How far ``got`` (card) is beyond its tolerance of ``ref`` (CPU):
+    max(|d| - atol - rtol |ref|) over the elements, <= 0 within it (NaN
+    matching NaN); exact families must be equal.  ``acc`` scales atol by
+    the ``n_terms`` behind one output (see `TA_TOL`)."""
+    got, ref = got.detach(), ref.detach().to(got.device)
+    if got.shape != ref.shape:
+        return float("inf")
+    if family == "exact" or not ref.is_floating_point():
+        return 0.0 if torch.equal(got, ref) else float("inf")
+    g, r = got.double(), ref.double()
+    both_nan = torch.isnan(g) & torch.isnan(r)
+    rtol, atol = TA_TOL[dtype][family]
+    if acc == "sum":
+        atol *= math.sqrt(n_terms)
+    elif acc == "mean":
+        atol /= math.sqrt(n_terms)
+    d = torch.where(both_nan, 0.0, (g - r).abs() - atol - rtol * r.abs())
+    return float(torch.nan_to_num(d, nan=float("inf")).max()) \
+        if d.numel() else 0.0
+
+
+def _ta_terms(op, kw, shape):
+    """The number of input elements behind one output of a reduction or
+    scan (all of them without an axis)."""
+    axis = kw.get("axis", kw.get("dim"))
+    if axis is None and op.family == "reduce" and op.name not in (
+            "cumsum", "cumprod"):
+        return math.prod(shape)
+    axes = axis if isinstance(axis, (list, tuple)) else [-1 if axis is None
+                                                          else axis]
+    return math.prod(shape[a] for a in axes)
+
+
+def _ta_card_vs_cpu(torch, T, tab, op, inputs, shape, dtype, pool):
+    """``op`` of the port on the card and on the CPU (``inputs(device,
+    dtype)``: the op's inputs there, float ones in ``dtype``; ``auto_cast``
+    for "bfloat16"); the worst excess over its variants' outputs.  The
+    CPU variants run on ``pool``'s threads, beside the card's (a sort or a
+    selection over one row keeps a single core busy)."""
+    def run(device, v):
+        xs = inputs(device, dtype)
+        with T.amp.auto_cast(enable=dtype == "bfloat16", dtype="bfloat16"):
+            return tab.flat(op.fn(T)(*xs, **dict(op.kw, **v)))
+
+    cpu = [pool.submit(run, "cpu", v) for v in op.variants]
+    card = [run("cuda", v) for v in op.variants]
+    worst = -float("inf")
+    for v, gs, rs in zip(op.variants, card, cpu):
+        n = _ta_terms(op, dict(op.kw, **v), shape)
+        for g, r in zip(gs, rs.result()):
+            worst = max(worst, _ta_excess(torch, g, r, op.family, dtype, n,
+                                          op.acc))
+    return worst
+
+
+def _ta_linalg_check(tab, op, got, ref, a):
+    """Hold a card decomposition by its invariants against the CPU's
+    (`torch_op_tables.linalg_excess`, the CPU tests' own checker): the
+    worst excess over them."""
+    def host(ts):
+        return [t.detach().cpu().numpy() for t in ts]
+
+    return max(tab.linalg_excess(op.check, host(got), host(ref),
+                                 a.numpy(), *TA_TOL["float32"]["linalg"])
+               .values())
+
+
+def _ta_table_inputs(torch, rng, shape):
+    """``inputs_of(op) -> (inputs(device, dtype), cpu tensors)``: one draw
+    of each input kind (a draw an argument position) for a whole table,
+    placed once on each device and in each dtype (floats only)."""
+    drawn, placed = {}, {}
+
+    def inputs_of(op):
+        keys = [(kind, i) for i, kind in enumerate(op.ins)]
+        for key in keys:
+            if key not in drawn:
+                drawn[key] = torch.from_numpy(key[0](rng, shape))
+
+        def inputs(device, dtype):
+            for key in keys:
+                if key + (device, dtype) not in placed:
+                    t = drawn[key].to(device)
+                    placed[key + (device, dtype)] = t.to(
+                        getattr(torch, dtype)) if t.is_floating_point() else t
+            return [placed[key + (device, dtype)] for key in keys]
+        return inputs, [drawn[k] for k in keys]
+    return inputs_of
+
+
+def _ta_linalg_rows(torch, T, tab, rng, pool, record):
+    for n, batch in TA_LINALG:
+        cases = [(op, [torch.from_numpy(a)
+                       for a in op.inputs(rng, n, batch)])
+                 for op in tab.LINALG]
+        refs = [pool.submit(lambda op, xs: tab.flat(op.fn(T)(*xs, **op.kw)),
+                            op, xs) for op, xs in cases]
+        for (op, xs), ref in zip(cases, refs):
+            got = tab.flat(op.fn(T)(*[x.cuda() for x in xs], **op.kw))
+            record("linalg", f"{op.ns}.{op.label}".lstrip("."), "float32",
+                   _ta_linalg_check(tab, op, got, ref.result(), xs[0]),
+                   list(xs[0].shape))
+
+
+def _ta_norm_rows(torch, T, tab, rng, record):
+    import numpy as np
+
+    x = tab.normal(rng, TA_NORMS)
+    for op in tab.NORMS:
+        outs = {}
+        for device in ("cuda", "cpu"):
+            args, kw = tab.norm_args(
+                op, x, np.random.default_rng(SEED),
+                lambda a: torch.from_numpy(a).to(device))
+            out = op.fn(T)(torch.from_numpy(x).to(device), *args,
+                           **dict(op.kw, **kw))
+            outs[device] = [out] + [a for a in args
+                                    if isinstance(a, torch.Tensor)]
+        record("norm", op.label, "float32", max(
+            _ta_excess(torch, g, r, "norm", "float32")
+            for g, r in zip(outs["cuda"], outs["cpu"])), TA_NORMS)
+
+
+def tensor_api_tables(torch, T, tab, rng):
+    """Part (a): each row of the op tables on the card against the port on
+    the CPU, within `TA_TOL`.  The CPU references that hold one core each
+    (a sort over one row, a LAPACK factorization) run on `TA_CPU_THREADS`
+    threads beside the card's work."""
+    rows, seconds = [], {}
+
+    def record(family, label, dtype, excess, shape):
+        rows.append(dict(family=family, op=label, dtype=dtype,
+                         shape=list(shape), excess=float(excess),
+                         ok=bool(excess <= 0)))
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(TA_CPU_THREADS) as pool:
+        for family, table, shape in (
+                ("elementwise", tab.ELEMENTWISE, TA_STREAM),
+                ("reduction", tab.REDUCTIONS, TA_STREAM),
+                ("search", tab.SEARCH, TA_LOGITS)):
+            seconds[family] = -time.perf_counter()
+            inputs_of = _ta_table_inputs(torch, rng, shape)
+            for op in table:
+                inputs, tensors = inputs_of(op)
+                floats = any(t.dtype == torch.float32 for t in tensors)
+                for dtype in ["float32"] + (
+                        ["bfloat16"] if family != "search" and floats
+                        else []):
+                    record(family, op.label, dtype, _ta_card_vs_cpu(
+                        torch, T, tab, op, inputs, shape, dtype, pool),
+                        shape)
+            seconds[family] += time.perf_counter()
+        seconds["linalg"] = -time.perf_counter()
+        _ta_linalg_rows(torch, T, tab, rng, pool, record)
+        seconds["linalg"] += time.perf_counter()
+    seconds["norm"] = -time.perf_counter()
+    _ta_norm_rows(torch, T, tab, rng, record)
+    seconds["norm"] += time.perf_counter()
+    print("tensor api (a) seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    bad = [f"{r['family']} {r['op']} {r['dtype']} {r['shape']} (excess "
+           f"{r['excess']:.3g})" for r in rows if not r["ok"]]
+    if bad:
+        fail(f"phase 21 (a): beyond tolerance: {'; '.join(bad)}")
+    return rows
+
+
+def tensor_api_devices(torch, T):
+    """Part (b): every creation and random op, ``to_tensor`` and a new
+    layer's parameters and buffers, without a place, land on the current
+    card (cuda:0 here), on the CPU after ``set_device("cpu")``, and, where
+    the machine has a second card, on cuda:1 after
+    ``torch.cuda.set_device(1)`` (as a launched rank sets its card); an op
+    over a tensor keeps its device.  The expected device is restored."""
+    from paddle_tpu_torch.core import place as tplace
+
+    made = {
+        "zeros": lambda: T.zeros([2, 3]), "ones": lambda: T.ones([2]),
+        "full": lambda: T.full([2], 1.5), "empty": lambda: T.empty([2]),
+        "arange": lambda: T.arange(5), "linspace": lambda: T.linspace(0, 1, 3),
+        "logspace": lambda: T.logspace(0, 1, 3), "eye": lambda: T.eye(3),
+        "assign": lambda: T.assign([1.0, 2.0]),
+        "to_tensor": lambda: T.to_tensor([1, 2]),
+        "uniform": lambda: T.uniform([4]), "rand": lambda: T.rand([4]),
+        "normal": lambda: T.normal(0.0, 1.0, [4]),
+        "gaussian": lambda: T.gaussian([4]), "randn": lambda: T.randn([4]),
+        "standard_normal": lambda: T.standard_normal([4]),
+        "randint": lambda: T.randint(0, 5, [4]),
+        "randperm": lambda: T.randperm(6),
+        "nn.Linear.weight": lambda: T.nn.Linear(4, 4).weight,
+        "nn.BatchNorm2D._mean": lambda: T.nn.BatchNorm2D(4)._mean,
+    }
+    keeps = {"zeros_like": T.zeros_like, "full_like":
+             lambda x: T.full_like(x, 2.0), "randint_like":
+             lambda x: T.randint_like(x, 0, 3), "normal_like": T.normal_like,
+             "bernoulli": lambda x: T.bernoulli(x * 0 + 0.5),
+             "shuffle": T.shuffle}
+    card = f"cuda:{torch.cuda.current_device()}"
+    settings = [("default", None, card), ("cpu", "cpu", "cpu")]
+    if torch.cuda.device_count() >= 2:
+        settings.append(("current card 1", 1, "cuda:1"))
+    res = {}
+    prev = tplace._EXPECTED_DEVICE[0]
+    for place, setting, want in settings:
+        tplace._EXPECTED_DEVICE[0] = None
+        try:
+            if setting == "cpu":
+                T.set_device("cpu")
+            elif setting is not None:
+                torch.cuda.set_device(setting)
+            got = {k: str(fn().device) for k, fn in made.items()}
+            x = torch.ones(4, device=card)
+            got.update({k: str(fn(x).device) for k, fn in keeps.items()})
+        finally:
+            tplace._EXPECTED_DEVICE[0] = prev
+            torch.cuda.set_device(int(card[5:]))
+        want_of = {k: (card if k in keeps else want) for k in got}
+        bad = {k: v for k, v in got.items() if v != want_of[k]}
+        if bad:
+            fail(f"phase 21 (b) {place}: tensors on the wrong device: {bad}")
+        res[place] = got
+    print(f"tensor api (b): {len(made)} creation and random ops, to_tensor "
+          f"and new layers land on the current card by default "
+          f"({', '.join(w for p, _, w in settings if p != 'cpu')}) and on "
+          f"the CPU after set_device('cpu'); {len(keeps)} ops over a card "
+          "tensor stay on it", flush=True)
+    return res
+
+
+def tensor_api_random(torch, T):
+    """Part (c): 2**24 draws of each distribution on the card: moments
+    within 5 standard errors, a Kolmogorov-Smirnov test against the
+    uniform and normal CDFs and chi-square tests of the discrete draws at
+    p > 1e-4 (fixed seeds: the p-values are the card's, fixed); the same
+    ``paddle.seed`` repeats a draw on the card, another seed changes it."""
+    import numpy as np
+    import scipy.stats
+
+    n = TA_DRAWS
+    res = {}
+    T.seed(SEED)
+
+    def normal_cdf(mean, std):
+        return lambda x: 0.5 * (1 + torch.erf((x - mean) / (std * 2 ** 0.5)))
+
+    def ks_pvalue(x, cdf):
+        """The one-sample Kolmogorov-Smirnov p-value of ``x`` against
+        ``cdf``; the sort and the statistic in f64 on the card."""
+        f = cdf(torch.sort(x).values)
+        i = torch.arange(1, n + 1, device=x.device, dtype=torch.float64)
+        d = max(float((i / n - f).max()), float((f - (i - 1) / n).max()))
+        return float(scipy.stats.kstwo.sf(d, n))
+
+    checks = {
+        "uniform": (lambda: T.uniform([n], min=-2.0, max=3.0), 0.5, 25 / 12,
+                    lambda x: (x + 2.0) / 5.0),
+        "randn": (lambda: T.randn([n]), 0.0, 1.0, normal_cdf(0.0, 1.0)),
+        "normal": (lambda: T.normal(1.0, 2.0, [n]), 1.0, 4.0,
+                   normal_cdf(1.0, 2.0)),
+    }
+    for name, (draw, mean, var, cdf) in checks.items():
+        x = draw().double()
+        m, v = float(x.mean()), float(x.var())
+        ks = ks_pvalue(x, cdf)
+        ok = (abs(m - mean) <= 5 * math.sqrt(var / n)
+              and abs(v - var) <= 5 * var * math.sqrt(2 / n) and ks > 1e-4)
+        res[name] = dict(mean=m, var=v, ks_p=ks, ok=bool(ok))
+        if not ok:
+            fail(f"phase 21 (c) {name}: mean {m} var {v} KS p {ks}")
+    discrete = {
+        "randint": (lambda: T.randint(0, 10, [n]), [0.1] * 10),
+        "bernoulli": (lambda: T.bernoulli(T.full([n], 0.3)), [0.7, 0.3]),
+        "multinomial": (lambda: T.multinomial(T.to_tensor(
+            [0.1, 0.2, 0.3, 0.4]), n), [0.1, 0.2, 0.3, 0.4]),
+        "poisson": (lambda: torch.clamp(T.poisson(T.full([n], 3.0)), max=9),
+                    [scipy.stats.poisson(3.0).pmf(k) for k in range(9)]
+                    + [scipy.stats.poisson(3.0).sf(8)]),
+    }
+    for name, (draw, p) in discrete.items():
+        counts = torch.bincount(draw().long(), minlength=len(p)).cpu().numpy()
+        chi = float(scipy.stats.chisquare(counts, np.asarray(p) * n).pvalue)
+        res[name] = dict(counts=counts.tolist(), chi2_p=chi,
+                         ok=bool(chi > 1e-4))
+        if chi <= 1e-4:
+            fail(f"phase 21 (c) {name}: chi-square p {chi} ({counts})")
+    T.seed(SEED + 1)
+    a = T.randn([1024])
+    T.seed(SEED + 1)
+    b = T.randn([1024])
+    T.seed(SEED + 2)
+    c = T.randn([1024])
+    if not torch.equal(a, b) or torch.equal(a, c):
+        fail("phase 21 (c): paddle.seed does not repeat a draw on the card")
+    res["seed_repeats"] = True
+    print(f"tensor api (c): {TA_DRAWS} draws each: " + ", ".join(
+        f"{k} p={v.get('ks_p', v.get('chi2_p')):.3g}" for k, v in res.items()
+        if isinstance(v, dict)) + "; the same seed repeats a draw",
+        flush=True)
+    return res
+
+
+def tensor_api_layer_norm(torch, T):
+    """Part (d): ``nn.LayerNorm(768)`` and ``nn.functional.layer_norm`` under
+    ``FLAGS_use_pallas_layernorm`` on [16384, 768]: K5 launched once a call
+    (counted from 0 over the path's run), each output within `LN_TOL` of
+    the plain version."""
+    from paddle_tpu_torch.core import flags as tflags
+    from paddle_tpu_torch.ops.layer_norm import layer_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(TA_LN_ROWS, 768, generator=gen, device="cuda") * 2 + 0.5
+    ln = T.nn.LayerNorm(768)
+    with torch.no_grad():
+        ln.weight.copy_(1 + 0.1 * torch.randn(768, generator=gen,
+                                              device="cuda"))
+        ln.bias.copy_(0.1 * torch.randn(768, generator=gen, device="cuda"))
+    tflags.set_flags({"use_pallas_layernorm": True})
+    try:
+        with torch.no_grad():
+            reset_counts()
+            outs = [ln(x) for _ in range(TA_LN_STEPS)]
+            outs.append(T.nn.functional.layer_norm(x, 768, ln.weight,
+                                                   ln.bias))
+            torch.cuda.synchronize()
+            launches = read_counts()["layer_norm"]
+            ref = layer_norm(x, ln.weight, ln.bias, 1e-5)
+    finally:
+        tflags.set_flags({"use_pallas_layernorm": False})
+    tol = LN_TOL["float32"]
+    err = max(float((o - ref).abs().max()) for o in outs)
+    want = TA_LN_STEPS + 1
+    if launches != want:
+        fail(f"phase 21 (d): K5 launched {launches} times through "
+             f"nn.LayerNorm and F.layer_norm, want {want}")
+    if err > tol["abs"]:
+        fail(f"phase 21 (d): K5 through nn.LayerNorm beyond {tol}: {err}")
+    print(f"tensor api (d): nn.LayerNorm(768) x {TA_LN_STEPS} and "
+          f"F.layer_norm on [{TA_LN_ROWS}, 768] under the flag: K5 "
+          f"launched {launches} times, max_abs_err {err:.3g}", flush=True)
+    return dict(launches=launches, max_abs_err=err, calls=want)
+
+
+def tensor_api_phase(torch):
+    """Phase 21: the op tables on the card against the CPU (a), the device
+    default (b), random draws (c), K5 through ``nn.LayerNorm`` (d); a few
+    op times printed with the card line."""
+    import numpy as np
+
+    import paddle_tpu_torch as T
+
+    tab = _op_tables()
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    rows = tensor_api_tables(torch, T, tab, rng)
+    tables_s = time.perf_counter() - t0
+    by_family = {}
+    for r in rows:
+        by_family.setdefault(f"{r['family']} {r['dtype']}", []).append(r)
+    print("tensor api (a): " + "; ".join(
+        f"{k}: {len(v)} ops, worst excess {max(r['excess'] for r in v):.3g}"
+        for k, v in by_family.items()) + f" ({tables_s:.1f} s)", flush=True)
+    x = torch.randn(*TA_STREAM, device="cuda")
+    logits = torch.randn(*TA_LOGITS, device="cuda")
+    img = torch.randn(*TA_NORMS, device="cuda")
+    rm = torch.zeros(TA_NORMS[1], device="cuda")
+    rv = torch.ones(TA_NORMS[1], device="cuda")
+    timed = {
+        f"add f32 {list(TA_STREAM)}": lambda: T.add(x, x),
+        f"sum axis=-1 f32 {list(TA_STREAM)}": lambda: T.sum(x, axis=-1),
+        f"topk k=5 f32 {list(TA_LOGITS)}": lambda: T.topk(logits, 5),
+        f"batch_norm train f32 {list(TA_NORMS)}":
+            lambda: T.nn.functional.batch_norm(img, rm, rv, training=True)}
+    times = {k: time_ms(torch, fn, reps=10) for k, fn in timed.items()}
+    del x, logits, img
+    card = card_line()
+    print(f"tensor api op ms on {card}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    res = dict(tables=rows, tables_s=tables_s, op_ms=times, card=card,
+               devices=tensor_api_devices(torch, T),
+               random=tensor_api_random(torch, T),
+               layer_norm=tensor_api_layer_norm(torch, T))
+    return res
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -5906,7 +6359,8 @@ def main(argv) -> int:
     copy this script into its root and run it there).  ``--mesh``,
     ``--fleet``, ``--eager``, ``--dist``, ``--hybrid``, ``--moe-ps``: the
     serve of 4 and phase 15, 16, 17, 18, 19 or 20, into chiprun_out/
-    chip_smoke_<mode>.json."""
+    chip_smoke_<mode>.json; ``--tensor-api``: the build and phase 21 alone,
+    into chiprun_out/chip_smoke_tensor_api.json."""
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -5916,11 +6370,13 @@ def main(argv) -> int:
     dist_only = argv == ["--dist"]
     hybrid_only = argv == ["--hybrid"]
     moe_ps_only = argv == ["--moe-ps"]
+    tensor_api_only = argv == ["--tensor-api"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
     acp_kid = argv[:1] == ["--acp-child"] and len(argv) == 4
     if argv and not (kernels_only or mesh_only or fleet_only or eager_only
-                     or dist_only or hybrid_only or moe_ps_only or child
+                     or dist_only or hybrid_only or moe_ps_only
+                     or tensor_api_only or child
                      or fleet_kid or acp_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -5950,6 +6406,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     libs = _build.build_all(["paged_attention"]
                             if kernels_only or mesh_only or fleet_only
+                            else ["layer_norm"] if tensor_api_only
                             else None)
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
@@ -6015,6 +6472,17 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_moe_ps.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if tensor_api_only:
+        t0 = time.perf_counter()
+        res = dict(card=card, tensor_api=tensor_api_phase(torch))
+        print(f"phase 21 tensor-api: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_tensor_api.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -6110,7 +6578,10 @@ def main(argv) -> int:
     # 20. expert parallelism, the parameter server, the data feed
     moe_ps = timed("20 moe-ps", moe_ps_phase, torch)
 
-    # 21. report
+    # 21. the functional tensor API and nn's activations, losses and norms
+    tensor_api = timed("21 tensor-api", tensor_api_phase, torch)
+
+    # 22. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -6199,7 +6670,8 @@ def main(argv) -> int:
         launches_by_path=dict(
             train_layer_norm=train_ln["launches"]["layer_norm"],
             eager_step_layer_norm=eager["eager_vs_train_step"][
-                "k5_step_launches"]["layer_norm"]),
+                "k5_step_launches"]["layer_norm"],
+            tensor_api_nn_layer_norm=tensor_api["layer_norm"]["launches"]),
         **{k: ln_head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
         timed_case=f"train {path_dtype} [16384, 768]",
@@ -6212,7 +6684,8 @@ def main(argv) -> int:
                   serve_legacy=legacy, serve_reliability=reliability,
                   telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
                   train=train, train_layer_norm=train_ln, eager=eager,
-                  dist=distp, hybrid=hybrid, moe_ps=moe_ps)
+                  dist=distp, hybrid=hybrid, moe_ps=moe_ps,
+                  tensor_api=tensor_api)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

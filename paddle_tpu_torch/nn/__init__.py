@@ -3,9 +3,8 @@
 from . import functional, initializer
 from ..utils.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                           ClipGradByValue)
-from .layer import (CrossEntropyLoss, Dropout, Embedding, Layer, LayerList,
-                    LayerNorm, Linear)
+from .layer import *  # noqa: F401,F403
+from . import layer as _layer
 
-__all__ = ["functional", "initializer", "Layer", "Linear", "Embedding",
-           "Dropout", "LayerNorm", "LayerList", "CrossEntropyLoss",
-           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+__all__ = (["functional", "initializer", "ClipGradByValue", "ClipGradByNorm",
+            "ClipGradByGlobalNorm"] + _layer.__all__)

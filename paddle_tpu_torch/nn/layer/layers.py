@@ -14,20 +14,11 @@ import torch
 from torch import nn
 
 from ...core import dtype as dtype_mod
+from ...core.place import to_device
 from ...core.tensor import from_numpy
 from ...framework.param_attr import ParamAttr
 
-__all__ = ["Layer", "layer_device"]
-
-
-def layer_device(device):
-    """The device a layer's parameters are made on: "meta" as is, None
-    the default device (`device.default_device`)."""
-    from ...device import resolve_device
-
-    if device is not None and torch.device(device).type == "meta":
-        return torch.device("meta")
-    return resolve_device(device)
+__all__ = ["Layer"]
 
 
 class Layer(nn.Module):
@@ -49,7 +40,7 @@ class Layer(nn.Module):
                              "handles it before create_parameter")
         initializer = attr.initializer or default_initializer
         p = nn.Parameter(initializer._init(shape, dtype,
-                                           layer_device(device)),
+                                           to_device(device)),
                          requires_grad=attr.trainable)
         p.optimize_attr = {"learning_rate": attr.learning_rate}
         p.regularizer = attr.regularizer

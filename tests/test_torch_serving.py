@@ -327,7 +327,8 @@ bad = sorted(m for m in sys.modules
 # telemetry plane, the serving mesh, the port's telemetry tools, the
 # sanitizer, the fleet, the eager core and training, the data-
 # parallel training, profiler and auto-checkpoint modules, and the
-# hybrid-parallel ones
+# hybrid-parallel ones, and the functional tensor API with nn's
+# activations, losses and norms
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -405,7 +406,23 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.io.worker",
                        "paddle_tpu_torch.parallel.pipeline",
                        "paddle_tpu_torch.parallel.ring_attention",
-                       "paddle_tpu_torch.models.gpt_spmd")
+                       "paddle_tpu_torch.models.gpt_spmd",
+                       "paddle_tpu_torch.linalg",
+                       "paddle_tpu_torch.ops._util",
+                       "paddle_tpu_torch.ops.creation",
+                       "paddle_tpu_torch.ops.math",
+                       "paddle_tpu_torch.ops.manipulation",
+                       "paddle_tpu_torch.ops.logic",
+                       "paddle_tpu_torch.ops.search",
+                       "paddle_tpu_torch.ops.stat",
+                       "paddle_tpu_torch.ops.random",
+                       "paddle_tpu_torch.ops.linalg",
+                       "paddle_tpu_torch.nn.functional.activation",
+                       "paddle_tpu_torch.nn.functional.loss",
+                       "paddle_tpu_torch.nn.functional.norm",
+                       "paddle_tpu_torch.nn.layer.activation",
+                       "paddle_tpu_torch.nn.layer.loss",
+                       "paddle_tpu_torch.nn.layer.norm")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)
@@ -415,6 +432,36 @@ sys.exit(1 if bad or missing else 0)
 def test_import_loads_neither_jax_nor_paddle_tpu():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+_TENSOR_GUARD = """
+import torch
+before = dict(vars(torch.Tensor))
+names = set(dir(torch.Tensor))
+import paddle_tpu_torch
+after = vars(torch.Tensor)
+changed = sorted(k for k, v in before.items() if after.get(k) is not v)
+added = sorted(set(dir(torch.Tensor)) - names)
+from paddle_tpu_torch.ops import _TENSOR_METHODS
+x = torch.arange(6.).reshape(2, 3)
+assert x.gather_nd(torch.tensor([[1, 2]])).tolist() == [5.0]
+assert [t.tolist() for t in x.unstack()] == [[0., 1., 2.], [3., 4., 5.]]
+print(changed, added)
+raise SystemExit(1 if changed or not set(added) <= set(_TENSOR_METHODS)
+                 else 0)
+"""
+
+
+def test_import_replaces_no_tensor_attribute():
+    """After ``import paddle_tpu_torch`` every attribute ``torch.Tensor``
+    had is the same object (no torch method or operator is replaced); the
+    only new names are the Paddle methods torch lacks
+    (``ops._TENSOR_METHODS``)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", _TENSOR_GUARD], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -86,9 +86,27 @@ def test_cross_entropy_matches_jax(dtype, reduction):
 
 
 def test_cross_entropy_unported_forms_raise():
-    x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TFn.cross_entropy(x, torch.zeros(2, 4), soft_label=True)
+    """The forms an earlier slice left unported and raised on (soft
+    labels, ``use_softmax=False``, class weights) now run and match the
+    JAX package (f32, 1e-5); ``tests/test_torch_nn_functional.py`` holds
+    every loss."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(3, 4).astype(np.float32)
+    p = np.abs(x) / np.abs(x).sum(-1, keepdims=True)
+    y = np.array([1, 3, 0])
+    w = rng.rand(4).astype(np.float32)
+    for kw, logits, lbl in ((dict(soft_label=True), x, p),
+                            (dict(use_softmax=False), p, y),
+                            (dict(weight=w), x, y)):
+        jkw = dict(kw, weight=paddle.to_tensor(w)) if "weight" in kw \
+            else kw
+        tkw = dict(kw, weight=torch.from_numpy(w)) if "weight" in kw \
+            else kw
+        want = JFn.cross_entropy(paddle.to_tensor(logits),
+                                 paddle.to_tensor(lbl), **jkw).numpy()
+        got = TFn.cross_entropy(torch.from_numpy(logits),
+                                torch.from_numpy(lbl), **tkw)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
