@@ -10,6 +10,7 @@
     python3 chip_smoke.py --hybrid    # phases 1-2, 4 and 19 only
     python3 chip_smoke.py --moe-ps    # phases 1-2, 4 and 20 only
     python3 chip_smoke.py --tensor-api  # phases 1-2 and 21 only
+    python3 chip_smoke.py --nn        # phases 1-2 and 22 only
 
 (``--durability-child`` is phase 13's own child process,
 ``--fleet-child`` phase 16's replica, ``--acp-child`` phase 18's
@@ -315,7 +316,23 @@ Phases, in order; any failure exits non-zero:
    repeating a draw; (d) ``nn.LayerNorm(768)`` and ``F.layer_norm`` under
    ``FLAGS_use_pallas_layernorm`` on [16384, 768]: K5 launched once a call,
    within `LN_TOL`; a few op times with the card line;
-22. report — one JSON line of kernels, the card line, and the last line
+22. nn — the rest of nn at full width (`nn_phase`): (a) BERT-base
+   pretraining (`models.bert`, bert-base-uncased's widths) for 3 bf16
+   AdamW steps of 16 x 512 through ``jit.TrainStep`` (ms a step, tokens/s,
+   peak memory; its masked attention composed, K3/K4 launched 0 times),
+   step 1's f32 loss at 2 x 128 within `NN_BERT_LOSS_RTOL` of the CPU's;
+   (b) the unmasked pre-norm ``nn.TransformerEncoder`` at ViT-B/16's width
+   on [64, 197, 768] bf16: output and gradients within `NN_VIT_TOL` of the
+   composed form, then 3 steps launching K3, K4's dkv and dq 12 times a
+   step each; (c) ``nn.Transformer(512, 8, 6, 6, 2048)``: one masked train
+   step (K3/K4 12 each), then ``dynamic_decode`` at beam 4 over 32 steps
+   through the decoder's caches, tokens equal to the CPU's; (d) the PTB
+   medium ``LSTM`` against the CPU, and the conv, pool and sampling tables
+   of ``tests/torch_op_tables.py`` at ResNet-50's stages (`NN_STAGES`) in
+   f32 and bf16 within `TA_TOL`; (e) ``SyncBatchNorm`` over spawned ranks
+   (two over gloo on one card, four over NCCL on four) against
+   ``BatchNorm`` on the global batch;
+23. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -6352,6 +6369,608 @@ def tensor_api_phase(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the rest of nn at full width
+# ---------------------------------------------------------------------------
+NN_ROOT = Path("build") / "chip_smoke_nn"
+# (a) BERT-base pretraining (BertConfig()'s defaults: bert-base-uncased):
+# batch 16 x 512 with 80 masked positions a row (15% of 512, rounded up to
+# a multiple of 16), 3 AdamW steps under bf16 auto_cast.  In f32 at 2 x
+# 128 (20 masks), dropout off, the card against the port on the CPU: the
+# loss before each of NN_BERT_F32_STEPS AdamW steps within 1e-4 relative
+# (the two sum each product in another order over 12 layers, ~1e-6 of an
+# O(10) loss), and the first step's parameter update within
+# NN_BERT_UPDATE_TOL (relative norm): Adam's first update is
+# lr * g / (|g| + eps), elementwise about lr * sign(g), so an element
+# whose gradient lies within the devices' rounding of 0 can move 2 lr the
+# other way; 1e-2 allows 2.5e-5 of the elements to flip.  The same
+# 16 x 512 steps at each (lr, dropout, bf16 auto_cast or f32) of
+# NN_BERT_CONTROLS are run beside them as controls of the loss's trend
+# (their losses are reported, not checked)
+NN_BERT = dict(batch=16, seq=512, masks=80, steps=3)
+NN_BERT_CPU = dict(batch=2, seq=128, masks=20)
+NN_BERT_LOSS_RTOL = 1e-4
+NN_BERT_F32_STEPS = 3
+NN_BERT_UPDATE_TOL = 1e-2
+NN_BERT_CONTROLS = ((1e-5, 0.1, True), (1e-4, 0.0, True),
+                    (1e-5, 0.0, True), (1e-4, 0.0, False),
+                    (1e-5, 0.0, False))
+# (b) ViT-B/16's encoder: 197 tokens (196 patches and the class token) of
+# 768, 12 pre-norm GELU layers, batch 64 in bf16; each output and gradient
+# within NN_VIT_TOL (relative norm) of the composed form on the card: the
+# kernels round p and ds to bf16 where the composed form rounds the
+# probabilities once (FLASH_TOL's 2e-2), compounded over 12 layers
+NN_VIT = (64, 197, 768)
+NN_VIT_STEPS = 3
+NN_VIT_TOL = 3e-2
+# (c) Transformer-base (512 wide, 8 heads, 6 + 6 layers, 2048), a shared
+# vocabulary of WMT14 en-de's size, one masked train step on 16 x 128, then
+# beam 4 over 32 steps at batch 2 from 32 source tokens: tokens equal to
+# the CPU's, scores within 1e-4 relative
+NN_TRANS_VOCAB = 37000
+NN_TRANS_TRAIN = (16, 128)
+NN_BEAM = dict(beam=4, steps=32, batch=2, src=32)
+NN_BEAM_SCORE_RTOL = 1e-4
+# (d) the PTB "medium" LSTM: vocabulary 10000, 650 wide, 2 layers, 35
+# steps, batch 20; and the conv, pool and sampling tables of
+# tests/torch_op_tables.py at ResNet-50's four stages, batch 4
+NN_LSTM = dict(vocab=10000, hidden=650, layers=2, steps=35, batch=20)
+NN_LSTM_GRAD_TOL = 1e-4  # f32 gradients, relative norm
+NN_STAGES = ((4, 64, 56, 56), (4, 128, 28, 28), (4, 256, 14, 14),
+             (4, 512, 7, 7))
+# (e) SyncBatchNorm over ranks on [16, 256, 28, 28] (global), each
+# channel's mean about 100 against a std of 1 (where a one-pass variance
+# cancels), against BatchNorm on the whole batch on the card, TA_TOL's
+# "norm"
+NN_SYNC_BN = (16, 256, 28, 28)
+
+
+def _rel_norm(torch, a, b):
+    """||a - b|| / ||b|| in f64."""
+    a, b = a.detach().double(), b.detach().double().to(a.device)
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _bert_batch(torch, cfg, batch, seq, masks, gen, device):
+    """Token ids with the last 32 (seq / 16) tokens of every other row
+    padding, two segments, masked positions and labels, NSP labels."""
+    v = cfg.vocab_size
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen).to(device)
+
+    ids = ints(3, v, batch, seq)
+    ids[1::2, -seq // 16:] = cfg.pad_token_id
+    types = (torch.arange(seq) >= seq // 2).long().expand(batch, seq)
+    return [ids, types.to(device).contiguous(), ints(0, seq, batch, masks),
+            ints(3, v, batch, masks), ints(0, 2, batch),
+            torch.ones(batch, masks, device=device)]
+
+
+def _bert_f32_steps(torch, T, B, cfg, device, batch, state):
+    """``NN_BERT_F32_STEPS`` f32 AdamW steps of ``cfg``'s BertForPretraining
+    on ``device`` from ``state`` (its state dict on the CPU): the losses
+    and the first step's update of every parameter (on the CPU, in
+    f64)."""
+    model = B.BertForPretraining(cfg, device=device).train()
+    _, unexpected = model.set_state_dict(state)
+    if unexpected:
+        fail(f"phase 22 (a): names BERT lacks: {unexpected}")
+    step = T.jit.TrainStep(model, B.bert_pretrain_loss_fn, dist_adamw(model))
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    losses = [float(step(*batch))]
+    update = {k: (p.detach() - before[k]).cpu().double()
+              for k, p in model.named_parameters()}
+    losses += [float(step(*batch)) for _ in range(NN_BERT_F32_STEPS - 1)]
+    return losses, update
+
+
+def _bert_card_steps(torch, T, B, cfg, batch, lr, bf16=True):
+    """``NN_BERT["steps"]`` AdamW(lr) steps under bf16 ``auto_cast`` (or
+    in f32) through ``jit.TrainStep`` on the card (seed SEED): the
+    losses, each step's seconds, the launches and the peak memory."""
+    T.seed(SEED)
+    model = B.BertForPretraining(cfg, device="cuda").train()
+
+    def loss_fn(m, *b):
+        with T.amp.auto_cast(enable=bf16, dtype="bfloat16"):
+            return B.bert_pretrain_loss_fn(m, *b)
+
+    step = T.jit.TrainStep(model, loss_fn, T.optimizer.AdamW(
+        lr, parameters=model.parameters(), weight_decay=0.01))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(NN_BERT["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del model, step
+    torch.cuda.empty_cache()
+    return losses, times, launches, peak
+
+
+def nn_bert_check(torch, T):
+    """(a) BERT-base: f32 AdamW steps at 2 x 128 on the card against the
+    same on the CPU, then 3 bf16 AdamW steps at 16 x 512 through
+    ``jit.TrainStep`` (and NN_BERT_CONTROLS' runs); the attention is the
+    composed form (BERT's additive mask), so K3/K4 launch 0 times."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import bert as B
+
+    cfg = B.BertConfig()
+    quiet = dataclasses.replace(cfg, hidden_dropout=0.0,
+                                attention_dropout=0.0)
+    gen = torch.Generator().manual_seed(SEED)
+    small = _bert_batch(torch, cfg, **NN_BERT_CPU, gen=gen, device="cpu")
+    T.seed(SEED)
+    state = {k: v.detach().cpu().clone() for k, v in B.BertForPretraining(
+        quiet, device="cuda").state_dict().items()}
+    got, d_card = _bert_f32_steps(torch, T, B, quiet, "cuda",
+                                  [t.cuda() for t in small], state)
+    torch.cuda.empty_cache()
+    want, d_cpu = _bert_f32_steps(torch, T, B, quiet, "cpu", small, state)
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if not rel <= NN_BERT_LOSS_RTOL:
+        fail(f"phase 22 (a): BERT-base f32 losses {got} on the card, {want} "
+             f"on the CPU (relative {rel:.3g} > {NN_BERT_LOSS_RTOL})")
+    num = sum(float((d_card[k] - d).pow(2).sum()) for k, d in d_cpu.items())
+    den = sum(float(d.pow(2).sum()) for d in d_cpu.values())
+    update_rel = math.sqrt(num / den)
+    if not update_rel <= NN_BERT_UPDATE_TOL:
+        fail(f"phase 22 (a): BERT-base's first f32 AdamW update on the card "
+             f"is {update_rel:.3g} (relative norm) off the CPU's "
+             f"(> {NN_BERT_UPDATE_TOL})")
+    del d_card, d_cpu
+
+    batch = _bert_batch(torch, cfg, NN_BERT["batch"], NN_BERT["seq"],
+                        NN_BERT["masks"], gen, "cuda")
+    losses, times, launches, peak = _bert_card_steps(
+        torch, T, B, cfg, batch, 1e-4)
+    controls = [dict(lr=lr, dropout=p, bf16=bf16, losses=_bert_card_steps(
+        torch, T, B, dataclasses.replace(cfg, hidden_dropout=p,
+                                         attention_dropout=p),
+        batch, lr, bf16)[0]) for lr, p, bf16 in NN_BERT_CONTROLS]
+    if not all(math.isfinite(x) for x in
+               losses + [y for c in controls for y in c["losses"]]):
+        fail(f"phase 22 (a): BERT-base losses {losses}, {controls}")
+    if any(launches[k] for k in FLASH_KERNELS):
+        fail(f"phase 22 (a): BERT's masked attention launched K3/K4 "
+             f"{launches}; the composed form was expected")
+    ms = statistics.median(times[1:]) * 1e3
+    tokens = NN_BERT["batch"] * NN_BERT["seq"]
+    print(f"nn (a): BERT-base 16 x 512 bf16: {ms:.1f} ms a step, "
+          f"{tokens / ms * 1e3:.0f} tokens/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB, losses "
+          f"{[round(x, 4) for x in losses]} (lr, dropout, bf16: "
+          + "; ".join(f"{c['lr']}, {c['dropout']}, {c['bf16']}: "
+                      f"{[round(x, 4) for x in c['losses']]}"
+                      for c in controls)
+          + f"); f32 2 x 128 losses "
+          f"{[round(x, 6) for x in got]} (CPU "
+          f"{[round(x, 6) for x in want]}, relative {rel:.2e}), first "
+          f"update {update_rel:.2e} off the CPU's", flush=True)
+    return dict(step_ms=ms, step_s=times, tokens_per_s=tokens / ms * 1e3,
+                peak_memory_bytes=peak, losses=losses, controls=controls,
+                launches=launches, f32_losses=got, cpu_losses=want,
+                f32_loss_rel=rel, f32_update_rel=update_rel)
+
+
+def nn_vit_check(torch, T):
+    """(b) The unmasked pre-norm encoder at ViT-B/16 width in bf16: one
+    forward and backward through K3/K4 against the same with an all-zero
+    additive mask (the composed form), then 3 AdamW steps with the launches
+    counted from 0: 12 forward, 12 dkv and 12 dq a step."""
+    nn = T.nn
+    T.seed(SEED)
+    enc = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+        768, 12, 3072, activation="gelu", normalize_before=True), 12)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x0 = torch.randn(*NN_VIT, generator=gen, device="cuda").bfloat16()
+    cot = torch.randn(*NN_VIT, generator=gen, device="cuda")
+    params = [p for p in enc.parameters()]
+    enc.eval()
+
+    def run(mask):
+        x = x0.clone().requires_grad_(True)
+        with T.amp.auto_cast(dtype="bfloat16"):
+            out = enc(x, src_mask=mask)
+        grads = torch.autograd.grad((out.float() * cot).sum(), [x] + params)
+        return out.detach(), grads
+
+    reset_counts()
+    out, grads = run(None)
+    one = read_counts()
+    ref, ref_grads = run(torch.zeros(1, 1, 1, NN_VIT[1], device="cuda"))
+    # the parameters' gradients as one vector: a key bias's gradient is 0
+    # up to rounding (the softmax ignores a shift of a query's logits)
+    errs = dict(out=_rel_norm(torch, out, ref),
+                dx=_rel_norm(torch, grads[0], ref_grads[0]),
+                params=_rel_norm(torch,
+                                 torch.cat([g.flatten() for g in grads[1:]]),
+                                 torch.cat([r.flatten()
+                                            for r in ref_grads[1:]])))
+    if any(one[k] != 12 for k in FLASH_KERNELS):
+        fail(f"phase 22 (b): one pass launched {one}, want 12 each")
+    if not max(errs.values()) <= NN_VIT_TOL:
+        fail(f"phase 22 (b): K3/K4 at S=197 against the composed form "
+             f"beyond {NN_VIT_TOL} (relative norm): {errs}")
+    del grads, ref_grads
+    enc.train()
+    y = torch.randn(*NN_VIT, generator=gen, device="cuda")
+
+    def loss_fn(m, x, y):
+        with T.amp.auto_cast(dtype="bfloat16"):
+            return ((m(x).float() - y) ** 2).mean()
+
+    step = T.jit.TrainStep(enc, loss_fn, dist_adamw(enc))
+    torch.cuda.synchronize()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(NN_VIT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(x0, y)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    want = 12 * NN_VIT_STEPS
+    if any(launches[k] != want for k in FLASH_KERNELS):
+        fail(f"phase 22 (b): the encoder's steps launched {launches}, want "
+             f"{want} each of K3 and K4's dkv and dq")
+    ms = statistics.median(times[1:]) * 1e3
+    print(f"nn (b): ViT-B/16 encoder [64, 197, 768] bf16: K3/K4 "
+          f"{launches['fwd']}/{launches['dkv']}/{launches['dq']} over "
+          f"{NN_VIT_STEPS} steps, {ms:.1f} ms a step; against the composed "
+          f"form {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}",
+          flush=True)
+    del enc, step
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=ms, losses=losses,
+                composed_rel_err=errs)
+
+
+class _Seq2Seq:
+    """Transformer-base with a shared embedding (scaled by sqrt(512)),
+    sinusoidal positions and an output projection."""
+
+    def __init__(self, T, device):
+        import torch
+
+        from paddle_tpu_torch.core.place import expected_device
+
+        nn = T.nn
+        with expected_device(device):
+            self.net = nn.LayerDict(dict(
+                emb=nn.Embedding(NN_TRANS_VOCAB, 512,
+                                 weight_attr=nn.initializer.Normal(
+                                     0.0, 512 ** -0.5)),
+                tf=nn.Transformer(512, 8, 6, 6, 2048),
+                head=nn.Linear(512, NN_TRANS_VOCAB)))
+        pos = torch.arange(1024.0)[:, None]
+        freq = torch.exp(torch.arange(0, 512, 2) * (-math.log(1e4) / 512))
+        self.pe = torch.stack([torch.sin(pos * freq), torch.cos(pos * freq)],
+                              -1).reshape(1024, 512)
+
+    def embed(self, ids, start=0):
+        pe = self.pe[start:start + ids.shape[-1]].to(ids.device)
+        return self.net["emb"](ids) * math.sqrt(512) + pe
+
+    def loss(self, net, src, tgt_in, tgt_out, T):
+        mask = net["tf"].generate_square_subsequent_mask(tgt_in.shape[1])
+        with T.amp.auto_cast(dtype="bfloat16"):
+            h = net["tf"](self.embed(src), self.embed(tgt_in),
+                          tgt_mask=mask.to(src.device))
+            logits = net["head"](h)
+        return T.nn.functional.cross_entropy(
+            logits.float().reshape(-1, NN_TRANS_VOCAB), tgt_out.reshape(-1))
+
+    def beam(self, T, src):
+        """Beam search over the decoder's incremental caches (a concat
+        cache and the static memory a layer); a step's position is the
+        length of the first layer's cache."""
+        tf = self.net["tf"]
+        memory = tf.encoder(self.embed(src))
+        caches = tf.decoder.gen_cache(memory)
+
+        def cell(inp, states):
+            x = self.embed(inp[:, None], states[0][0].k.shape[2])
+            out, new = tf.decoder(x, memory, None, None, states)
+            return out[:, 0], new
+
+        dec = T.nn.BeamSearchDecoder(cell, 1, 2, NN_BEAM["beam"],
+                                     output_fn=self.net["head"])
+        return T.nn.dynamic_decode(dec, caches,
+                                   max_step_num=NN_BEAM["steps"],
+                                   batch_size=src.shape[0])
+
+
+def nn_transformer_check(torch, T):
+    """(c) Transformer-base: one masked bf16 AdamW step (K3/K4 on the
+    encoder's self-attention and the decoder's cross-attention, the
+    decoder's masked self-attention composed), then beam 4 over 32 steps
+    on the card and on the CPU from the same weights: equal tokens."""
+    import copy
+
+    T.seed(SEED)
+    s2s = _Seq2Seq(T, "cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    b, s = NN_TRANS_TRAIN
+    src, tgt = (torch.randint(3, NN_TRANS_VOCAB, (b, s + 1), generator=gen)
+                .cuda() for _ in range(2))
+    step = T.jit.TrainStep(
+        s2s.net, lambda net, a, t_in, t_out: s2s.loss(net, a, t_in, t_out,
+                                                      T),
+        dist_adamw(s2s.net))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = float(step(src[:, :s], tgt[:, :-1], tgt[:, 1:]))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_counts()
+    if not math.isfinite(loss) or any(train_launches[k] != 12
+                                      for k in FLASH_KERNELS):
+        fail(f"phase 22 (c): Transformer-base step loss {loss}, launches "
+             f"{train_launches} (want 12 each: 6 encoder self-attentions "
+             f"and 6 cross-attentions; the masked self-attention composed)")
+    del step
+    s2s.net.eval()
+    beam_src = torch.randint(3, NN_TRANS_VOCAB,
+                             (NN_BEAM["batch"], NN_BEAM["src"]),
+                             generator=gen)
+    cpu = copy.copy(s2s)
+    cpu.net = copy.deepcopy(s2s.net).to("cpu")
+    with torch.no_grad():
+        reset_counts()
+        t0 = time.perf_counter()
+        seqs, scores = s2s.beam(T, beam_src.cuda())
+        torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t0
+        decode_launches = read_counts()["fwd"]
+        want_seqs, want_scores = cpu.beam(T, beam_src)
+    steps = seqs.shape[1]
+    if not torch.equal(seqs.cpu(), want_seqs):
+        first = int((seqs.cpu() != want_seqs).nonzero()[0, 1])
+        fail(f"phase 22 (c): beam tokens on the card differ from the CPU's "
+             f"from step {first}: {seqs.cpu()[:, first].tolist()} against "
+             f"{want_seqs[:, first].tolist()}")
+    score_rel = float(((scores.cpu() - want_scores).abs()
+                       / want_scores.abs()).max())
+    if not score_rel <= NN_BEAM_SCORE_RTOL:
+        fail(f"phase 22 (c): beam scores relative {score_rel:.3g}")
+    # the encoder's 6 self-attentions over the source, then 6 self- and 6
+    # cross-attentions a step
+    want_launches = 6 + 12 * steps
+    if decode_launches != want_launches:
+        fail(f"phase 22 (c): the decode launched K3 {decode_launches} "
+             f"times over {steps} steps, want {want_launches}")
+    print(f"nn (c): Transformer-base train step {train_s * 1e3:.1f} ms "
+          f"(loss {loss:.4f}; K3/K4 {train_launches['fwd']}/"
+          f"{train_launches['dkv']}/{train_launches['dq']}); beam 4 x "
+          f"{steps} steps at batch 2 in {beam_s:.2f} s, tokens equal to "
+          f"the CPU's, scores within {score_rel:.2e}; K3 {decode_launches}",
+          flush=True)
+    del s2s, cpu
+    torch.cuda.empty_cache()
+    return dict(train_s=train_s, loss=loss, train_launches=train_launches,
+                beam_s=beam_s, beam_steps=steps,
+                decode_launches=decode_launches, score_rel=score_rel,
+                tokens=seqs.cpu().tolist())
+
+
+def nn_lstm_check(torch, T):
+    """(d) The PTB medium LSTM language model, forward and backward in
+    f32 on the card and on the CPU from the same weights: the loss and
+    the outputs within TA_TOL's f32 "reduce" (its atol scaled by the
+    1300 products behind a gate), every gradient within NN_LSTM_GRAD_TOL
+    (relative norm)."""
+    import copy
+
+    cfg = NN_LSTM
+    nn = T.nn
+    T.seed(SEED)
+    from paddle_tpu_torch.core.place import expected_device
+    with expected_device("cuda"):
+        net = nn.LayerDict(dict(
+            emb=nn.Embedding(cfg["vocab"], cfg["hidden"]),
+            rnn=nn.LSTM(cfg["hidden"], cfg["hidden"], cfg["layers"]),
+            head=nn.Linear(cfg["hidden"], cfg["vocab"])))
+    cpu = copy.deepcopy(net).to("cpu")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    ids = torch.randint(0, cfg["vocab"], (cfg["batch"], cfg["steps"] + 1),
+                        generator=gen)
+
+    def run(m, ids):
+        out, _ = m["rnn"](m["emb"](ids[:, :-1]))
+        loss = T.nn.functional.cross_entropy(
+            m["head"](out).reshape(-1, cfg["vocab"]), ids[:, 1:].reshape(-1))
+        loss.backward()
+        return out.detach(), loss.detach(), {
+            k: p.grad for k, p in m.named_parameters()}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, loss, grads = run(net, ids.cuda())
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    ref, ref_loss, ref_grads = run(cpu, ids)
+    n = 2 * cfg["hidden"]
+    excess = max(_ta_excess(torch, out, ref, "reduce", "float32", n, "sum"),
+                 _ta_excess(torch, loss, ref_loss, "reduce", "float32"))
+    grad_err = max(_rel_norm(torch, grads[k], ref_grads[k]) for k in grads)
+    if not (excess <= 0 and grad_err <= NN_LSTM_GRAD_TOL):
+        fail(f"phase 22 (d): LSTM card against CPU: excess {excess}, "
+             f"gradient relative {grad_err}")
+    print(f"nn (d): LSTM 2 x 650, 35 steps, batch 20: forward and backward "
+          f"{card_s * 1e3:.1f} ms on the card, loss {float(loss):.5f}, "
+          f"worst excess {excess:.3g}, gradients within {grad_err:.2e}",
+          flush=True)
+    return dict(card_s=card_s, loss=float(loss), excess=excess,
+                grad_rel_err=grad_err)
+
+
+def _nn_terms(op, xs):
+    """Products or elements behind one output of a table row."""
+    if op.name.startswith("conv"):
+        return math.prod(xs[1].shape[1:])
+    if op.name == "adaptive_avg_pool2d":
+        return math.prod(xs[0].shape[2:])
+    if op.name.startswith("avg_pool"):
+        k = op.kw["kernel_size"]
+        return k * k
+    if op.name in ("nce", "hsigmoid_loss"):
+        return xs[0].shape[1] * 16
+    return 1
+
+
+def nn_table_rows(torch, T, tab, rng, pool):
+    """(d) The conv, pool and sampling rows at each ResNet-50 stage, f32
+    and bf16 (under ``auto_cast``), on the card against the port on the
+    CPU (the CPU side on ``pool``'s thread): the worst TA_TOL excess a
+    row.  cuDNN's TF32 starts at PyTorch's default (on; phase 4 turned it
+    off): the port's convolutions must keep f32 in f32 themselves."""
+    torch.backends.cudnn.allow_tf32 = True
+    rows = []
+    for shape in NN_STAGES:
+        for op in tab.CONV_POOL + tab.SAMPLED:
+            arrays = op.inputs(rng, shape)
+            for dtype in ("float32", "bfloat16"):
+                def run(device, arrays=arrays, dtype=dtype, op=op):
+                    xs = [torch.from_numpy(a).to(device) for a in arrays]
+                    xs = [x.to(getattr(torch, dtype))
+                          if x.is_floating_point() else x for x in xs]
+                    with T.amp.auto_cast(enable=dtype == "bfloat16",
+                                         dtype="bfloat16"):
+                        return tab.flat(op.call(T, *xs))
+
+                ref = pool.submit(run, "cpu")
+                got = run("cuda")
+                n = _nn_terms(op, arrays)
+                # index outputs must be equal (0 or inf); the row reports
+                # its float outputs' worst excess
+                ex = [(g.is_floating_point(),
+                       _ta_excess(torch, g, r, op.family, dtype, n, op.acc))
+                      for g, r in zip(got, ref.result())]
+                ex = max([e for fl, e in ex if fl]
+                         + [e for fl, e in ex if not fl and e > 0])
+                rows.append(dict(op=op.label, shape=list(shape), dtype=dtype,
+                                 excess=ex))
+                if not ex <= 0:
+                    fail(f"phase 22 (d): {op.label} {dtype} at {shape} "
+                         f"beyond TA_TOL by {ex}")
+    if torch.backends.cudnn.allow_tf32:
+        fail("phase 22 (d): the port's f32 convolutions left cuDNN's TF32 "
+             "on")
+    return rows
+
+
+def nn_syncbn_rank(out_dir):
+    """One rank of 22(e), started by ``paddle.distributed.spawn``: a
+    SyncBatchNorm over this rank's rows of the global batch, its output,
+    the input's gradient and the running buffers saved."""
+    import torch
+
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch import distributed as dist
+
+    dist.init_parallel_env()
+    r, n = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x, cot = _syncbn_inputs(torch)
+    per = x.shape[0] // n
+    x = x[r * per:(r + 1) * per].to(dev).requires_grad_(True)
+    bn = T.nn.SyncBatchNorm(NN_SYNC_BN[1], device=dev)
+    out = bn(x)
+    dx, = torch.autograd.grad(out, [x], cot[r * per:(r + 1) * per].to(dev))
+    torch.save(dict(rank=r, world=n, backend=dist.parallel.backend(),
+                    out=out.detach().cpu(), dx=dx.cpu(), mean=bn._mean.cpu(),
+                    var=bn._variance.cpu()),
+               Path(out_dir) / f"rank{r}.pt")
+
+
+def _syncbn_inputs(torch):
+    gen = torch.Generator().manual_seed(SEED + 3)
+    c = NN_SYNC_BN[1]
+    return (torch.randn(*NN_SYNC_BN, generator=gen) + 100
+            + torch.randn(1, c, 1, 1, generator=gen),
+            torch.randn(*NN_SYNC_BN, generator=gen))
+
+
+def nn_syncbn_check(torch, T):
+    """(e) SyncBatchNorm over ranks from ``spawn`` (two sharing the card
+    over gloo; one a card over NCCL when there are four cards) against
+    BatchNorm over the global batch on the card."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+
+    nranks = 4 if torch.cuda.device_count() >= 4 else 2
+    shutil.rmtree(NN_ROOT, ignore_errors=True)
+    NN_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dist.spawn(nn_syncbn_rank, args=(str(NN_ROOT),), nprocs=nranks)
+    spawn_s = time.perf_counter() - t0
+    x, cot = _syncbn_inputs(torch)
+    bn = T.nn.BatchNorm2D(NN_SYNC_BN[1], device="cuda")
+    xg = x.cuda().requires_grad_(True)
+    out = bn(xg)
+    dx, = torch.autograd.grad(out, [xg], cot.cuda())
+    per = x.shape[0] // nranks
+    worst, backends = -float("inf"), set()
+    for r in range(nranks):
+        got = torch.load(NN_ROOT / f"rank{r}.pt")
+        backends.add(got["backend"])
+        rows = slice(r * per, (r + 1) * per)
+        worst = max(worst, *(_ta_excess(torch, got[k].cuda(), want, "norm",
+                                        "float32") for k, want in (
+            ("out", out[rows]), ("dx", dx[rows]), ("mean", bn._mean),
+            ("var", bn._variance))))
+    if not worst <= 0:
+        fail(f"phase 22 (e): SyncBatchNorm over {nranks} ranks beyond "
+             f"TA_TOL's norm by {worst}")
+    print(f"nn (e): SyncBatchNorm over {nranks} ranks ({', '.join(backends)})"
+          f" on {list(NN_SYNC_BN)}: equal to BatchNorm on the global batch "
+          f"(worst excess {worst:.3g}), {spawn_s:.1f} s with the spawn",
+          flush=True)
+    return dict(nranks=nranks, backends=sorted(backends), excess=worst,
+                spawn_s=spawn_s)
+
+
+def nn_phase(torch):
+    """Phase 22: BERT-base (a), the ViT-B/16-width encoder on K3/K4 (b),
+    Transformer-base with beam search (c), the LSTM and the conv, pool and
+    sampling tables (d), SyncBatchNorm over ranks (e)."""
+    import numpy as np
+
+    import paddle_tpu_torch as T
+
+    tab = _op_tables()
+    res = dict(bert=nn_bert_check(torch, T), vit=nn_vit_check(torch, T),
+               transformer=nn_transformer_check(torch, T),
+               lstm=nn_lstm_check(torch, T))
+    t0 = time.perf_counter()
+    # one CPU thread pool runs the references beside the card's rows
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        rows = nn_table_rows(torch, T, tab, np.random.default_rng(SEED),
+                             pool)
+    worst = {}
+    for r in rows:
+        key = f"{r['op']} {r['dtype']}"
+        worst[key] = max(worst.get(key, -float("inf")), r["excess"])
+    print(f"nn (d): {len(rows)} conv/pool/sampling rows at ResNet-50's "
+          f"stages within TA_TOL ({time.perf_counter() - t0:.1f} s); worst "
+          f"excess {max(worst.values()):.3g}", flush=True)
+    res["tables"] = rows
+    res["syncbn"] = nn_syncbn_check(torch, T)
+    res["card"] = card_line()
+    return res
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -6360,7 +6979,9 @@ def main(argv) -> int:
     ``--fleet``, ``--eager``, ``--dist``, ``--hybrid``, ``--moe-ps``: the
     serve of 4 and phase 15, 16, 17, 18, 19 or 20, into chiprun_out/
     chip_smoke_<mode>.json; ``--tensor-api``: the build and phase 21 alone,
-    into chiprun_out/chip_smoke_tensor_api.json."""
+    into chiprun_out/chip_smoke_tensor_api.json; ``--nn``: the build of
+    K3/K4 and phase 22 alone, into chiprun_out/chip_smoke_nn.json (with
+    four cards, 22 (e) runs four ranks over NCCL)."""
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -6371,12 +6992,13 @@ def main(argv) -> int:
     hybrid_only = argv == ["--hybrid"]
     moe_ps_only = argv == ["--moe-ps"]
     tensor_api_only = argv == ["--tensor-api"]
+    nn_only = argv == ["--nn"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
     acp_kid = argv[:1] == ["--acp-child"] and len(argv) == 4
     if argv and not (kernels_only or mesh_only or fleet_only or eager_only
                      or dist_only or hybrid_only or moe_ps_only
-                     or tensor_api_only or child
+                     or tensor_api_only or nn_only or child
                      or fleet_kid or acp_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -6407,6 +7029,7 @@ def main(argv) -> int:
     libs = _build.build_all(["paged_attention"]
                             if kernels_only or mesh_only or fleet_only
                             else ["layer_norm"] if tensor_api_only
+                            else ["flash_attention"] if nn_only
                             else None)
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
@@ -6483,6 +7106,17 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_tensor_api.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if nn_only:
+        t0 = time.perf_counter()
+        res = dict(card=card, nn=nn_phase(torch))
+        res["nn"]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 22 nn: {res['nn']['phase_s']:.1f} s", flush=True)
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_nn.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -6581,7 +7215,12 @@ def main(argv) -> int:
     # 21. the functional tensor API and nn's activations, losses and norms
     tensor_api = timed("21 tensor-api", tensor_api_phase, torch)
 
-    # 22. report
+    # 22. the rest of nn: BERT-base, the ViT-width encoder, Transformer-base
+    # with beam search, the LSTM and the conv/pool/sampling tables,
+    # SyncBatchNorm
+    nnp = timed("22 nn", nn_phase, torch)
+
+    # 23. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -6643,11 +7282,17 @@ def main(argv) -> int:
                      **{f"dist_train_rank{r}": n[kern] for r, n in
                         distp["data_parallel"]["launches_by_rank"].items()},
                      **hybrid_launches(hybrid, kern),
-                     **moe_ps_launches(moe_ps, kern))
+                     **moe_ps_launches(moe_ps, kern),
+                     nn_bert=nnp["bert"]["launches"][kern],
+                     nn_vit_encoder=nnp["vit"]["launches"][kern],
+                     nn_transformer_train=nnp["transformer"][
+                         "train_launches"][kern])
         if kern == "fwd":
             paths.update(generate_concat=gen["concat"]["calls"]
                          * gen["concat"]["k3_launches_per_call"],
-                         generate_prealloc=0)
+                         generate_prealloc=0,
+                         nn_transformer_beam_decode=nnp["transformer"][
+                             "decode_launches"])
         kernels.append(dict(
             name=f"flash_attention_{'bwd_' if kern != 'fwd' else ''}{kern}",
             route="cuda", source=FLASH_SOURCE, replaces=replaces,
@@ -6685,7 +7330,7 @@ def main(argv) -> int:
                   telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
                   train=train, train_layer_norm=train_ln, eager=eager,
                   dist=distp, hybrid=hybrid, moe_ps=moe_ps,
-                  tensor_api=tensor_api)
+                  tensor_api=tensor_api, nn=nnp)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

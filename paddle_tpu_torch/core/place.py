@@ -15,6 +15,8 @@ asks for the CPU.  Engines keep their own ``device=``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .. import device as _device
@@ -101,6 +103,19 @@ def set_device(device) -> Place:
         _name_to_device(device) if isinstance(device, str) else device)
     _EXPECTED_DEVICE[0] = device
     return _place_of(device)
+
+
+@contextlib.contextmanager
+def expected_device(device):
+    """Within the block, ``device`` (when not None) is the expected
+    device: layers built there take it."""
+    prev = _EXPECTED_DEVICE[0]
+    if device is not None:
+        _EXPECTED_DEVICE[0] = to_device(device)
+    try:
+        yield
+    finally:
+        _EXPECTED_DEVICE[0] = prev
 
 
 def expected_place() -> Place:

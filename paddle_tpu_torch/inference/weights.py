@@ -16,6 +16,12 @@ blocks and copies them in; `full_state_dict` gathers the blocks back
 into whole tensors, which ``framework.io.save`` writes for the JAX
 package's ``paddle.load``.  (`models.gpt_spmd.shard_params` /
 `gather_params` do the same for that step's dict.)
+
+BERT crosses by its state dict as it is: the port's model's
+``set_state_dict`` takes a JAX ``BertForPretraining``'s (or
+``BertModel``'s) ``state_dict()`` as numpy arrays (the same names;
+Linear weights stay [in, out]; the tied decoder weight is the
+embedding's).
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
-"""Neural-network layers, functionals, initializers and gradient clips
-(counterpart: paddle_tpu/nn)."""
-from . import functional, initializer
+"""Neural-network layers, functionals, initializers, gradient clips,
+weight reparameterizations and beam search (counterpart:
+paddle_tpu/nn)."""
+from . import functional, initializer, utils
 from ..utils.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                           ClipGradByValue)
+from .decode import BeamSearchDecoder, dynamic_decode
 from .layer import *  # noqa: F401,F403
 from . import layer as _layer
 
-__all__ = (["functional", "initializer", "ClipGradByValue", "ClipGradByNorm",
-            "ClipGradByGlobalNorm"] + _layer.__all__)
+__all__ = (["functional", "initializer", "utils", "ClipGradByValue",
+            "ClipGradByNorm", "ClipGradByGlobalNorm", "BeamSearchDecoder",
+            "dynamic_decode"] + _layer.__all__)

@@ -1,14 +1,30 @@
-"""Linear, Embedding and Dropout layers (counterpart:
-paddle_tpu/nn/layer/common.py)."""
+"""Common layers (counterpart: paddle_tpu/nn/layer/common.py): Linear,
+Embedding, the dropouts, Flatten, the upsamplers, Bilinear, the
+similarities, the pads, the pixel and channel shuffles, Unfold and Fold.
+Each parametrised layer takes ``device=`` (default: the expected place)
+and ``dtype=``."""
 from __future__ import annotations
 
 import torch
 
 from .. import initializer as init
-from ..functional.common import dropout, embedding, linear
+from .. import functional as F
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Identity", "Linear", "Embedding", "Dropout", "Dropout2D",
+           "Dropout3D", "AlphaDropout", "Flatten", "Upsample",
+           "UpsamplingNearest2D", "UpsamplingBilinear2D", "Bilinear",
+           "CosineSimilarity", "PairwiseDistance", "Pad1D", "Pad2D", "Pad3D",
+           "ZeroPad2D", "PixelShuffle", "PixelUnshuffle", "ChannelShuffle",
+           "Unfold", "Fold"]
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
@@ -32,23 +48,35 @@ class Linear(Layer):
             device=device)
 
     def forward(self, x):
-        return linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return f"in_features={self.in_features}, " \
+            f"out_features={self.out_features}"
 
 
 class Embedding(Layer):
     """A lookup table [num_embeddings, embedding_dim], drawn N(0, 1) as
     the JAX package's ``nn.Embedding`` draws it (``weight_attr`` may name
-    another initializer)."""
+    another initializer); row ``padding_idx`` starts at zero and looks
+    up zeros."""
 
-    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
-                 name=None, device=None, dtype=torch.float32):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
         self.weight = self.create_parameter(
             [num_embeddings, embedding_dim], attr=weight_attr, dtype=dtype,
             default_initializer=init.Normal(0.0, 1.0), device=device)
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, x):
-        return embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
 class Dropout(Layer):
@@ -63,6 +91,205 @@ class Dropout(Layer):
         self.mode = mode
 
     def forward(self, x):
-        return dropout(x, self.p, axis=self.axis, training=self.training,
-                       mode=self.mode)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
 
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest",
+                         data_format=data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True,
+                         data_format=data_format)
+
+
+class Bilinear(Layer):
+    """``out = x1 . weight[o] . x2 + bias``, weight [out, in1, in2]."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr,
+            dtype=dtype, device=device)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [out_features], attr=bias_attr, dtype=dtype, is_bias=True,
+            device=device)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW"):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value,
+                     self.data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(_PadNd):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)

@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import creation, linalg, logic, manipulation, math, random, search
-from . import stat
+from . import misc, stat
 from .creation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
@@ -45,10 +45,11 @@ from .random import *  # noqa: F401,F403
 from .search import *  # noqa: F401,F403
 from .stat import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
+from .misc import *  # noqa: F401,F403
 
 __all__ = (creation.__all__ + math.__all__ + manipulation.__all__
            + logic.__all__ + random.__all__ + search.__all__ + stat.__all__
-           + linalg.__all__)
+           + linalg.__all__ + misc.__all__)
 
 # Paddle tensor methods torch.Tensor lacks, each the function of its name
 _TENSOR_METHODS = (

@@ -17,6 +17,7 @@ bias, whose gradient is zero but for rounding (softmax does not see a
 shift shared by every key), which AdamW's normalized step moves by up to
 ``lr`` a step from that noise: there the bound is ``2 * LR * EPOCHS``.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 
 import numpy as np

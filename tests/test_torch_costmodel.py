@@ -5,6 +5,7 @@ port's counted step FLOPs stay within a stated tolerance of JAX's HLO
 count, the HBM ledger attributes the same bytes, and the
 cost-gated admission decisions and the speculative K trajectories equal
 JAX's with the cost model on."""
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import math
 
 import numpy as np

@@ -9,6 +9,7 @@ host-side ratios, the same operations in the same order) within 1e-9;
 ``reset=True`` zeroes what it read.  Keys whose module the port has not
 brought over stay 0.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import os
 import subprocess
 import sys

@@ -8,6 +8,7 @@ without a card).  No JAX here: the references are plain PyTorch.
 * the device trace (`profiler.start_trace`/`stop_trace`) of a flash
   attention forward and backward names the K3/K4 kernels.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 import os
 import sys

@@ -13,6 +13,7 @@ launcher; a dead rank.  Tolerances: f32 losses 1e-5 and parameters 1e-5
 (the same arithmetic in another summation order: the batch's mean is
 taken as the mean of two rank means).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 import os
 import pickle

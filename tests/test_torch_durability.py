@@ -13,6 +13,7 @@ graph handoff, the sampling generator's state carried by the snapshot
 restored bit-equal, and an abandoned engine's late step launching
 nothing.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 import os
 import pickle

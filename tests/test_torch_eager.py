@@ -10,6 +10,7 @@ DataLoader's order under ``np.random.seed`` and ``save``/``load`` across
 the two packages, bit for bit.  Inputs come from numpy seeds and go
 through both packages; tolerances are stated per test.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import logging
 
 import numpy as np

@@ -14,6 +14,7 @@ processes against the JAX package's.
   parent; the thread mode gives the same batches.  The datasets live in
   tests/torch_data_common.py, which a worker imports.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import gzip
 import os
 import sys

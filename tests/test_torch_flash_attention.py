@@ -23,6 +23,7 @@ which round the probabilities and ds to bf16 where they meet a product;
 plain versions under the card's tolerance (``PYTHONPATH=. python
 tests/test_torch_flash_attention.py`` prints it at the card's shapes).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import importlib.util
 import math
 from pathlib import Path

@@ -12,6 +12,7 @@ chaos test kills one of two port replica processes (the CPU's tiny GPT,
 `tests/torch_fleet_child.py`) with SIGKILL mid-generation and holds
 every stream to the oracle.  ``test_edge_round_trip_on_card`` needs a
 CUDA device."""
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import gc
 import json
 import os

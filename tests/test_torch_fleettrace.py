@@ -13,6 +13,7 @@
 * a live two-replica fleet mints ids, records route spans and serves
   ``/fleetz``, in both packages.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import gc
 import json
 import os

@@ -6,6 +6,7 @@ both packages' explain_request with the same output, statusz and
 debug_dump keep JAX's schema, a JAX journal's telemetry keys restore
 into a port engine, and the plane armed or disarmed leaves the tokens
 unchanged."""
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import asyncio
 import json
 import os

@@ -8,6 +8,7 @@ along the way and the scheduler counters must agree.  The front-end's
 own mechanics (cancellation, backpressure, shutdown, a dying driver) are
 host code and run on the port alone.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import asyncio
 import time
 

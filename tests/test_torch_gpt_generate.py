@@ -11,6 +11,7 @@ version (the concat prefill), the JAX package's its XLA reference.
 Greedy tokens must be equal; logits hold within 1e-5 (f32 sums in
 another order).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 from unittest import mock
 
 import jax.numpy as jnp

@@ -10,6 +10,7 @@ shuffled `DataLoader` (AdamW, `LinearWarmup(CosineAnnealingDecay)`,
 bound each test states.  Then the rest of the high-level API: evaluate,
 predict, the metric, callbacks, save/load, summary and flops.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 from unittest import mock
 

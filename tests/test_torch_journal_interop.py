@@ -8,6 +8,7 @@ mesh's included), and every key either package writes, the other takes.
 The fingerprints are equal (`DecodeEngine.config_fingerprint`), so each
 package validates the other's journal.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import os
 
 import numpy as np

@@ -8,6 +8,7 @@ numpy; then a tiny GPT trained with the flag on against the JAX
 `TrainStep` with the flag on.  Kernel K5 itself is checked on the card
 only (`cuda` marker).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

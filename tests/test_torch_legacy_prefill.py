@@ -11,6 +11,7 @@ tests/test_chunked_prefill.py), and a prompt whose logits go non-finite
 finishes as "fault" with nothing emitted, as in JAX.  The tolerance is
 token equality throughout.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 

@@ -8,6 +8,7 @@ that round in another order); world size 1, where the collectives are
 the identity in both.  Then the JAX tests' own scenarios, and the
 `StrategyCompiler` chains.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

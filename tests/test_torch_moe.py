@@ -25,6 +25,7 @@ slice, which equals GSPMD's global gating while no expert overflows,
 the batch, would differ, so it stays out of that loss, as in JAX's
 test).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import math
 import os
 import sys

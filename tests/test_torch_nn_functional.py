@@ -16,6 +16,7 @@ train mode also its updated ``_mean`` and ``_variance``.  Gradients
 tolerances, AMP output dtypes exactly, the random activations
 (``rrelu`` in training, ``gumbel_softmax``) in distribution.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import jax
 import numpy as np
 import pytest

@@ -1,6 +1,7 @@
 """The port's observability substrate against the JAX package's: the
 metric catalog, the registry's exports and estimators, the span buffer
 and merged chrome trace, the reporter, and the telemetry flags."""
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 
 import pytest

@@ -7,6 +7,7 @@ both packages.  Greedy sampling is compared exactly; the samplers that
 draw cannot reproduce `jax.random` streams, so top_k / top_p draws are
 compared in distribution by a chi-square test over many draws.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

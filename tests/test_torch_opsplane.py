@@ -4,6 +4,7 @@ driving the same transitions, readiness criteria, and the ops server
 (`/metrics`, `/statusz`, `/flightz`, `/healthz`, `/readyz`, `/alertz`,
 `/profilez`, `/tracez`) answering with the same endpoints and JSON keys
 as JAX's — mid-serve, without perturbing the tokens."""
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 import threading
 import urllib.error

@@ -10,6 +10,7 @@ optimizer's ``state_dict`` keys and round trip; and the JAX package's
 asymmetry, kept: the staged ``apply_gradients`` (`jit.TrainStep`'s) does
 not read a parameter's own regularizer, the eager step does.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import math
 
 import numpy as np

@@ -17,6 +17,7 @@ the other's optimizer, which then steps as the original.  `Dpsgd` with
 ``sigma=0`` (clipping alone) is the JAX package's update; with noise it
 is checked in distribution only (the generators differ).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ relative, at different points in the two frameworks); Pallas-form vs
 XLA-form scale placement is covered by the same bounds.  The CUDA
 kernel itself is checked on the card only (`cuda` marker).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

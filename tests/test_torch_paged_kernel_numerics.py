@@ -27,6 +27,7 @@ against the plain version on the card (`cuda`-marked tests,
 
 prints the errors at `chip_smoke.py`'s shapes.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import math
 
 import numpy as np

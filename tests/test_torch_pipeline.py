@@ -16,6 +16,7 @@ same; ``pipeline_spmd_step`` 1e-5; the GPT 1e-5 relative / 1e-6 absolute
 on losses, 1e-5 on parameters; ring attention 1e-5 on outputs, 1e-4 on
 gradients.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import os
 import sys
 

@@ -9,6 +9,7 @@ off records nothing, ``print_table=False`` prints nothing; the device
 trace writes a chrome trace; ``FLAGS_eager_dispatch_report`` counts a
 small eager loop's ops into the JAX package's table layout.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 import time
 
@@ -22,7 +23,11 @@ from paddle_tpu_torch.core import dispatch as TD
 from paddle_tpu_torch.core import flags as TF
 from paddle_tpu_torch.observability import tracing as TT
 
+from torch_native_common import jax_native  # noqa: F401
 from torch_telemetry_common import engines, models, prompts, reset_both
+
+# JAX's profiler records through the JAX package's native tracer
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 # name -> (calls, seconds a call): totals 240, 40 and 5 ms, calls 3, 1
 # and 5, a call 80, 40 and 1 ms: each sort key orders them by a margin

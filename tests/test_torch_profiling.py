@@ -6,6 +6,7 @@ payload keep JAX's schema, and a capture session writes a torch.profiler
 trace and the merged chrome trace.  On the CPU a probe is the host clock
 around the synchronous eager step; on the card, CUDA events (the
 ``cuda``-marked test)."""
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 import os
 

@@ -13,6 +13,7 @@ round trip, and the fleet's server and trainer roles from a patched
 environment.  The async communicator merges on its own clock, so its
 check is the total update (1e-6, JAX's own test's bound).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import os
 import sys
 import threading
@@ -27,7 +28,15 @@ from paddle_tpu.distributed import ps as J
 from paddle_tpu_torch.distributed import ps as T
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_native_common import jax_native, load_jax_native  # noqa: E402,F401
+
+# the JAX servers need the JAX package's native runtime, built once under
+# a lock whichever xdist worker asks first; loaded before test_ps, whose
+# import asks for it too
+load_jax_native()
 from test_ps import _sample_hash_np  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 PKGS = {"jax": J, "port": T}
 

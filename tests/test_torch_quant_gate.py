@@ -14,6 +14,7 @@ weights (at most one token fewer in the whole evaluation), and the tools'
 99% bar wherever the JAX package's rate meets it.  Both rates are in
 the assertion message.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 

@@ -8,6 +8,7 @@ JAX package on the same inputs made with numpy.  Tolerances are stated
 per test.  Kernel K2 itself is checked on the card only (`cuda`
 marker).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

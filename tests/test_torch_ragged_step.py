@@ -9,6 +9,7 @@ port's ragged engine and the port's split engine (``ragged_step=False``)
 — and their greedy tokens must be equal, the counters the two ragged
 engines share equal, and every pool drained.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ before, a handoff recovery allocates nothing, the card's containment rule
 out of the step, and on the card a retried step replays its captured
 graph.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import pytest
 import torch
 

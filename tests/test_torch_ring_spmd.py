@@ -16,6 +16,7 @@ the f32 loss;
 (gradients), the flash-block ring 1e-4 and 1e-3 (interpret-mode blocks
 against the port's composed blocks).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import importlib
 import os
 import sys

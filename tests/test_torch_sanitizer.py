@@ -7,6 +7,7 @@ clean sanitized serve recording nothing.  Greedy tokens are compared
 exactly.  The port's flag is armed by this file's own fixtures
 (``tests/conftest.py``'s ``sanitize`` marker arms only the JAX
 package's)."""
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import threading
 
 import numpy as np

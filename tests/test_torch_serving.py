@@ -8,6 +8,7 @@ same greedy tokens, the same finish reasons and the same counters in
 each scenario, and drain its pool.  The isolation tests hold the port
 to its rule of never importing JAX or the JAX package.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import ast
 import os
 import subprocess
@@ -327,8 +328,8 @@ bad = sorted(m for m in sys.modules
 # telemetry plane, the serving mesh, the port's telemetry tools, the
 # sanitizer, the fleet, the eager core and training, the data-
 # parallel training, profiler and auto-checkpoint modules, and the
-# hybrid-parallel ones, and the functional tensor API with nn's
-# activations, losses and norms
+# hybrid-parallel ones, the functional tensor API with nn's
+# activations, losses and norms, and the rest of nn with BERT
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -422,7 +423,22 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.nn.functional.norm",
                        "paddle_tpu_torch.nn.layer.activation",
                        "paddle_tpu_torch.nn.layer.loss",
-                       "paddle_tpu_torch.nn.layer.norm")
+                       "paddle_tpu_torch.nn.layer.norm",
+                       "paddle_tpu_torch.nn.layer.layers",
+                       "paddle_tpu_torch.nn.layer.container",
+                       "paddle_tpu_torch.nn.layer.common",
+                       "paddle_tpu_torch.nn.layer.conv",
+                       "paddle_tpu_torch.nn.layer.pooling",
+                       "paddle_tpu_torch.nn.layer.rnn",
+                       "paddle_tpu_torch.nn.layer.transformer",
+                       "paddle_tpu_torch.nn.functional.common",
+                       "paddle_tpu_torch.nn.functional.conv",
+                       "paddle_tpu_torch.nn.functional.pooling",
+                       "paddle_tpu_torch.nn.functional.sampling",
+                       "paddle_tpu_torch.nn.utils",
+                       "paddle_tpu_torch.nn.decode",
+                       "paddle_tpu_torch.ops.misc",
+                       "paddle_tpu_torch.models.bert")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)

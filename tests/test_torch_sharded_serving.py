@@ -20,6 +20,7 @@ over gloo: the contracts of tests/test_sharded_serving.py case by case.
   worker raises within its bound and leaves no process.
 
 One mesh a spec serves the whole file (`parallel.mesh.get_mesh`)."""
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import json
 import os
 import signal

@@ -10,6 +10,7 @@ the length alone, so every pool drains.  Sampled output is held against
 the non-speculative engine's marginal (port engines only: torch cannot
 reproduce JAX's random streams).
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

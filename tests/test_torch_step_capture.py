@@ -14,6 +14,7 @@ capture and replay the decode and mixed steps on the card: tokens equal
 to the eager steps', sampled ones too, and each replay adds its captured
 K1 launches to the count.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import contextlib
 
 import numpy as np

@@ -19,6 +19,7 @@ default (the card unless ``set_device`` names the CPU) and the
 top-level helpers.  (That importing the port replaces no attribute of
 ``torch.Tensor`` is ``tests/test_torch_serving.py``'s guard.)
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 from pathlib import Path
 
 import jax

@@ -14,6 +14,7 @@ AdamW 1e-5 relative / 1e-5 absolute (AdamW's normalized step turns a
 1e-9 difference in a near-zero gradient into ~1e-6); saved and restored
 weights bit for bit.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import os
 import sys
 

@@ -9,6 +9,7 @@ is the composed form and the JAX package's is its XLA reference.
 Tolerances are stated per test.  Serving's step functions are held to
 recording no autograd graph now that the model's parameters train.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

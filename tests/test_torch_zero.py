@@ -13,6 +13,7 @@ test_torch_tensor_parallel.py); the port's stages against its own stage
 0 to 1e-6 (the same update, element by element); at-rest bytes at most
 1/dp of the whole plus the padding and the per-piece scalar slots.
 """
+import torch_test_env  # noqa: F401  (first: one intra-op thread)
 import os
 import sys
 

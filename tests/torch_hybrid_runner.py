@@ -63,6 +63,51 @@ def moe_inputs():
     return a
 
 
+SYNC_BN_CASES = ("centred", "uncentred")
+
+
+def sync_bn_inputs(case):
+    """SyncBatchNorm's check (test_torch_nn_layers.py): a global batch
+    (each of 2 ranks takes half its rows), its weight, bias and output
+    cotangent.  "centred": [8, 3, 2, 2], |mean| / std 0.25; "uncentred":
+    [8, 3, 16, 16] with each channel's mean about 100 and std 1, where a
+    one-pass E[x^2] - mean^2 in f32 loses the variance's digits."""
+    rng = np.random.RandomState(31)
+    f = np.float32
+    shape = (8, 3, 2, 2) if case == "centred" else (8, 3, 16, 16)
+    x = rng.randn(*shape) * 2 + 0.5 if case == "centred" else \
+        rng.randn(*shape) + 100 + rng.randn(1, 3, 1, 1)
+    return {"x": x.astype(f),
+            "w": (1 + 0.1 * rng.randn(3)).astype(f),
+            "b": (0.1 * rng.randn(3)).astype(f),
+            "cot": rng.randn(*shape).astype(f)}
+
+
+def _sync_bn_checks(rank, nranks):
+    """SyncBatchNorm in training on this rank's rows of each case of
+    `sync_bn_inputs`: the output, the input's and parameters' gradients
+    (of the output against its cotangent rows) and the running buffers."""
+    import paddle_tpu_torch as paddle
+
+    res = {}
+    for case in SYNC_BN_CASES:
+        a = sync_bn_inputs(case)
+        n = a["x"].shape[0]
+        rows = slice(rank * n // nranks, (rank + 1) * n // nranks)
+        bn = paddle.nn.SyncBatchNorm(3, device="cpu")
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(a["w"]))
+            bn.bias.copy_(torch.from_numpy(a["b"]))
+        x = torch.from_numpy(a["x"][rows]).requires_grad_(True)
+        out = bn(x)
+        dx, dw, db = torch.autograd.grad(out, [x, bn.weight, bn.bias],
+                                         torch.from_numpy(a["cot"][rows]))
+        res[case] = {"out": _np(out), "dx": _np(dx), "dw": _np(dw),
+                     "db": _np(db), "mean": _np(bn._mean),
+                     "variance": _np(bn._variance)}
+    return res
+
+
 def gpt_batches(steps=GPT_STEPS):
     rng = np.random.RandomState(3)
     v, s = GPT_CFG["vocab_size"], GPT_CFG["max_seq_len"]
@@ -370,6 +415,7 @@ def tp_worker(out):
                               model3.state_dict().items()}
     res["restored_logits"] = _np(model3(torch.from_numpy(batches[0][0])))
     res["moe_ep"] = _moe_ep_checks(a)
+    res["sync_bn"] = _sync_bn_checks(r, 2)
     _dump(out, r, res)
 
 

@@ -1,9 +1,11 @@
-"""Op tables of the functional tensor API and nn's activations and norms.
+"""Op tables of the functional tensor API and nn's activations, norms,
+convolutions, pools and sampled losses.
 
 Shared by the CPU parity tests (``tests/test_torch_tensor_api.py``,
-``tests/test_torch_nn_functional.py``: the port against the JAX package
-at tiny shapes) and by ``chip_smoke.py``'s phase 21 (the port on the card
-against the port on the CPU at GPT-2-small widths).  Imports neither JAX
+``tests/test_torch_nn_functional.py``, ``tests/test_torch_nn_layers.py``:
+the port against the JAX package at tiny shapes) and by
+``chip_smoke.py``'s phases 21 and 22 (the port on the card against the
+port on the CPU at GPT-2-small widths and ResNet-50's stage shapes).  Imports neither JAX
 nor either package: a row names an op by its namespace ("" the top
 level, "nn.functional", "linalg"), builds its inputs from a numpy
 ``Generator`` and a shape, and names the family whose tolerance holds it.
@@ -439,3 +441,111 @@ def norm_args(op, x, rng, pkg_tensor):
     if op.name in ("group_norm", "instance_norm"):
         return [], affine(c)
     return [], {}
+
+
+# -- convolutions, pools and sampled losses over an NCHW stage [N, C, H, W]
+# (ResNet-50's stages on the card, [2, 4, 8, 8] in the CPU tests) ---------
+def weight(cout, cin, k):
+    """A conv weight [cout(s), cin(s), k, k] of the stage ``s``'s channels
+    (``cout``/``cin`` multiply them), scaled by 1 / sqrt(fan_in)."""
+    def make(rng, s):
+        co, ci = int(s[1] * cout), int(s[1] * cin)
+        return (rng.standard_normal((co, ci, k, k))
+                / np.sqrt(ci * k * k)).astype(np.float32)
+    return make
+
+
+def channel_bias(rng, s):
+    return (0.1 * rng.standard_normal(s[1])).astype(np.float32)
+
+
+def nhwc(rng, s):
+    return normal(rng, (s[0], s[2], s[3], s[1]))
+
+
+def rows_of(rng, s):
+    """Features [N * H, C]: one row a sample of a sampled loss."""
+    return normal(rng, (s[0] * s[2], s[1]))
+
+
+def _classes(s):
+    return s[2] * s[3]
+
+
+def class_labels(rng, s):
+    return rng.integers(0, _classes(s), (s[0] * s[2], 1)).astype(np.int64)
+
+
+def class_weight(rng, s):
+    return (0.1 * rng.standard_normal((_classes(s), s[1]))).astype(
+        np.float32)
+
+
+def class_bias(rng, s):
+    return (0.1 * rng.standard_normal(_classes(s))).astype(np.float32)
+
+
+def node_weight(rng, s):
+    return (0.1 * rng.standard_normal((_classes(s) - 1, s[1]))).astype(
+        np.float32)
+
+
+def node_bias(rng, s):
+    return (0.1 * rng.standard_normal(_classes(s) - 1)).astype(np.float32)
+
+
+class StageOp(Op):
+    """A row whose call also takes the stage shape's class count (the
+    sampled losses)."""
+
+    def call(self, pkg, x, label, w, b):
+        return [self.fn(pkg)(x, label, int(w.shape[0]) + 1, w, b,
+                             **dict(self.kw, **v)) for v in self.variants]
+
+
+# the conv and pool rows of a ResNet-50 stage; "sum" rows add
+# C * k * k products an output
+CONV_POOL = [
+    Op("conv2d", [normal, weight(1, 1, 3), channel_bias], dict(padding=1),
+       ns=N, family=R, amp="white", acc="sum", label="conv2d_3x3"),
+    Op("conv2d", [normal, weight(4, 1, 1)], ns=N, family=R, amp="white",
+       acc="sum", label="conv2d_1x1_expand"),
+    Op("conv2d", [normal, weight(2, 1, 3)], dict(stride=2, padding="SAME"),
+       ns=N, family=R, amp="white", acc="sum", label="conv2d_3x3_s2_same"),
+    Op("conv2d", [normal, weight(1, 0.5, 3)], dict(padding=[0, 1, 1, 0],
+                                                   groups=2),
+       ns=N, family=R, amp="white", acc="sum",
+       label="conv2d_3x3_grouped_asym"),
+    Op("conv2d", [nhwc, weight(1, 1, 3)], dict(padding=1,
+                                               data_format="NHWC"),
+       ns=N, family=R, amp="white", acc="sum", label="conv2d_3x3_nhwc"),
+    Op("conv2d_transpose", [normal, weight(1, 1, 2), channel_bias],
+       dict(stride=2), ns=N, family=R, amp="white", acc="sum",
+       label="conv2d_transpose_2x2_s2"),
+    Op("max_pool2d", [normal], dict(kernel_size=3, stride=2, padding=1),
+       ns=N, family=R, label="max_pool2d_3x3_s2"),
+    Op("max_pool2d", [normal], dict(kernel_size=2, return_mask=True),
+       ns=N, family=R, label="max_pool2d_mask"),
+    Op("avg_pool2d", [normal], dict(kernel_size=3, stride=2, padding=1,
+                                    ceil_mode=True),
+       ns=N, family=R, acc="mean", label="avg_pool2d_3x3_ceil"),
+    Op("avg_pool2d", [normal], dict(kernel_size=2, exclusive=False),
+       ns=N, family=R, acc="mean", label="avg_pool2d_2x2"),
+    # the adaptive pool means one axis at a time in the input's dtype: a
+    # bf16 output is a mean of W means of H, each rounded, and one
+    # rounding that falls the other way moves it by an O(1) value's ulp
+    # over W; its error grows as a sum's over the H * W inputs, not
+    # shrinks as a mean's
+    Op("adaptive_avg_pool2d", [normal], dict(output_size=1), ns=N,
+       family=R, acc="sum", label="adaptive_avg_pool2d_1"),
+    Op("adaptive_max_pool2d", [normal], dict(output_size=3), ns=N,
+       family=R, label="adaptive_max_pool2d_3"),
+]
+
+# sampled losses over [N * H, C] features and H * W classes
+SAMPLED = [
+    StageOp("hsigmoid_loss", [rows_of, class_labels, node_weight,
+                              node_bias], ns=N, family=R, acc="sum"),
+    Op("nce", [rows_of, class_labels, class_weight, class_bias],
+       dict(num_neg_samples=5, seed=7), ns=N, family=R, acc="sum"),
+]
