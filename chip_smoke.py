@@ -11,6 +11,7 @@
     python3 chip_smoke.py --moe-ps    # phases 1-2, 4 and 20 only
     python3 chip_smoke.py --tensor-api  # phases 1-2 and 21 only
     python3 chip_smoke.py --nn        # phases 1-2 and 22 only
+    python3 chip_smoke.py --vision    # phases 1-2 and 23 only
 
 (``--durability-child`` is phase 13's own child process,
 ``--fleet-child`` phase 16's replica, ``--acp-child`` phase 18's
@@ -332,7 +333,29 @@ Phases, in order; any failure exits non-zero:
    f32 and bf16 within `TA_TOL`; (e) ``SyncBatchNorm`` over spawned ranks
    (two over gloo on one card, four over NCCL on four) against
    ``BatchNorm`` on the global batch;
-23. report — one JSON line of kernels, the card line, and the last line
+23. vision — ``paddle_tpu_torch.vision`` at full width (`vision_phase`):
+   (a) ResNet-50 (1000 classes) through ``paddle.Model.fit``:
+   ``Momentum(0.1, 0.9)`` with L2 1e-4, bf16 by ``prepare(amp_configs=)``,
+   batch 64 from a ``DataLoader`` of 8 worker processes over
+   ``FakeData(image_shape=(3, 256, 256))`` through ``RandomResizedCrop(224)``,
+   a flip and ImageNet's normalisation: images/s of the timed steps, the
+   loader's own images/s, ms a step, peak memory; the f32 eval logits of 2
+   images against the port on the CPU (`VISION_CPU_TOL`); (b) ViT-B/16 at
+   64 x 3 x 224 x 224, 3 bf16 AdamW steps through ``jit.TrainStep``: K3 and
+   K4's dkv and dq launched 12 times a step each (`vision_vit_b16` in
+   their ``launches_by_path``), ms a step, images/s, peak memory; the f32
+   eval logits (K3's f32 kernel) against the CPU's composed form; (c)
+   YOLOv3-DarkNet53 (80 classes) at 8 x 3 x 608 x 608 with 50 padded
+   ground-truth rows an image, 3 bf16 steps; then the eval decode at the
+   model's defaults: the card's ``multiclass_nms`` on the card's
+   ``yolo_box`` candidates equal to the CPU's on the same candidates
+   (rows, indices, counts), ms of the heads, the decode and the NMS apart;
+   (d) the vision op table at detection-model shapes (`VISION_ROI`,
+   `VISION_DEFORM`): ``roi_align``/``roi_pool`` and ``deform_conv2d`` with
+   gradients, ``nms``, ``generate_proposals``' defaults, the multiclass and
+   matrix NMS, ``yolo_box``, ``box_coder``, ``prior_box``, each within
+   `TA_TOL` of the CPU port (indices and counts equal), with the card's ms;
+24. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -6971,6 +6994,481 @@ def nn_phase(torch):
     return res
 
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# (a) ResNet-50 on ImageNet's training recipe (PaddleClas' ResNet50:
+# Momentum 0.1, 0.9, L2 1e-4, batch 64 a card): FakeData of 3 x 256 x 256
+# through RandomResizedCrop(224), a flip and ImageNet's normalisation in 8
+# DataLoader workers, bf16 through Model.prepare(amp_configs=...), 3
+# warm-up and 10 timed steps of Model.fit; then the f32 eval logits of 2
+# images on the card against the port on the CPU from the same state,
+# within VISION_CPU_TOL (relative norm: the card's convolutions stay f32,
+# the two sum each product in another order over 50 layers)
+VISION_RESNET = dict(batch=64, image=(3, 256, 256), crop=224, warm=3,
+                     steps=10, workers=8)
+VISION_CPU_TOL = 1e-4
+# (b) ViT-B/16 (224, patches of 16: 197 tokens of 768, 12 layers and
+# heads), batch 64, bf16 AdamW through jit.TrainStep, 3 steps: K3 and K4's
+# dkv and dq 12 a step each; then the f32 eval logits of 2 images (dropout
+# off), K3's f32 kernel on the card against the composed form on the CPU,
+# within VISION_CPU_TOL
+VISION_VIT = dict(batch=64, steps=3)
+# (c) YOLOv3-DarkNet53 at COCO's width (80 classes) and
+# PaddleDetection's yolov3_darknet53_270e_coco input: 8 images of 608 x 608
+# a card, 50 ground-truth rows an image (5 to 30 real, the rest padding),
+# Momentum 0.9 and L2 5e-4 at its lr 0.001 after a linear warm-up from 0
+# over 4000 steps, 3 bf16 steps (the random weights barely move: the
+# decode keeps its candidates); then the eval decode at the
+# model's defaults (score 0.01, nms_top_k 400, keep_top_k 100, IoU 0.45):
+# the card's multiclass_nms on the card's yolo_box outputs against the
+# CPU's on the same outputs (labels, indices and counts equal; boxes and
+# scores selected from equal inputs, so equal too)
+VISION_YOLO = dict(batch=8, size=608, rows=50, real=(5, 30), steps=3,
+                   warmup=4000)
+# (d) the vision op table at detection-model shapes: a Faster R-CNN C4
+# feature map of an 800 x 1344 image (stride 4 for the ROI ops: [2, 256,
+# 200, 336], 512 ROIs an image of 16-256 pixels, 7 x 7, ratio 2), a
+# deformable 3 x 3 of 256 channels on ResNet's [8, 256, 56, 56] stage,
+# RPN proposals on stride 16 ([2, 15, 50, 84], 15 anchors a cell, the
+# defaults 6000 -> 1000), NMS over 2000 boxes, the multiclass and matrix
+# NMS over [4, 80, 2000], YOLOv3's stride-8 head [8, 255, 76, 76], the box
+# coder over 20000 priors and SSD's conv4_3 priors; each card output (and
+# gradient, where the op has one) against the CPU's within TA_TOL's f32
+# "reduce" (atol grown by sqrt(n) for a sum of n terms), indices and
+# counts equal
+VISION_ROI = dict(feat=(2, 256, 200, 336), rois=512, image=(800, 1344),
+                  scale=0.25, out=7, ratio=2)
+VISION_DEFORM = (8, 256, 56, 56)
+
+
+def _vision_sync_ms(torch, fn):
+    """``(result, ms)`` of ``fn()`` between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _vision_cpu_copy(model):
+    import copy
+
+    return copy.deepcopy(model).to("cpu")
+
+
+def vision_resnet_check(torch, T):
+    """(a) ResNet-50 through Model.fit on the input pipeline, the loader
+    alone, and the f32 eval logits against the CPU."""
+    V = T.vision
+    cfg = VISION_RESNET
+    T.seed(SEED)
+    net = V.models.resnet50()
+    opt = T.optimizer.Momentum(0.1, 0.9, parameters=net.parameters(),
+                               weight_decay=T.regularizer.L2Decay(1e-4))
+    model = T.Model(net)
+    model.prepare(opt, T.nn.CrossEntropyLoss(),
+                  amp_configs={"dtype": "bfloat16"})
+    tf = V.transforms
+    pipe = tf.Compose([tf.RandomResizedCrop(cfg["crop"]),
+                       tf.RandomHorizontalFlip(),
+                       tf.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    n_steps = cfg["warm"] + cfg["steps"]
+    ds = V.datasets.FakeData(num_samples=cfg["batch"] * n_steps,
+                             image_shape=cfg["image"], num_classes=1000,
+                             transform=pipe, seed=SEED)
+    ends = []
+
+    class Clock(T.hapi.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            ends.append((time.perf_counter(), float(logs["loss"])))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(ds, batch_size=cfg["batch"], epochs=1, shuffle=False,
+              drop_last=True, num_workers=cfg["workers"], verbose=0,
+              callbacks=[Clock()])
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in ends]
+    if len(ends) != n_steps or not all(math.isfinite(l) for l in losses):
+        fail(f"phase 23 (a): fit ran {len(ends)} steps of {n_steps}, "
+             f"losses {losses}")
+    gaps = [b - a for (a, _), (b, _) in zip(ends[cfg["warm"] - 1:-1],
+                                           ends[cfg["warm"]:])]
+    step_ms = statistics.median(gaps) * 1e3
+    fit_imgs = cfg["batch"] * len(gaps) / sum(gaps)
+    # the card's step alone: train_batch on one batch already on the card
+    xb = torch.randn(cfg["batch"], 3, cfg["crop"], cfg["crop"],
+                     device="cuda")
+    yb = torch.randint(0, 1000, (cfg["batch"],), device="cuda")
+    card_gaps = []
+    for _ in range(cfg["warm"] + 3):
+        t1 = time.perf_counter()
+        model.train_batch([xb], [yb])
+        card_gaps.append(time.perf_counter() - t1)
+    card_ms = statistics.median(card_gaps[cfg["warm"]:]) * 1e3
+    # the loader alone, from its first batch to its last, to the card
+    loader = T.io.DataLoader(ds, batch_size=cfg["batch"], drop_last=True,
+                             num_workers=cfg["workers"], places="cuda")
+    it = iter(loader)
+    next(it)
+    t1 = time.perf_counter()
+    n = sum(1 for _ in it)
+    torch.cuda.synchronize()
+    loader_imgs = cfg["batch"] * n / (time.perf_counter() - t1)
+    # f32 eval logits, card against the CPU, one state
+    net.eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(2, 3, cfg["crop"], cfg["crop"], generator=gen,
+                    device="cuda")
+    with torch.no_grad():
+        card = net(x)
+        ref = _vision_cpu_copy(net)(x.cpu())
+    err = _rel_norm(torch, card, ref)
+    if not err <= VISION_CPU_TOL:
+        fail(f"phase 23 (a): ResNet-50's f32 eval logits {err:.3g} off the "
+             f"CPU's (relative norm), beyond {VISION_CPU_TOL}")
+    res = dict(step_ms=step_ms, fit_images_per_s=fit_imgs,
+               card_step_ms=card_ms,
+               loader_images_per_s=loader_imgs, fit_s=fit_s,
+               peak_gib=peak / 2 ** 30, losses=losses, cpu_rel_err=err,
+               batch=cfg["batch"], workers=cfg["workers"])
+    print(f"vision (a): ResNet-50 Model.fit bf16 batch {cfg['batch']}: "
+          f"{step_ms:.1f} ms a step, {fit_imgs:.1f} images/s (the card's "
+          f"step alone {card_ms:.1f} ms; the loader alone "
+          f"{loader_imgs:.1f} images/s, {cfg['workers']} workers), "
+          f"peak {peak / 2 ** 30:.2f} GiB, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; f32 eval logits against the CPU {err:.2e}",
+          flush=True)
+    del model, net, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def vision_vit_check(torch, T):
+    """(b) ViT-B/16: 3 bf16 AdamW steps with K3/K4 counted from 0, then
+    the f32 eval logits against the CPU."""
+    V = T.vision
+    cfg = VISION_VIT
+    T.seed(SEED)
+    vit = V.models.vit_b_16()
+    F = T.nn.functional
+
+    def loss_fn(m, x, y):
+        with T.amp.auto_cast(dtype="bfloat16"):
+            logits = m(x)
+        return F.cross_entropy(logits.float(), y)
+
+    step = T.jit.TrainStep(vit, loss_fn, dist_adamw(vit))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(cfg["batch"], 3, 224, 224, generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (cfg["batch"],), generator=gen,
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(cfg["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = 12 * cfg["steps"]
+    if any(launches[k] != want for k in FLASH_KERNELS):
+        fail(f"phase 23 (b): ViT-B/16's steps launched {launches}, want "
+             f"{want} each of K3 and K4's dkv and dq")
+    if not all(math.isfinite(l) for l in losses):
+        fail(f"phase 23 (b): ViT-B/16's losses {losses}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    vit.eval()
+    xe = x[:2].float()
+    reset_counts()
+    with torch.no_grad():
+        card = vit(xe)
+        k3_f32 = read_counts()["fwd"]
+        ref = _vision_cpu_copy(vit)(xe.cpu())
+    err = _rel_norm(torch, card, ref)
+    if k3_f32 != 12 or not err <= VISION_CPU_TOL:
+        fail(f"phase 23 (b): ViT-B/16's f32 eval forward launched K3 "
+             f"{k3_f32} times (want 12), logits {err:.3g} off the CPU's "
+             f"(relative norm), beyond {VISION_CPU_TOL}")
+    res = dict(launches=launches, step_ms=step_ms,
+               images_per_s=cfg["batch"] * 1e3 / step_ms,
+               peak_gib=peak / 2 ** 30, losses=losses, cpu_rel_err=err)
+    print(f"vision (b): ViT-B/16 bf16 batch {cfg['batch']}: K3/K4 "
+          f"{launches['fwd']}/{launches['dkv']}/{launches['dq']} over "
+          f"{cfg['steps']} steps, {step_ms:.1f} ms a step "
+          f"({res['images_per_s']:.1f} images/s), peak "
+          f"{peak / 2 ** 30:.2f} GiB; f32 eval logits (K3 f32) against the "
+          f"CPU {err:.2e}", flush=True)
+    del step, vit
+    torch.cuda.empty_cache()
+    return res
+
+
+def _yolo_gt(torch, cfg, gen):
+    """Ground-truth rows [N, rows, 4] (centre x, y, w, h in [0, 1]) with
+    a random count of real boxes an image, the rest zeros, and labels."""
+    n, rows = cfg["batch"], cfg["rows"]
+    xy = torch.rand(n, rows, 2, generator=gen, device="cuda") * 0.8 + 0.1
+    wh = torch.rand(n, rows, 2, generator=gen, device="cuda") * 0.4 + 0.02
+    real = torch.randint(cfg["real"][0], cfg["real"][1] + 1, (n, 1),
+                         generator=gen, device="cuda")
+    keep = torch.arange(rows, device="cuda")[None] < real
+    gt = torch.where(keep[..., None], torch.cat([xy, wh], -1), 0.0)
+    labels = torch.randint(0, 80, (n, rows), generator=gen, device="cuda")
+    return gt, torch.where(keep, labels, 0)
+
+
+def vision_yolo_check(torch, T):
+    """(c) YOLOv3-DarkNet53: 3 bf16 steps, then the eval decode, the
+    card's NMS against the CPU's on the card's candidates."""
+    V = T.vision
+    cfg = VISION_YOLO
+    T.seed(SEED)
+    yolo = V.models.yolov3_darknet53(80)
+    sched = T.optimizer.lr.LinearWarmup(0.001, cfg["warmup"], 0.0, 0.001)
+    opt = T.optimizer.Momentum(sched, 0.9, parameters=yolo.parameters(),
+                               weight_decay=T.regularizer.L2Decay(5e-4))
+
+    def loss_fn(m, img, gb, gl):
+        with T.amp.auto_cast(dtype="bfloat16"):
+            return m(img, gb, gl)
+
+    step = T.jit.TrainStep(yolo, loss_fn, opt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    s = cfg["size"]
+    img = torch.randn(cfg["batch"], 3, s, s, generator=gen, device="cuda")
+    gt, labels = _yolo_gt(torch, cfg, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(cfg["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(step(img, gt, labels)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        sched.step()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(l) for l in losses):
+        fail(f"phase 23 (c): YOLOv3's losses {losses}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    yolo.eval()
+    im_shape = torch.full((cfg["batch"], 2), s, dtype=torch.int32,
+                          device="cuda")
+    kw = dict(score_threshold=0.01, nms_top_k=400, keep_top_k=100,
+              nms_threshold=0.45, background_label=-1, return_index=True)
+    with torch.no_grad():
+        with T.amp.auto_cast(dtype="bfloat16"):
+            outs, heads_ms = _vision_sync_ms(torch, lambda: yolo._heads(img))
+        (boxes, scores), decode_ms = _vision_sync_ms(
+            torch, lambda: yolo.decode(outs, im_shape))
+        nms_ms = []
+        for _ in range(2):  # the first includes the sort's warm-up
+            got, ms = _vision_sync_ms(torch, lambda: V.ops.multiclass_nms(
+                boxes, scores, **kw))
+            nms_ms.append(ms)
+        t0 = time.perf_counter()
+        want = V.ops.multiclass_nms(boxes.cpu(), scores.cpu(), **kw)
+        cpu_nms_s = time.perf_counter() - t0
+    bad = [name for name, g, w in zip(("rows", "index", "count"), got, want)
+           if not torch.equal(g.cpu(), w)]
+    counts = got[2].tolist()
+    if bad or min(counts) <= 0:
+        fail(f"phase 23 (c): the card's multiclass_nms differs from the "
+             f"CPU's on the same candidates in {bad} (counts {counts})")
+    res = dict(step_ms=step_ms, losses=losses, peak_gib=peak / 2 ** 30,
+               heads_ms=heads_ms, decode_ms=decode_ms, nms_ms=nms_ms[-1],
+               nms_first_ms=nms_ms[0], cpu_nms_s=cpu_nms_s,
+               candidates=int(boxes.shape[1]), counts=counts)
+    print(f"vision (c): YOLOv3-DarkNet53 (80 classes) {cfg['batch']} x {s} "
+          f"x {s} bf16: {step_ms:.1f} ms a train step, peak "
+          f"{peak / 2 ** 30:.2f} GiB, losses {losses[0]:.2f} -> "
+          f"{losses[-1]:.2f}; eval heads {heads_ms:.1f} ms, yolo_box "
+          f"{decode_ms:.1f} ms, multiclass_nms over {boxes.shape[1]} "
+          f"candidates x 80 classes {nms_ms[-1]:.1f} ms (first "
+          f"{nms_ms[0]:.1f}); rows, indices and counts equal to the CPU's",
+          flush=True)
+    del step, yolo, opt, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def _vision_boxes(torch, gen, n, hw, lo, hi):
+    """``n`` xyxy boxes of sides in [lo, hi) inside an image ``hw``."""
+    h, w = hw
+    wh = torch.rand(n, 2, generator=gen) * (hi - lo) + lo
+    x0 = torch.rand(n, generator=gen) * (w - wh[:, 0])
+    y0 = torch.rand(n, generator=gen) * (h - wh[:, 1])
+    return torch.stack([x0, y0, x0 + wh[:, 0], y0 + wh[:, 1]], 1)
+
+
+def _vision_op_cases(torch, T):
+    """``[(name, make(gen) -> inputs, call(ops, *xs) -> outputs, grad,
+    n_terms)]``: each row's CPU inputs, call and the terms behind one of
+    its outputs (gradients: behind one gradient element)."""
+    V = T.vision
+    R = VISION_ROI
+
+    def roi_inputs(gen):
+        x = torch.randn(*R["feat"], generator=gen)
+        b = torch.cat([_vision_boxes(torch, gen, R["rois"], R["image"], 16,
+                                     256) for _ in range(R["feat"][0])])
+        return [x, b, torch.full((R["feat"][0],), R["rois"],
+                                 dtype=torch.int32)]
+
+    def deform_inputs(gen):
+        n, c, h, w = VISION_DEFORM
+        return [torch.randn(n, c, h, w, generator=gen),
+                torch.randn(n, 18, h, w, generator=gen) * 2.0,
+                torch.randn(c, c, 3, 3, generator=gen) / math.sqrt(c * 9),
+                torch.rand(n, 9, h, w, generator=gen),
+                torch.randn(c, generator=gen) * 0.1]
+
+    def nms_inputs(gen):
+        return [_vision_boxes(torch, gen, 2000, R["image"], 16, 256),
+                torch.rand(2000, generator=gen)]
+
+    def rpn_inputs(gen):
+        n, a, h, w = 2, 15, 50, 84
+        cy, cx = torch.meshgrid(torch.arange(h) * 16.0 + 8,
+                                torch.arange(w) * 16.0 + 8, indexing="ij")
+        size = torch.tensor([32.0, 64, 128, 256, 512]).repeat(3)
+        ratio = torch.tensor([0.5, 1.0, 2.0]).repeat_interleave(5)
+        aw, ah = size * ratio.sqrt(), size / ratio.sqrt()
+        anc = torch.stack([cx[..., None] - aw / 2, cy[..., None] - ah / 2,
+                           cx[..., None] + aw / 2, cy[..., None] + ah / 2],
+                          -1)
+        return [torch.rand(n, a, h, w, generator=gen),
+                torch.randn(n, 4 * a, h, w, generator=gen) * 0.2,
+                torch.tensor([[800.0, 1344.0, 1.0]] * n), anc,
+                torch.tensor([0.1, 0.1, 0.2, 0.2]).expand_as(anc)
+                .contiguous()]
+
+    def mc_inputs(gen):
+        b = _vision_boxes(torch, gen, 4 * 2000, (1.0, 1.0), 0.02, 0.3)
+        return [b.reshape(4, 2000, 4), torch.rand(4, 80, 2000,
+                                                  generator=gen)]
+
+    def yolo_inputs(gen):
+        return [torch.randn(8, 255, 76, 76, generator=gen),
+                torch.full((8, 2), 608, dtype=torch.int32)]
+
+    def coder_inputs(gen):
+        p = _vision_boxes(torch, gen, 20000, (1.0, 1.0), 0.02, 0.5)
+        return [p, torch.rand(20000, 4, generator=gen) * 0.2 + 0.1,
+                torch.randn(8, 20000, 4, generator=gen) * 0.5,
+                _vision_boxes(torch, gen, 100, (1.0, 1.0), 0.05, 0.5)]
+
+    def prior_inputs(gen):
+        return [torch.randn(8, 512, 38, 38, generator=gen),
+                torch.randn(8, 3, 300, 300, generator=gen)]
+
+    o = V.ops
+    return [
+        ("roi_align", roi_inputs, lambda x, b, n: o.roi_align(
+            x, b, n, R["out"], R["scale"], R["ratio"]), True, 4 * 64),
+        ("roi_pool", roi_inputs, lambda x, b, n: o.roi_pool(
+            x, b, n, R["out"], R["scale"]), True, 64),
+        ("deform_conv2d", deform_inputs,
+         lambda x, off, w, m, b: o.deform_conv2d(x, off, w, b, padding=1,
+                                                 mask=m), True,
+         VISION_DEFORM[0] * 56 * 56),
+        ("nms", nms_inputs, lambda b, s: o.nms(b, 0.5, s), False, 1),
+        ("generate_proposals", rpn_inputs,
+         lambda s, d, im, a, v: V.detection.generate_proposals(
+             s, d, im, a, v), False, 1),
+        ("multiclass_nms", mc_inputs, lambda b, s: o.multiclass_nms(
+            b, s, 0.05, 400, 100, 0.45, return_index=True), False, 1),
+        ("matrix_nms", mc_inputs, lambda b, s: o.matrix_nms(
+            b, s, 0.05, 0.05, 400, 100, return_index=True), False, 1),
+        ("yolo_box", yolo_inputs, lambda x, im: o.yolo_box(
+            x, im, [10, 13, 16, 30, 33, 23], 80, 0.01, 8), False, 1),
+        ("box_coder", coder_inputs, lambda p, v, t, tb: [
+            o.box_coder(p, v, t, code_type="decode_center_size"),
+            o.box_coder(p, v, tb)], False, 1),
+        ("prior_box", prior_inputs, lambda x, im: o.prior_box(
+            x, im, [30.0], [60.0], [2.0], flip=True, clip=True), False, 1),
+    ]
+
+
+def _vision_run(torch, call, xs, grad, seed):
+    """The flat outputs of ``call(*xs)`` and, with ``grad``, the gradients
+    of the float inputs against a fixed random cotangent of each float
+    output."""
+    if grad:
+        xs = [x.detach().requires_grad_(x.is_floating_point()) for x in xs]
+    outs = call(*xs)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    if not grad:
+        return [o.detach() for o in outs]
+    fl = [o for o in outs if o.is_floating_point() and o.requires_grad]
+    g = torch.Generator().manual_seed(seed)
+    cots = [torch.randn(o.shape, generator=g).to(o.device) for o in fl]
+    wrt = [x for x in xs if x.requires_grad]
+    gs = torch.autograd.grad(fl, wrt, cots, allow_unused=True)
+    return [o.detach() for o in outs] + [
+        torch.zeros_like(x) if v is None else v for x, v in zip(wrt, gs)]
+
+
+def vision_op_rows(torch, T, pool):
+    """(d) Each row on the card against the port on the CPU (on
+    ``pool``'s thread, beside the card): the worst TA_TOL excess, the
+    card's ms (one synchronized call after a warm one) and its peak
+    memory."""
+    rows = []
+    for i, (name, make, call, grad, n) in enumerate(
+            _vision_op_cases(torch, T)):
+        gen = torch.Generator().manual_seed(SEED + i)
+        xs = make(gen)
+        cpu = pool.submit(_vision_run, torch, call, xs, grad, i)
+        card_xs = [x.to("cuda") for x in xs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got, _ = _vision_sync_ms(torch, lambda: _vision_run(
+            torch, call, card_xs, grad, i))
+        got, ms = _vision_sync_ms(torch, lambda: _vision_run(
+            torch, call, card_xs, grad, i))
+        peak = torch.cuda.max_memory_allocated()
+        want = cpu.result()
+        if len(got) != len(want):
+            fail(f"phase 23 (d): {name} gives {len(got)} outputs on the "
+                 f"card, {len(want)} on the CPU")
+        worst = max(_ta_excess(torch, g, w, "reduce", "float32", n, "sum")
+                    for g, w in zip(got, want))
+        rows.append(dict(op=name, excess=worst, ms=ms, grad=grad,
+                         peak_gib=peak / 2 ** 30))
+        print(f"vision (d): {name}{' with gradients' if grad else ''}: "
+              f"worst excess {worst:.3g}, {ms:.2f} ms on the card, peak "
+              f"{peak / 2 ** 30:.2f} GiB", flush=True)
+        if not worst <= 0:
+            fail(f"phase 23 (d): {name} on the card beyond TA_TOL of the "
+                 f"CPU's (excess {worst:.3g})")
+        del got, want, card_xs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vision_phase(torch):
+    """Phase 23: ResNet-50 through Model.fit (a), ViT-B/16 on K3/K4 (b),
+    YOLOv3-DarkNet53's steps and decode (c), the vision op table (d)."""
+    import paddle_tpu_torch as T
+
+    res = dict(resnet50=vision_resnet_check(torch, T),
+               vit_b16=vision_vit_check(torch, T),
+               yolov3=vision_yolo_check(torch, T))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        res["ops"] = vision_op_rows(torch, T, pool)
+    print(f"vision (d): {len(res['ops'])} rows within TA_TOL "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    res["card"] = card_line()
+    return res
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -6981,7 +7479,8 @@ def main(argv) -> int:
     chip_smoke_<mode>.json; ``--tensor-api``: the build and phase 21 alone,
     into chiprun_out/chip_smoke_tensor_api.json; ``--nn``: the build of
     K3/K4 and phase 22 alone, into chiprun_out/chip_smoke_nn.json (with
-    four cards, 22 (e) runs four ranks over NCCL)."""
+    four cards, 22 (e) runs four ranks over NCCL); ``--vision``: the build
+    of K3/K4 and phase 23 alone, into chiprun_out/chip_smoke_vision.json."""
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -6993,12 +7492,13 @@ def main(argv) -> int:
     moe_ps_only = argv == ["--moe-ps"]
     tensor_api_only = argv == ["--tensor-api"]
     nn_only = argv == ["--nn"]
+    vision_only = argv == ["--vision"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
     acp_kid = argv[:1] == ["--acp-child"] and len(argv) == 4
     if argv and not (kernels_only or mesh_only or fleet_only or eager_only
                      or dist_only or hybrid_only or moe_ps_only
-                     or tensor_api_only or nn_only or child
+                     or tensor_api_only or nn_only or vision_only or child
                      or fleet_kid or acp_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -7030,6 +7530,7 @@ def main(argv) -> int:
                             if kernels_only or mesh_only or fleet_only
                             else ["layer_norm"] if tensor_api_only
                             else ["flash_attention"] if nn_only
+                            or vision_only
                             else None)
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
@@ -7117,6 +7618,18 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_nn.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if vision_only:
+        t0 = time.perf_counter()
+        res = dict(card=card, vision=vision_phase(torch))
+        res["vision"]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 23 vision: {res['vision']['phase_s']:.1f} s",
+              flush=True)
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_vision.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -7220,7 +7733,11 @@ def main(argv) -> int:
     # SyncBatchNorm
     nnp = timed("22 nn", nn_phase, torch)
 
-    # 23. report
+    # 23. vision: ResNet-50 through Model.fit, ViT-B/16 on K3/K4, YOLOv3's
+    # steps and decode, the vision op table
+    vision = timed("23 vision", vision_phase, torch)
+
+    # 24. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -7286,7 +7803,8 @@ def main(argv) -> int:
                      nn_bert=nnp["bert"]["launches"][kern],
                      nn_vit_encoder=nnp["vit"]["launches"][kern],
                      nn_transformer_train=nnp["transformer"][
-                         "train_launches"][kern])
+                         "train_launches"][kern],
+                     vision_vit_b16=vision["vit_b16"]["launches"][kern])
         if kern == "fwd":
             paths.update(generate_concat=gen["concat"]["calls"]
                          * gen["concat"]["k3_launches_per_call"],
@@ -7330,7 +7848,7 @@ def main(argv) -> int:
                   telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
                   train=train, train_layer_norm=train_ln, eager=eager,
                   dist=distp, hybrid=hybrid, moe_ps=moe_ps,
-                  tensor_api=tensor_api, nn=nnp)
+                  tensor_api=tensor_api, nn=nnp, vision=vision)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

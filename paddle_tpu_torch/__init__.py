@@ -11,6 +11,8 @@ trains it through the dygraph loop (``loss.backward(); opt.step()``),
 ``torch.distributed`` (`distributed`, ``DataParallel``, ``fleet``).  The top level carries Paddle's surface:
 ``seed``, ``to_tensor``, ``grad``, ``no_grad``, ``save``, ``load``,
 ``Model``, ``summary``, places and dtypes, ``set_device``/``get_device``,
+``vision`` (transforms, datasets, LeNet to ViT and YOLOv3, the detection
+ops),
 and the functional tensor API (`ops`: ``paddle.concat``,
 ``paddle.matmul``, ``paddle.linalg.inv``, ...).  Tensor methods stay
 torch's: see `ops` for the names whose torch method means something
@@ -37,6 +39,7 @@ from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
 from .framework import ParamAttr, load, save
 from . import hapi
 from .hapi import Model, flops, summary
+from . import vision
 import importlib as _importlib
 
 # `from .ops import *` binds nothing called `linalg`; the name is the
@@ -70,5 +73,6 @@ __all__ = ["default_device", "resolve_device", "seed", "to_tensor",
            "metric", "nn", "optimizer", "regularizer", "hapi",
            "distributed", "incubate", "profiler", "DataParallel",
            "set_device", "get_device", "device_count", "ops", "linalg",
-           "enable_static", "disable_static", "in_dynamic_mode"] + ops.__all__
+           "enable_static", "disable_static", "in_dynamic_mode",
+           "vision"] + ops.__all__
 __version__ = "0.1.0"

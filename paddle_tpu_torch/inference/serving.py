@@ -310,6 +310,14 @@ class _StepGraph:
     def captures(self) -> int:
         return len(self._graphs)
 
+    def release_graphs(self):
+        """Destroy this tracker's CUDA graphs (an NCCL communicator is
+        torn down only after the graphs that captured its collectives)."""
+        for cap in self._graphs.values():
+            if cap.graph is not None:
+                cap.graph.reset()
+        self._graphs.clear()
+
     @property
     def warm(self) -> bool:
         """Called at least once, and no first call of a signature in
@@ -433,6 +441,7 @@ class _MeshStep(_StepGraph):
                          capture=shards.mesh.capturable, **kw)
         self._shards = shards
         self._kind = kind
+        shards.mesh.track_graphs(self)
 
     def __call__(self, *host):
         mesh = self._shards.mesh

@@ -93,6 +93,13 @@ def _worker_loop(dataset, collate_fn, index_queue, result_queue, worker_id,
     with per-worker seeding and the exception's traceback sent back to
     the parent."""
     global _WORKER_INFO
+    import torch
+
+    # one intra-op thread a worker, as torch.utils.data's workers: the
+    # workers together already fill the cores (a transform that runs
+    # torch ops, such as Resize, would otherwise start a thread a core in
+    # every worker)
+    torch.set_num_threads(1)
     _WORKER_INFO = WorkerInfo(worker_id, num_workers, dataset)
     np.random.seed((int(seed) + worker_id) % (2 ** 32))
     if worker_init_fn is not None:

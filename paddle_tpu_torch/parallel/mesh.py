@@ -217,6 +217,9 @@ class Mesh:
         self.lock = threading.RLock()
         self._next_hid = 0
         self._closing: List[int] = []  # handles released since the last op
+        # the controller's step trackers whose CUDA graphs captured this
+        # mesh's collectives (`track_graphs`)
+        self._graph_steps = weakref.WeakSet()
         self._procs: List[subprocess.Popen] = []
         self._tx: List[int] = []
         self._rx: List[int] = []
@@ -385,10 +388,17 @@ class Mesh:
         read."""
         return self.request("stats", reset)
 
+    def track_graphs(self, step):
+        """Note a step tracker (`serving._MeshStep`) whose CUDA graphs
+        capture this mesh's collectives: `shutdown` destroys them before
+        the communicator."""
+        self._graph_steps.add(step)
+
     # -- shutdown ----------------------------------------------------------
     def shutdown(self):
         """Stop every worker (an exit message, then a kill after a grace
-        period), abort an NCCL communicator and remove the store."""
+        period), destroy the CUDA graphs that captured an NCCL
+        communicator's collectives, abort it and remove the store."""
         for r, p in enumerate(self._procs, start=1):
             if p.poll() is None:
                 try:
@@ -411,6 +421,12 @@ class Mesh:
         self.broken = self.broken or "shut down"
         group, self._data = getattr(self, "_data", None), None
         if self.backend == "nccl" and group is not None:
+            # NCCL tears a communicator down only after the CUDA graphs
+            # that captured its collectives: with one alive the abort, and
+            # the process's exit, hang (seen on four cards)
+            for step in list(self._graph_steps):
+                step.release_graphs()
+            torch.cuda.synchronize(self.device)
             # the other ranks are gone: release NCCL's communicator without
             # waiting on them (a graceful finalize may wait for peers)
             try:

@@ -322,14 +322,16 @@ for mod in pkgutil.walk_packages(paddle_tpu_torch.__path__,
                                  "paddle_tpu_torch."):
     importlib.import_module(mod.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu", "PIL"))
 # the serving modules this guard must see: the ragged step's, the
 # speculative decoder's, the serving stack around the engine, the
 # telemetry plane, the serving mesh, the port's telemetry tools, the
 # sanitizer, the fleet, the eager core and training, the data-
 # parallel training, profiler and auto-checkpoint modules, and the
 # hybrid-parallel ones, the functional tensor API with nn's
-# activations, losses and norms, and the rest of nn with BERT
+# activations, losses and norms, the rest of nn with BERT, and
+# vision (whose image decoders import PIL only when they run: the card's
+# machine has none)
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -438,7 +440,18 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.nn.utils",
                        "paddle_tpu_torch.nn.decode",
                        "paddle_tpu_torch.ops.misc",
-                       "paddle_tpu_torch.models.bert")
+                       "paddle_tpu_torch.models.bert",
+                       "paddle_tpu_torch.vision",
+                       "paddle_tpu_torch.vision.transforms",
+                       "paddle_tpu_torch.vision.datasets",
+                       "paddle_tpu_torch.vision.ops",
+                       "paddle_tpu_torch.vision.detection",
+                       "paddle_tpu_torch.vision.models.lenet",
+                       "paddle_tpu_torch.vision.models.resnet",
+                       "paddle_tpu_torch.vision.models.vgg",
+                       "paddle_tpu_torch.vision.models.mobilenet",
+                       "paddle_tpu_torch.vision.models.vit",
+                       "paddle_tpu_torch.vision.models.yolov3")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)
