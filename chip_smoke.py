@@ -12,6 +12,7 @@
     python3 chip_smoke.py --tensor-api  # phases 1-2 and 21 only
     python3 chip_smoke.py --nn        # phases 1-2 and 22 only
     python3 chip_smoke.py --vision    # phases 1-2 and 23 only
+    python3 chip_smoke.py --quant-seq # phases 1-2 and 24 only
 
 (``--durability-child`` is phase 13's own child process,
 ``--fleet-child`` phase 16's replica, ``--acp-child`` phase 18's
@@ -355,7 +356,41 @@ Phases, in order; any failure exits non-zero:
    gradients, ``nms``, ``generate_proposals``' defaults, the multiclass and
    matrix NMS, ``yolo_box``, ``box_coder``, ``prior_box``, each within
    `TA_TOL` of the CPU port (indices and counts equal), with the card's ms;
-24. report — one JSON line of kernels, the card line, and the last line
+24. quant-seq — quantization, 2:4 sparsity, the CRF and the op long tail
+   (`quant_seq_phase`): (a) ResNet-50 (1000 classes) at batch 64: QAT
+   (``ImperativeQuantAware``, 3 f32 Momentum steps; each quantized layer's
+   ``_act_scale`` on the EMA rule, every weight's gradient finite and
+   nonzero through the straight-through estimator), then PTQ of a fresh
+   model over 4 calibration batches and ``convert_to_int8``: 53 integer
+   convolutions and 1 integer linear a forward, all through
+   ``torch._int_mm``; the stem's and a stage-4 3x3's s32 accumulators
+   bit-equal to an f64 convolution of the same int8 operands; two images
+   against the CPU layer by layer (`_qs_cascade`: every int8 layer
+   bit-equal on the card's own input, the first moved int8 input one
+   level off on float inputs within `QS_EDGE_LEVELS`), their logits within
+   `QS_INT8_CPU_TOL` of the CPU's and the batch's of the fake-quant
+   model's, top-1 equal to the fake-quant model's off a fixed band
+   (`QS_TOP1_BAND`, at most `QS_MAX_NEAR_TIES` near-ties); ms a batch and
+   images/s of the f32,
+   fake-quant and int8 evals, peak memory; (b) GPT-2-small pruned 2:4
+   (``sparsity.prune_model``, ``decorate(AdamW)``), `QS_SPARSE_STEPS` bf16
+   dygraph steps at 16 x 1024: K3 and K4's dkv and dq 12 a step each
+   (`quant_seq_sparse_gpt2` in their ``launches_by_path``), after every
+   step ``check_mask`` on every pruned parameter and its zeros exactly its
+   mask's; ms a step beside the unpruned model's; (c) a BERT-base CRF
+   tagger (``Linear(768, 67)`` emissions, ``linear_chain_crf`` over a
+   [69, 67] transition) on ``Conll05st``'s synthetic corpus at 32 x 128
+   through a ``DataLoader`` and ``sequence_pad``, 3 bf16 AdamW steps; the
+   card's ``crf_decoding`` equal to the CPU's, the IOB chunk counts and
+   ``ChunkEvaluator``'s precision, recall and F1 equal; ms a step, of the
+   CRF's forward+backward and of the Viterbi decode; (d) every op of the
+   sequence, CRF, control-flow, industrial and misc modules, ``Auc``,
+   ``DetectionMAP`` and the distributions' densities at realistic shapes
+   (`_qs_op_cases`) within `TA_TOL` of the CPU port (integer outputs
+   equal), with the card's ms; the samplers' draws checked, the
+   distributions' moments over `QS_DRAWS` draws within `QS_SIGMAS`
+   standard errors;
+25. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -2286,7 +2321,8 @@ def durability_child(argv) -> int:
 
 def durability_check(torch, new_engine, prompts, clean):
     """(d) A journaled serve in a child process, killed with SIGKILL
-    after `KILL_STEP` steps, restored by another process, f32 and int8:
+    after `KILL_STEP` steps, restored by another process, f32 and int8
+    side by side:
     the restored tokens against the uninterrupted serve's (``clean``,
     by mode), every streamed token exactly once across the two lives, at
     least one sidecar page installed bit-equal to the dead process's
@@ -2295,24 +2331,33 @@ def durability_check(torch, new_engine, prompts, clean):
     import signal
 
     out = {}
+    modes = ("f32", "int8")
     shutil.rmtree(JOURNAL_ROOT, ignore_errors=True)
-    for mode in ("f32", "int8"):
+    for mode in modes:
+        (JOURNAL_ROOT / mode).mkdir(parents=True)
+    me = [sys.executable, str(Path(__file__).resolve()),
+          "--durability-child"]
+    t0 = time.perf_counter()
+    # the two modes' lives run side by side: each first life, then each
+    # second life
+    for role, want_rc in (("serve", -signal.SIGKILL), ("restore", 0)):
+        lives = {mode: subprocess.Popen(me + [role, mode],
+                                        stdout=subprocess.DEVNULL,
+                                        stderr=subprocess.PIPE, text=True)
+                 for mode in modes}
+        for mode, life in lives.items():
+            try:
+                err = life.communicate(timeout=300)[1]
+            except subprocess.TimeoutExpired:
+                for other in lives.values():
+                    other.kill()
+                fail(f"durability {mode}: the {role} ran past 300 s")
+            if life.returncode != want_rc:
+                fail(f"durability {mode}: the {role} exited "
+                     f"{life.returncode}, want {want_rc}:\n{err[-2000:]}")
+    two_lives_s = time.perf_counter() - t0
+    for mode in modes:
         d = JOURNAL_ROOT / mode
-        d.mkdir(parents=True)
-        me = [sys.executable, str(Path(__file__).resolve()),
-              "--durability-child"]
-        t0 = time.perf_counter()
-        serve = subprocess.run(me + ["serve", mode], capture_output=True,
-                               text=True, timeout=300)
-        if serve.returncode != -signal.SIGKILL:
-            fail(f"durability {mode}: the journaled serve exited "
-                 f"{serve.returncode}, not by SIGKILL:\n{serve.stderr[-2000:]}")
-        restore = subprocess.run(me + ["restore", mode],
-                                 capture_output=True, text=True,
-                                 timeout=300)
-        if restore.returncode != 0:
-            fail(f"durability {mode}: the restore exited "
-                 f"{restore.returncode}:\n{restore.stderr[-2000:]}")
         res = json.loads((d / "restored.json").read_text())
         logs = {}
         for line in (d / "streamed.log").read_text().split("\n"):
@@ -2333,7 +2378,7 @@ def durability_check(torch, new_engine, prompts, clean):
                  f"{res['pages_installed']}, bit-equal "
                  f"{res['installed_equal_sidecar']}")
         res.pop("tokens")
-        res["two_lives_s"] = time.perf_counter() - t0
+        res["two_lives_s"] = two_lives_s  # both modes' lives, side by side
         out[mode] = res
         print(f"durability {mode}: killed after step {KILL_STEP}, restored "
               f"{res['requests']} requests in {res['restore_s']:.4f} s, "
@@ -7469,6 +7514,969 @@ def vision_phase(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 24: quantization, 2:4 sparsity, the CRF tagger and the op long tail
+# ---------------------------------------------------------------------------
+# (a) ResNet-50 (1000 classes) at batch 64 x 3 x 224 x 224: QAT through
+# ImperativeQuantAware with 3 f32 Momentum(0.01, 0.9) steps (each quantized
+# layer's _act_scale checked against the EMA rule of its input's absmax,
+# every weight's gradient finite and nonzero through the straight-through
+# estimator); PTQ of a fresh ResNet-50 over 4 calibration batches of 64,
+# then convert_to_int8: 53 integer convolutions and 1 integer linear a
+# forward, all through torch._int_mm.  The stem's 7x7 and layer4[0]'s 3x3
+# s32 accumulators are held bit-equal to an f64 convolution of the same
+# int8 operands (exact: every partial sum is an integer below 2**53).
+# Against the port on the CPU (same weights and scales), two images layer
+# by layer: each of the 54 int8 layers, given the card's own input, gives
+# the card's output bit for bit on the CPU; where the two forwards part,
+# the first layer whose int8 input differs has its differing elements one
+# level apart, and its float inputs within QS_EDGE_LEVELS levels of each
+# other (float rounding of the float layers before it: BatchNorm, the
+# pools, the residual adds), so the part is a rounding edge and not an
+# error of the int8 route.  From there the moves cascade through the
+# later layers; the two images' logits must lie within QS_INT8_CPU_TOL
+# (relative norm) of the CPU's, and the whole batch's int8 logits within
+# it of the fake-quant model's (the same rounding-edge mechanism).  Top-1
+# of the int8 model must equal the fake-quant model's on every image whose
+# fake-quant top-2 margin exceeds QS_TOP1_BAND times that image's logit
+# spread (the standard deviation over the 1000 classes, about 1380 at
+# this seed); at most QS_MAX_NEAR_TIES images may fall inside the band
+QS_RESNET = dict(batch=64, image=224, qat_steps=3, calib=4, timed=5)
+QS_INT8_CPU_TOL = 5e-2
+QS_EDGE_LEVELS = 1e-3
+QS_TOP1_BAND = 0.05
+QS_MAX_NEAR_TIES = 8
+QS_EMA_RTOL = 1e-6
+# (b) GPT-2-small (bench.py's widths) pruned 2:4 by sparsity.prune_model
+# (every parameter of two or more dimensions, embeddings included, as the
+# JAX package), decorate(AdamW) with phase 17's recipe, QS_SPARSE_STEPS
+# bf16 dygraph steps at 16 x 1024 (K3, K4's dkv and dq 12 a step each);
+# after every step check_mask holds on every pruned parameter and its zeros
+# are exactly its mask's; then QS_DENSE_STEPS steps of the unpruned model
+# from the same weights for the ms a step beside it
+QS_SPARSE_STEPS = 10
+QS_DENSE_STEPS = 4
+# (c) a BERT-base CRF tagger for Conll05's SRL tags: BertModel (bert-base
+# widths), Linear(768, 67) emissions and linear_chain_crf over a [69, 67]
+# transition, batch 32 x 128 from Conll05st(num_labels=67, seq_len=128)'s
+# synthetic corpus through a DataLoader (rows packed, lengths beside them)
+# and sequence_pad on the card, 3 bf16 AdamW steps; then crf_decoding on
+# the card against the CPU over the same f32 emissions (paths equal), the
+# IOB chunk counts of extract_chunk_spans over 33 chunk types for the
+# decoded and the gold tags and ChunkEvaluator's precision, recall and F1
+# equal; ms a step, and the CRF's forward+backward and the Viterbi decode
+# apart (each a 128-step recursion of small launches)
+QS_CRF = dict(batch=32, seq=128, labels=67, chunk_types=33, steps=3,
+              samples=96)
+# (d) the op table at realistic shapes (CTR batches of 512, 128-token
+# sequences, detection-sized boxes): each card output (and gradient where
+# the row takes one) against the port on the CPU within TA_TOL's f32
+# "reduce" family (atol grown by sqrt(n) for a sum of n terms), integer
+# outputs (indices, hash ids, paths, counts, masks) equal; the samplers
+# checked by what a draw must satisfy; the distributions' moments over
+# QS_DRAWS draws within QS_SIGMAS standard errors
+QS_DRAWS = 10 ** 6
+QS_SIGMAS = 6.0
+
+
+def _qs_ms(torch, fn, reps=1):
+    """``(result, median ms)`` of ``fn()`` over ``reps`` synchronized
+    calls."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def _qs_images(torch, n, size, gen):
+    return torch.randn(n, 3, size, size, generator=gen).to("cuda")
+
+
+def _qs_quantized(T, model):
+    Q = T.quantization
+    return [(n, m) for n, m in model.named_sublayers()
+            if isinstance(m, (Q.QuantizedLinear, Q.QuantizedConv2D))]
+
+
+def _qs_qat(torch, T, cfg, gen):
+    """(a) QAT: 3 f32 Momentum steps with the EMA rule and the
+    straight-through gradients checked."""
+    T.seed(SEED)
+    net = T.vision.models.resnet50().to("cuda")
+    T.quantization.ImperativeQuantAware().quantize(net)
+    twins = _qs_quantized(T, net)
+    opt = T.optimizer.Momentum(0.01, 0.9, parameters=net.parameters())
+    seen = {}
+
+    def hook(name):
+        def pre(mod, args):
+            seen[name] = (mod._act_scale.detach().clone(),
+                          args[0].detach().abs().amax().float())
+        return pre
+
+    handles = [m.register_forward_pre_hook(hook(n)) for n, m in twins]
+    net.train()
+    losses, ema_err, times = [], 0.0, []
+    for step in range(cfg["qat_steps"]):
+        x = _qs_images(torch, cfg["batch"], cfg["image"], gen)
+        y = torch.randint(0, 1000, (cfg["batch"],), generator=gen).to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = T.nn.functional.cross_entropy(net(x), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        for n, m in twins:
+            s_old, cur = seen[n]
+            want = torch.where(s_old > 0, 0.9 * s_old + (1 - 0.9) * cur, cur)
+            ema_err = max(ema_err, float(((m._act_scale - want).abs()
+                                          / want.abs()).max()))
+        bad = [n for n, m in twins if m.weight.grad is None
+               or not torch.isfinite(m.weight.grad).all()
+               or float(m.weight.grad.abs().max()) == 0.0]
+        if bad:
+            fail(f"phase 24 (a): QAT step {step}: no finite, nonzero "
+                 f"gradient (straight-through) for {bad[:5]}")
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    for h in handles:
+        h.remove()
+    if not all(math.isfinite(v) for v in losses) or \
+            not ema_err <= QS_EMA_RTOL:
+        fail(f"phase 24 (a): QAT losses {losses}, the act scales "
+             f"{ema_err:.3g} off the EMA rule (relative), beyond "
+             f"{QS_EMA_RTOL}")
+    res = dict(losses=losses, ema_rel_err=ema_err, layers=len(twins),
+               step_ms=statistics.median(times[1:] or times) * 1e3)
+    del net, opt
+    return res
+
+
+def _qs_acc_check(torch, T, layer, x):
+    """``layer``'s s32 accumulator on ``x`` against an f64 convolution of
+    the same int8 operands (exact); returns the number of elements
+    compared."""
+    from paddle_tpu_torch.quantization import int8 as Q8
+
+    acc = layer.accumulate(x)
+    qx = Q8.quantize_act(x, layer.act_scale)
+    stride, dil, pads = Q8._geometry(layer, qx.shape[2:])
+    qx = torch.nn.functional.pad(qx, (pads[1][0], pads[1][1], pads[0][0],
+                                      pads[0][1]))
+    ref = torch.nn.functional.conv2d(
+        qx.double(), layer.qweight.double(), stride=stride, dilation=dil,
+        groups=layer._groups)
+    if not torch.equal(acc.long(), ref.round().long()):
+        fail(f"phase 24 (a): an int8 accumulator {tuple(acc.shape)} differs "
+             f"from the f64 product of its int8 operands")
+    return acc.numel()
+
+
+def _qs_ptq_int8(torch, T, cfg, gen):
+    """(a) PTQ, convert_to_int8, the int8 eval against the f32 and
+    fake-quant evals, the accumulators, the CPU."""
+    import copy
+
+    from paddle_tpu_torch.quantization import int8 as Q8
+
+    T.seed(SEED)
+    net = T.vision.models.resnet50().to("cuda").eval()
+    xe = _qs_images(torch, cfg["batch"], cfg["image"], gen)
+    with torch.no_grad():
+        f32_logits, f32_ms = _qs_ms(torch, lambda: net(xe), cfg["timed"])
+    calib = [_qs_images(torch, cfg["batch"], cfg["image"], gen)
+             for _ in range(cfg["calib"])]
+
+    def calib_fn(m):
+        with torch.no_grad():
+            for b in calib:
+                m(b)
+
+    T.quantization.ImperativePTQ().quantize(net, calib_fn)
+    net.eval()
+    with torch.no_grad():
+        fq_logits, fq_ms = _qs_ms(torch, lambda: net(xe), cfg["timed"])
+    T.quantization.convert_to_int8(net)
+    probe = {}
+    stem, deep = net.conv1, net.layer4[0].conv2
+    hs = [l.register_forward_pre_hook(
+        lambda mod, a, k=k: probe.__setitem__(k, a[0].detach()))
+        for k, l in (("stem", stem), ("layer4", deep))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        Q8.reset_counts()
+        int8_logits = net(xe)
+        per_forward = Q8.counts()
+        _, int8_ms = _qs_ms(torch, lambda: net(xe), cfg["timed"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for h in hs:
+        h.remove()
+    want = {"linear": 1, "conv": 53, "cuda": 54}
+    if per_forward != want:
+        fail(f"phase 24 (a): the int8 ResNet-50's forward ran {per_forward} "
+             f"integer products, want {want}")
+    with torch.no_grad():
+        n_acc = sum(_qs_acc_check(torch, T, l, probe[k])
+                    for k, l in (("stem", stem), ("layer4", deep)))
+        cpu = copy.deepcopy(net).to("cpu")
+        cascade = _qs_cascade(torch, net, cpu, xe[:2])
+    cpu_err = _rel_norm(torch, int8_logits[:2], cascade.pop("cpu_logits"))
+    fq_err = _rel_norm(torch, int8_logits, fq_logits)
+    diff = float((int8_logits - fq_logits).abs().max())
+    top2 = fq_logits.topk(2, dim=1).values
+    band = QS_TOP1_BAND * fq_logits.std(dim=1)
+    clear = (top2[:, 0] - top2[:, 1]) > band
+    agree = int8_logits.argmax(1) == fq_logits.argmax(1)
+    near = int((~clear).sum())
+    if not cpu_err <= QS_INT8_CPU_TOL or not fq_err <= QS_INT8_CPU_TOL:
+        fail(f"phase 24 (a): the int8 logits {cpu_err:.3g} off the CPU's "
+             f"and {fq_err:.3g} off the fake-quant model's (relative norm, "
+             f"tolerance {QS_INT8_CPU_TOL})")
+    if not bool(agree[clear].all()) or near > QS_MAX_NEAR_TIES:
+        fail(f"phase 24 (a): int8 top-1 differs from fake-quant's on "
+             f"{int((~agree & clear).sum())} clear images, {near} near-ties "
+             f"(at most {QS_MAX_NEAR_TIES})")
+    b = cfg["batch"]
+    res = dict(int8_products_a_forward=per_forward,
+               accumulators_checked=n_acc, cpu_rel_err=cpu_err,
+               cascade=cascade, int8_vs_fake_quant_rel=fq_err,
+               int8_vs_fake_quant_max_abs=diff,
+               fake_quant_vs_f32_rel=_rel_norm(torch, fq_logits,
+                                               f32_logits),
+               top1_band_min=float(band.min()),
+               top1_margin_min=float((top2[:, 0] - top2[:, 1]).min()),
+               top1_agree=int(agree.sum()), near_ties=near,
+               near_ties_agree=int(agree[~clear].sum()),
+               f32_eval_ms=f32_ms, fake_quant_eval_ms=fq_ms,
+               int8_eval_ms=int8_ms, f32_images_per_s=b * 1e3 / f32_ms,
+               fake_quant_images_per_s=b * 1e3 / fq_ms,
+               int8_images_per_s=b * 1e3 / int8_ms, int8_peak_gib=peak)
+    del net, cpu
+    return res
+
+
+def _qs_cascade(torch, net, cpu, x):
+    """The card's int8 ResNet-50 (``net``) against its copy on the CPU on
+    the images ``x``, layer by layer.  Every int8 layer, given the card's
+    own input, must give the card's output bit for bit on the CPU; at the
+    first layer whose int8 input differs between the two forwards, the
+    differing elements must be one level apart and the float inputs within
+    QS_EDGE_LEVELS levels of each other.  Returns the readings, the CPU's
+    logits under ``cpu_logits``."""
+    from paddle_tpu_torch.quantization import int8 as Q8
+
+    def tap(model, seen):
+        return [m.register_forward_hook(
+            lambda mod, a, out, n=n: seen.append((n, mod, a[0], out)))
+            for n, m in model.named_sublayers()
+            if isinstance(m, (Q8.Int8Linear, Q8.Int8Conv2D))]
+
+    on_card, on_cpu = [], []
+    hs = tap(net, on_card) + tap(cpu, on_cpu)
+    net(x)
+    cpu_logits = cpu(x.cpu())
+    for h in hs:
+        h.remove()
+    if [r[0] for r in on_card] != [r[0] for r in on_cpu] or \
+            len(on_card) != 54:
+        fail(f"phase 24 (a): the int8 layers ran {len(on_card)} times on "
+             f"the card, {len(on_cpu)} on the CPU, want 54 in one order")
+    layers = []
+    for (name, mod, xin, out), (_, cmod, cin, _) in zip(on_card, on_cpu):
+        if not torch.equal(cmod(xin.cpu()), out.cpu()):
+            fail(f"phase 24 (a): int8 layer {name} on the CPU differs from "
+                 f"the card's on the card's own input")
+        scale = cmod.act_scale
+        va = xin.cpu() / scale * Q8.Q_MAX
+        vb = cin / scale * Q8.Q_MAX
+        qa = Q8.quantize_act(xin, mod.act_scale).cpu().int()
+        qb = Q8.quantize_act(cin, scale).int()
+        moved = qa != qb
+        layers.append(dict(
+            layer=name, elements=qa.numel(), moved=int(moved.sum()),
+            max_levels=int((qa - qb).abs().max()),
+            max_input_levels=float((va - vb).abs().max()),
+            input_rel=_rel_norm(torch, xin.cpu(), cin)))
+    first = next((r for r in layers if r["moved"]), None)
+    if first is not None and (first["max_levels"] > 1 or
+                              not first["max_input_levels"] <=
+                              QS_EDGE_LEVELS):
+        fail(f"phase 24 (a): the first int8 layer whose input differs from "
+             f"the CPU's, {first['layer']}, moves "
+             f"{first['max_levels']} levels on inputs "
+             f"{first['max_input_levels']:.3g} levels apart (at most 1 on "
+             f"{QS_EDGE_LEVELS})")
+    return dict(layers_bit_equal=len(layers), first=first,
+                layers_moved=sum(1 for r in layers if r["moved"]),
+                per_layer=layers, cpu_logits=cpu_logits)
+
+
+def quant_resnet_check(torch, T):
+    """(a) ResNet-50: QAT, PTQ, convert_to_int8, the int8 eval."""
+    cfg = QS_RESNET
+    gen = torch.Generator().manual_seed(SEED)
+    res = dict(qat=_qs_qat(torch, T, cfg, gen))
+    res.update(_qs_ptq_int8(torch, T, cfg, gen))
+    q, c = res["qat"], res["cascade"]
+    f = c["first"]
+    first = "none" if f is None else (
+        f"{f['layer']} ({f['moved']} of {f['elements']} elements, "
+        f"{f['max_levels']} level, inputs {f['max_input_levels']:.3g} "
+        f"levels apart)")
+    print(f"quant-seq (a): ResNet-50 QAT {len(q['losses'])} f32 Momentum "
+          f"steps at batch {cfg['batch']}, losses {q['losses']}, "
+          f"{q['step_ms']:.1f} ms forward+backward, EMA "
+          f"{q['ema_rel_err']:.2g} off over {q['layers']} layers; int8 "
+          f"eval {res['int8_eval_ms']:.1f} ms a batch "
+          f"({res['int8_images_per_s']:.1f} images/s) against f32 "
+          f"{res['f32_eval_ms']:.1f} ({res['f32_images_per_s']:.1f}) and "
+          f"fake-quant {res['fake_quant_eval_ms']:.1f} "
+          f"({res['fake_quant_images_per_s']:.1f}), peak "
+          f"{res['int8_peak_gib']:.2f} GiB; {res['int8_products_a_forward']}"
+          f" integer products a forward, {res['accumulators_checked']} s32 "
+          f"sums bit-equal; top-1 {res['top1_agree']}/{cfg['batch']} as "
+          f"fake-quant ({res['near_ties']} near-ties, band from "
+          f"{res['top1_band_min']:.1f}, smallest margin "
+          f"{res['top1_margin_min']:.1f}), int8 logits "
+          f"{res['int8_vs_fake_quant_rel']:.2e} off fake-quant's; CPU int8 "
+          f"logits {res['cpu_rel_err']:.2e} off, {c['layers_bit_equal']} "
+          f"int8 layers bit-equal to the CPU's on the card's inputs, "
+          f"{c['layers_moved']} with moved inputs, the first {first}",
+          flush=True)
+    _qs_free(torch)
+    return res
+
+
+def _qs_free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sparse_gpt_check(torch, T):
+    """(b) GPT-2-small pruned 2:4, decorate(AdamW), the dygraph loop."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    S = T.sparsity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tp.gpt2_small_config()
+    tokens, labels = tp.train_batch(cfg, "cuda")
+    model = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    dense_state = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+    t0 = time.perf_counter()
+    pruned = len(S.prune_model(model))
+    prune_s = time.perf_counter() - t0
+    dev_masks = S.ASPHelper._masks[model]
+    params = dict(model.named_parameters())
+    sched, opt = eager_recipe(model)
+    opt = S.decorate(opt, model)
+    reset_counts()
+    losses, times = [], []
+    for step in range(QS_SPARSE_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(eager_step(torch, model, opt, sched, tokens,
+                                       labels)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        for name, mask in dev_masks.items():
+            p = params[name].detach()
+            if not S.check_mask(p) or not torch.equal(p == 0, mask == 0):
+                fail(f"phase 24 (b): after step {step} {name} breaks its "
+                     f"2:4 mask")
+    launches = read_counts()
+    want = cfg.num_layers * QS_SPARSE_STEPS
+    if any(launches[k] != want for k in FLASH_KERNELS):
+        fail(f"phase 24 (b): the pruned GPT's steps launched {launches}, "
+             f"want {want} each of K3 and K4's dkv and dq")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 24 (b): losses {losses}")
+    density = sum(float((params[n] != 0).sum()) for n in dev_masks) / sum(
+        params[n].numel() for n in dev_masks)
+    del model, opt, sched, params, dev_masks
+    _qs_free(torch)
+    dense = GPT.random(cfg, seed=tp.SEED, device="cuda")
+    dense.set_state_dict(dense_state)
+    del dense_state
+    dsched, dopt = eager_recipe(dense)
+    dtimes = []
+    for _ in range(QS_DENSE_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager_step(torch, dense, dopt, dsched, tokens, labels)
+        torch.cuda.synchronize()
+        dtimes.append(time.perf_counter() - t1)
+    res = dict(losses=losses, launches=launches, pruned=pruned,
+               density=density, prune_s=prune_s,
+               step_ms=statistics.median(times[1:]) * 1e3,
+               dense_step_ms=statistics.median(dtimes[1:]) * 1e3)
+    print(f"quant-seq (b): GPT-2-small 2:4 ({pruned} parameters pruned "
+          f"in {prune_s:.1f} s, density {density:.4f}): K3/K4 "
+          f"{launches.get('fwd')}/{launches.get('dkv')}/"
+          f"{launches.get('dq')} over {QS_SPARSE_STEPS} steps, masks held "
+          f"after every step, {res['step_ms']:.1f} ms a step against "
+          f"{res['dense_step_ms']:.1f} unpruned; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    del dense, dopt, dsched
+    _qs_free(torch)
+    return res
+
+
+def _crf_collate(samples):
+    """Conll05st samples (words, 5 contexts, verb, mark, labels) packed:
+    words and labels back to back, and the lengths."""
+    import numpy as np
+
+    words = np.concatenate([s[0] for s in samples])
+    labels = np.concatenate([s[-1] for s in samples])
+    lengths = np.array([len(s[0]) for s in samples], np.int64)
+    return words, labels, lengths
+
+
+def _chunk_counts(M, infer, gold, lengths, types):
+    ni = nl = nc = 0
+    for i, n in enumerate(lengths.tolist()):
+        ci = set(M.extract_chunk_spans(infer[i, :n], "IOB", types))
+        cl = set(M.extract_chunk_spans(gold[i, :n], "IOB", types))
+        ni, nl, nc = ni + len(ci), nl + len(cl), nc + len(ci & cl)
+    return ni, nl, nc
+
+
+def crf_tagger_check(torch, T):
+    """(c) The BERT-base CRF tagger: 3 bf16 AdamW steps, then the Viterbi
+    decode against the CPU and the chunk metrics."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import bert as B
+
+    cfg = QS_CRF
+    F = T.nn.functional
+    T.seed(SEED)
+    bcfg = B.BertConfig()
+
+    class Tagger(T.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.bert = B.BertModel(bcfg, device="cuda")
+            self.emit = T.nn.Linear(bcfg.hidden_size, cfg["labels"],
+                                    device="cuda")
+            self.transition = self.create_parameter(
+                [cfg["labels"] + 2, cfg["labels"]], device="cuda",
+                default_initializer=T.nn.initializer.Normal(0.0, 0.1))
+
+        def forward(self, ids, mask):
+            with T.amp.auto_cast(dtype="bfloat16"):
+                seq, _ = self.bert(ids, attention_mask=mask)
+                return self.emit(seq)
+
+    model = Tagger().train()
+    opt = T.optimizer.AdamW(5e-5, parameters=model.parameters(),
+                            weight_decay=0.01)
+    ds = T.text.Conll05st(num_labels=cfg["labels"], seq_len=cfg["seq"],
+                          num_samples=cfg["samples"])
+    loader = T.io.DataLoader(ds, batch_size=cfg["batch"], drop_last=True,
+                             collate_fn=_crf_collate)
+    batches = []
+    for words, labels, lengths in loader:
+        words, labels, lengths = (t.to("cuda") for t in (words, labels,
+                                                         lengths))
+        ids, _ = T.sequence_pad(words, lengths, 0, cfg["seq"])
+        tags, _ = T.sequence_pad(labels, lengths, 0, cfg["seq"])
+        mask = T.sequence_mask(lengths, cfg["seq"], "bool")
+        batches.append((ids.long(), tags.long(), lengths, mask))
+    if len(batches) < cfg["steps"] or batches[0][0].shape != (
+            cfg["batch"], cfg["seq"]):
+        fail(f"phase 24 (c): the loader gave {len(batches)} batches of "
+             f"{tuple(batches[0][0].shape)}")
+    reset_counts()
+    losses, times = [], []
+    for ids, tags, lengths, mask in batches[:cfg["steps"]]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        em = model(ids, mask)
+        loss = T.linear_chain_crf(em, model.transition, tags,
+                                  lengths).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+    launches = read_counts()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 24 (c): losses {losses}")
+    ids, tags, lengths, mask = batches[0]
+    model.eval()
+    with torch.no_grad():
+        em = model(ids, mask).float()
+    em_g = em.detach().requires_grad_()
+    trans = model.transition.detach().clone().requires_grad_()
+
+    def crf_fb():
+        loss = T.linear_chain_crf(em_g, trans, tags, lengths).sum()
+        loss.backward()
+        return loss
+
+    _, fb_ms = _qs_ms(torch, crf_fb, 3)
+    path, vit_ms = _qs_ms(torch, lambda: T.crf_decoding(
+        em, model.transition.detach(), length=lengths), 3)
+    cpu_path = T.crf_decoding(em.cpu(), model.transition.detach().cpu(),
+                              length=lengths.cpu())
+    if not torch.equal(path.cpu(), cpu_path):
+        fail(f"phase 24 (c): the card's Viterbi paths differ from the CPU's "
+             f"at {int((path.cpu() != cpu_path).sum())} positions")
+    M = T.metric
+    gold = tags.cpu().numpy()
+    ln = lengths.cpu().numpy()
+    card_counts = _chunk_counts(M, path.cpu().numpy(), gold, ln,
+                                cfg["chunk_types"])
+    cpu_counts = _chunk_counts(M, cpu_path.numpy(), gold, ln,
+                               cfg["chunk_types"])
+    ev_card, ev_cpu = M.ChunkEvaluator(), M.ChunkEvaluator()
+    ev_card.update(*card_counts)
+    ev_cpu.update(*cpu_counts)
+    if card_counts != cpu_counts or ev_card.accumulate() != \
+            ev_cpu.accumulate():
+        fail(f"phase 24 (c): chunk counts {card_counts} (card) against "
+             f"{cpu_counts} (CPU)")
+    p, r, f1 = ev_card.accumulate()
+    res = dict(losses=losses, launches=launches,
+               step_ms=statistics.median(times[1:]) * 1e3,
+               crf_fwd_bwd_ms=fb_ms, viterbi_ms=vit_ms,
+               chunk_counts=list(card_counts), precision=p, recall=r, f1=f1,
+               batches=len(batches))
+    print(f"quant-seq (c): BERT-base CRF tagger at {cfg['batch']} x "
+          f"{cfg['seq']}, {cfg['labels']} tags: {res['step_ms']:.1f} ms a "
+          f"bf16 step, losses {losses}; CRF forward+backward {fb_ms:.2f} ms, "
+          f"Viterbi {vit_ms:.2f} ms; paths equal to the CPU's, chunks "
+          f"{card_counts} (P {p:.4f} R {r:.4f} F1 {f1:.4f}) equal; K3/K4 "
+          f"{launches.get('fwd')}/{launches.get('dkv')}/"
+          f"{launches.get('dq')} (BERT's masked attention is composed)",
+          flush=True)
+    del model, opt
+    _qs_free(torch)
+    return res
+
+
+def _qs_tree(torch, depth):
+    """A complete binary tree of ``depth`` levels as ``tdm_child``'s
+    ``tree_info`` (ids 1.., 0 the padding node; leaves are items) and
+    ``tdm_sampler``'s travel paths and layer list."""
+    n = 2 ** depth
+    info = torch.zeros(n, 5, dtype=torch.int64)
+    for node in range(1, n // 2):
+        info[node, 3:5] = torch.tensor([2 * node, 2 * node + 1])
+    for node in range(1, n):
+        info[node, 1] = node.bit_length() - 1
+    info[n // 2:, 0] = torch.arange(n // 2, n) + 1000
+    leaves = torch.arange(n // 2, n)
+    travel = torch.stack([leaves >> (depth - 1 - level)
+                          for level in range(1, depth)], 1)
+    layer = torch.arange(2, n)[:, None]
+    offs = [0] + [2 ** (level + 1) - 2 for level in range(1, depth)]
+    return info, travel, layer, offs
+
+
+def _qs_op_cases(torch, T):
+    """``[(name, make(gen) -> CPU inputs, call(*xs) -> outputs, grad,
+    n_terms)]`` at realistic shapes."""
+    M = T.metric
+    D = T.distribution
+    CF = T.ops.control_flow
+    B, S, H = 32, 128, 768          # a 128-token batch of BERT-base width
+    N = 512                          # a CTR batch
+
+    def rn(gen, *shape):
+        return torch.randn(*shape, generator=gen)
+
+    def ri(gen, lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen)
+
+    def lens(gen, n=B, t=S):
+        ln = ri(gen, 1, t + 1, n)
+        ln[0] = t
+        return ln
+
+    def seq(gen):
+        return [rn(gen, B, S, H), lens(gen)]
+
+    def packed(gen):
+        ln = lens(gen)
+        return [rn(gen, int(ln.sum()), H), ln]
+
+    def crf(gen):
+        return [rn(gen, B, S, 67), rn(gen, 69, 67) * 0.1, ri(gen, 0, 67, B, S),
+                lens(gen)]
+
+    def boxes(gen, n, size):
+        xy = torch.rand(n, 2, generator=gen) * size * 0.7
+        return torch.cat([xy, xy + torch.rand(n, 2, generator=gen) * size
+                          * 0.3 + 1.0], 1)
+
+    info, travel, layer, offs = _qs_tree(torch, 10)
+
+    def ctr_rank(gen):
+        ro = torch.zeros(N, 7, dtype=torch.int64)
+        ro[:, 0] = ri(gen, 0, 4, N)
+        ro[:, 1::2] = ri(gen, 0, 4, N, 3)
+        ro[:, 2::2] = ri(gen, 0, N, N, 3)
+        return [rn(gen, N, 64), ro, rn(gen, 9 * 64, 128) * 0.1]
+
+    def tree(gen):
+        b, n = 64, 32
+        e = torch.zeros(b, n - 1, 2, dtype=torch.int64)
+        par = [ri(gen, 1, i + 1, b) for i in range(1, n)]
+        for i in range(1, n):
+            e[:, i - 1, 0] = par[i - 1]
+            e[:, i - 1, 1] = i + 1
+        e[::3, n // 2:] = 0                      # smaller trees, padded
+        return [rn(gen, b, n, 64), e, rn(gen, 64, 3, 4, 32) * 0.1]
+
+    def dequant_table(gen):
+        codes = ri(gen, 0, 256, 10000, 64).to(torch.uint8)
+        mn = -torch.rand(10000, 1, generator=gen) - 1
+        mx = torch.rand(10000, 1, generator=gen) + 1
+        return [torch.cat([mn, mx, codes.view(torch.float32)], 1),
+                ri(gen, 0, 10000, N, 26)]
+
+    def seg(gen):
+        # 512 segments, none empty
+        s, _ = torch.sort(torch.cat([torch.arange(512),
+                                     ri(gen, 0, 512, 4096 - 512)]))
+        return [rn(gen, 4096, 64), s]
+
+    def det(gen):
+        gt = boxes(gen, 20, 600.0)
+        pick = ri(gen, 0, 20, 100)
+        return [gt[pick] + rn(gen, 100, 4) * 10, torch.rand(100,
+                                                           generator=gen),
+                ri(gen, 0, 21, 20)[pick], gt, ri(gen, 0, 21, 20)]
+
+    def run_det(pb, ps, pl, gb, gl):
+        m = M.DetectionMAP()
+        for i in range(4):
+            m.update(pb, ps, (pl + i) % 21, gb, gl)
+        return torch.tensor([m.accumulate()])
+
+    def run_auc(p, y):
+        m = M.Auc()
+        m.update(p, y)
+        return torch.tensor([m.accumulate()])
+
+    def dists(gen):
+        return [rn(gen, N, 64), torch.rand(N, 64, generator=gen) + 0.5,
+                rn(gen, N, 64), torch.rand(N, 64, generator=gen) + 0.5,
+                rn(gen, N, 64)]
+
+    def run_normal(m1, s1, m2, s2, v):
+        a, b = D.Normal(m1, s1), D.Normal(m2, s2)
+        return [a.log_prob(v), a.entropy(), a.kl_divergence(b), a.probs(v)]
+
+    def run_uniform(lo, w, _, __, v):
+        u = D.Uniform(lo, lo + w)
+        return [u.log_prob(lo + w * torch.sigmoid(v)), u.entropy()]
+
+    def run_categorical(l1, _, l2, __, v):
+        a, b = D.Categorical(l1), D.Categorical(l2)
+        ids = (v.abs() * 10).long() % l1.shape[-1]
+        return [a.log_prob(ids[:, 0]), a.entropy(), a.kl_divergence(b)]
+
+    G = True
+    return [
+        ("sequence_mask", lambda g: [lens(g)],
+         lambda l: T.sequence_mask(l, S), False, 1),
+        ("sequence_pad", packed, lambda x, l: T.sequence_pad(x, l, 0.0, S),
+         G, 1),
+        ("sequence_unpad", seq, lambda x, l: T.sequence_unpad(x, l), G, 1),
+        *[(f"sequence_pool[{t}]", seq, lambda x, l, t=t: T.sequence_pool(
+            x, l, t), t in ("sum", "max"), S)
+          for t in ("sum", "average", "sqrt", "max", "last", "first")],
+        ("sequence_first_step", seq, T.sequence_first_step, False, 1),
+        ("sequence_last_step", seq, T.sequence_last_step, False, 1),
+        ("sequence_reverse", seq, T.sequence_reverse, False, 1),
+        ("sequence_softmax", lambda g: [rn(g, B, S), lens(g)],
+         T.sequence_softmax, G, S),
+        ("sequence_expand", lambda g: [rn(g, B, H)],
+         lambda x: T.sequence_expand(x, list(range(B))), G, 1),
+        ("sequence_concat", lambda g: [rn(g, B, 64, H), lens(g, B, 64),
+                                       rn(g, B, 64, H), lens(g, B, 64)],
+         lambda a, la, b, lb: T.sequence_concat([a, b], [la, lb]), G, 1),
+        ("sequence_expand_as", lambda g: [rn(g, B, H), lens(g)],
+         T.sequence_expand_as, G, S),
+        ("sequence_enumerate", lambda g: [ri(g, 0, 30522, B, S), lens(g)],
+         lambda x, l: T.sequence_enumerate(x, l, 3, 0), False, 1),
+        ("sequence_erase", lambda g: [ri(g, 0, 50, B, S), lens(g)],
+         lambda x, l: T.sequence_erase(x, l, [0, 3, 7]), False, 1),
+        ("sequence_reshape", seq, lambda x, l: T.sequence_reshape(x, l, 384),
+         False, 1),
+        ("sequence_scatter", lambda g: [rn(g, B, 5000), ri(g, 0, 5000, B, S),
+                                        rn(g, B, S), lens(g)],
+         T.sequence_scatter, G, S),
+        ("sequence_slice", lambda g: [rn(g, B, S, H), lens(g),
+                                      ri(g, 0, 32, B), ri(g, 1, 64, B)],
+         T.sequence_slice, False, 1),
+        ("sequence_topk_avg_pooling", lambda g: [rn(g, B, 4, S, S), lens(g),
+                                                 lens(g)],
+         lambda x, rl, cl: T.sequence_topk_avg_pooling(x, rl, cl, [1, 3, 5]),
+         False, 5),
+        ("sequence_conv", lambda g: [rn(g, B, S, H), lens(g),
+                                     rn(g, 3 * H, H) / 48, rn(g, H)],
+         lambda x, l, w, b: T.sequence_conv(x, l, w, b, 3), G, 3 * H),
+        ("linear_chain_crf", crf, lambda e, t, y, l: T.linear_chain_crf(
+            e, t, y, l), G, S * 67),
+        ("crf_decoding", crf, lambda e, t, y, l: T.crf_decoding(
+            e, t, length=l), False, 1),
+        ("crf_decoding[label]", crf, lambda e, t, y, l: T.crf_decoding(
+            e, t, y, l), False, 1),
+        ("cond", lambda g: [rn(g, N, 64)], lambda x: CF.cond(
+            x.sum() > 0, lambda: x * 2.0, lambda: x - 1.0), False, 1),
+        ("while_loop", lambda g: [torch.tensor(0), rn(g, N, 64)],
+         lambda i, x: CF.while_loop(lambda i, s: i < 5,
+                                    lambda i, s: [i + 1, s * 0.9 + 1.0],
+                                    [i, x]), False, 1),
+        ("case", lambda g: [torch.tensor(0.5), rn(g, N, 64)],
+         lambda v, x: CF.case([(v < 0, lambda: x * 3.0),
+                               (v < 1, lambda: x + 1.0)],
+                              default=lambda: x), False, 1),
+        ("switch_case", lambda g: [torch.tensor(1), rn(g, N, 64)],
+         lambda i, x: CF.switch_case(i, [lambda: x * 2.0, lambda: x - 3.0]),
+         False, 1),
+        ("tdm_child", lambda g: [ri(g, 0, 512, N, 1), info],
+         lambda x, t: T.tdm_child(x, t, 2), False, 1),
+        ("rank_attention", ctr_rank, lambda x, ro, p: T.rank_attention(
+            x, ro, p, 3), G, 3 * 64),
+        ("match_matrix_tensor", lambda g: [rn(g, 64, 32, 128),
+                                           rn(g, 64, 48, 128),
+                                           rn(g, 128, 4, 128) * 0.1,
+                                           lens(g, 64, 32), lens(g, 64, 48)],
+         lambda x, y, w, xl, yl: T.match_matrix_tensor(x, y, w, xl, yl, 4),
+         G, 128 * 128),
+        ("var_conv_2d", lambda g: [rn(g, 64, 8, 32, 48),
+                                   rn(g, 16, 8 * 9) * 0.1, lens(g, 64, 32),
+                                   lens(g, 64, 48)],
+         lambda x, w, rl, cl: T.var_conv_2d(x, w, rl, cl, 8, 16, 3, 3), G,
+         72),
+        ("filter_by_instag", lambda g: [rn(g, N, 64), ri(g, -1, 20, N, 4),
+                                        ri(g, 0, 20, 8)],
+         lambda x, t, f: T.filter_by_instag(x, t, f), False, 1),
+        ("tree_conv", tree, lambda n, e, f: T.tree_conv(n, e, f, 3), G,
+         32 * 64 * 3),
+        ("pyramid_hash", lambda g: [ri(g, 0, 2 ** 30, N, 32),
+                                    rn(g, 10016), lens(g, N, 32)],
+         lambda x, w, l: T.pyramid_hash(x, w, l, 16, 10000, 3, 16), False,
+         1),
+        ("lstmp", lambda g: [rn(g, N, 32, 512), rn(g, 64, 512) * 0.1,
+                             rn(g, 128, 64) * 0.1, rn(g, 896) * 0.1],
+         lambda x, w, pw, b: T.lstmp(x, w, pw, b), G, 32 * 128),
+        ("sample_logits[customized]",
+         lambda g: [rn(g, N, 10000), ri(g, 0, 10000, N, 1),
+                    ri(g, 0, 10000, 64), torch.rand(64, generator=g) * 0.01],
+         lambda lg, lb, s, p: T.sample_logits(
+             lg, lb, 64, use_customized_samples=True, customized_samples=s,
+             customized_probabilities=p), False, 1),
+        ("add_position_encoding", lambda g: [rn(g, B, S, H)],
+         lambda x: T.add_position_encoding(x, 0.5, 1.0), False, 1),
+        ("affine_channel", lambda g: [rn(g, 32, 256, 56, 56), rn(g, 256),
+                                      rn(g, 256)], T.affine_channel, False,
+         1),
+        ("anchor_generator", lambda g: [rn(g, 1, 8, 50, 84)],
+         lambda x: T.anchor_generator(x, [32.0, 64.0, 128.0, 256.0, 512.0],
+                                      [0.5, 1.0, 2.0], [0.1, 0.1, 0.2, 0.2],
+                                      [16.0, 16.0]), False, 1),
+        ("bipartite_match", lambda g: [torch.rand(20, 2000, generator=g)],
+         lambda d: T.bipartite_match(d, "per_prediction", 0.5), False, 1),
+        ("bpr_loss", lambda g: [rn(g, N, 100), ri(g, 0, 100, N, 1)],
+         T.bpr_loss, G, 100),
+        ("center_loss", lambda g: [rn(g, N, 64), ri(g, 0, 100, N),
+                                   rn(g, 100, 64)],
+         lambda x, y, c: T.center_loss(x, y, c, 0.5), G, N),
+        ("ctc_align", lambda g: [ri(g, 0, 6, B, S), lens(g)[:, None]],
+         lambda x, l: T.ctc_align(x, 0, True, -1, l), False, 1),
+        ("data_norm", lambda g: [rn(g, N, 64), rn(g, 64), rn(g, 64)],
+         T.data_norm, False, 1),
+        ("edit_distance", lambda g: [ri(g, 0, 30, B, 64), ri(g, 0, 30, B, 64),
+                                     lens(g, B, 64), lens(g, B, 64)],
+         lambda a, b, la, lb: T.edit_distance(a, b, True, la, lb), False, 1),
+        ("gather_tree", lambda g: [ri(g, 0, 30522, S, B, 4),
+                                   ri(g, 0, 4, S, B, 4)],
+         T.gather_tree, False, 1),
+        ("hinge_loss", lambda g: [rn(g, N, 1), ri(g, 0, 2, N, 1).float()],
+         T.hinge_loss, False, 1),
+        ("l1_norm", lambda g: [rn(g, N, H)], T.l1_norm, G, N * H),
+        ("mean_iou", lambda g: [ri(g, 0, 21, 8, 512, 512),
+                                ri(g, 0, 21, 8, 512, 512)],
+         lambda p, y: T.mean_iou(p, y, 21), False, 1),
+        ("modified_huber_loss", lambda g: [rn(g, N, 1) * 2,
+                                           ri(g, 0, 2, N, 1).float()],
+         T.modified_huber_loss, False, 1),
+        ("rank_loss", lambda g: [ri(g, 0, 2, N, 1).float(), rn(g, N, 1),
+                                 rn(g, N, 1)], T.rank_loss, False, 1),
+        ("space_to_depth", lambda g: [rn(g, 8, 256, 76, 76)],
+         lambda x: T.space_to_depth(x, 2), False, 1),
+        ("squared_l2_distance", lambda g: [rn(g, N, H), rn(g, N, H)],
+         T.squared_l2_distance, G, H),
+        ("squared_l2_norm", lambda g: [rn(g, N, H)], T.squared_l2_norm, G,
+         N * H),
+        ("teacher_student_sigmoid_loss",
+         lambda g: [rn(g, N), torch.rand(N, generator=g) * 4 - 2],
+         T.teacher_student_sigmoid_loss, False, 1),
+        ("row_conv", lambda g: [rn(g, B, S, H), rn(g, 3, H)], T.row_conv,
+         False, 3),
+        ("set_value", lambda g: [rn(g, N, 64), rn(g, 64)],
+         lambda x, v: T.set_value(x, v, (slice(0, 128),)), G, 1),
+        *[(op, seg, getattr(T, op), op in ("segment_sum", "segment_max"), 8)
+          for op in ("segment_sum", "segment_mean", "segment_max",
+                     "segment_min")],
+        ("segment_pool", seg, lambda d, s: T.segment_pool(d, s, "mean"),
+         False, 8),
+        ("fsp_matrix", lambda g: [rn(g, 8, 256, 56, 56),
+                                  rn(g, 8, 256, 56, 56)], T.fsp_matrix,
+         False, 56 * 56),
+        ("Assert", lambda g: [torch.rand(N, generator=g) + 0.1],
+         lambda x: T.Assert(x > 0, [x]).long(), False, 1),
+        ("conv_shift", lambda g: [rn(g, N, 128), rn(g, N, 9)], T.conv_shift,
+         G, 9),
+        ("cvm", lambda g: [torch.rand(N, 66, generator=g) * 9,
+                           torch.rand(N, 2, generator=g)],
+         lambda x, c: T.cvm(x, c, True), False, 1),
+        ("hash_op", lambda g: [ri(g, 0, 2 ** 31 - 1, N, 8)],
+         lambda x: T.hash_op(x, 4, 100000007), False, 1),
+        ("batch_fc", lambda g: [rn(g, 16, N, 64), rn(g, 16, 64, 32),
+                                rn(g, 16, 32)], T.batch_fc, G, 64),
+        ("similarity_focus", lambda g: [rn(g, 8, 16, 32, 32)],
+         lambda x: T.similarity_focus(x, 1, [0, 5, 9]), False, 1),
+        ("lookup_table_dequant", dequant_table, T.lookup_table_dequant,
+         False, 1),
+        ("Auc", lambda g: [torch.rand(100000, 2, generator=g),
+                           ri(g, 0, 2, 100000, 1)], run_auc, False, 1),
+        ("DetectionMAP", det, run_det, False, 1),
+        ("Normal", dists, run_normal, G, 1),
+        ("Uniform", dists, run_uniform, False, 1),
+        ("Categorical", dists, run_categorical, G, 64),
+    ]
+
+
+def quant_seq_op_rows(torch, T, pool):
+    """(d) Each row on the card against the port on the CPU (on
+    ``pool``'s thread, beside the card), the card's ms."""
+    rows = []
+    for i, (name, make, call, grad, n) in enumerate(_qs_op_cases(torch, T)):
+        gen = torch.Generator().manual_seed(SEED + i)
+        xs = make(gen)
+        cpu = pool.submit(_vision_run, torch, call, xs, grad, i)
+        card_xs = [x.to("cuda") for x in xs]
+        got, _ = _qs_ms(torch, lambda: _vision_run(torch, call, card_xs,
+                                                   grad, i))
+        got, ms = _qs_ms(torch, lambda: _vision_run(torch, call, card_xs,
+                                                    grad, i))
+        want = cpu.result()
+        if len(got) != len(want):
+            fail(f"phase 24 (d): {name} gives {len(got)} outputs on the "
+                 f"card, {len(want)} on the CPU")
+        worst = max(_ta_excess(torch, g, w, "reduce", "float32", n, "sum")
+                    for g, w in zip(got, want))
+        rows.append(dict(op=name, excess=worst, ms=ms, grad=grad))
+        if not worst <= 0:
+            fail(f"phase 24 (d): {name} on the card beyond TA_TOL of the "
+                 f"CPU's (excess {worst:.3g})")
+    return rows
+
+
+def quant_seq_samplers(torch, T):
+    """(d) The draws: the distributions' moments over QS_DRAWS draws
+    within QS_SIGMAS standard errors, tdm_sampler's negatives valid,
+    sampling_id's ids within their rows, shuffle_batch a permutation."""
+    D = T.distribution
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    loc, scale = torch.tensor([0.5, -2.0], device=dev), \
+        torch.tensor([1.5, 0.2], device=dev)
+    out = {}
+    x, out["normal_ms"] = _qs_ms(torch, lambda: D.Normal(loc, scale).sample(
+        (QS_DRAWS,), generator=gen))
+    z = ((x.mean(0) - loc) / (scale / math.sqrt(QS_DRAWS))).abs().max()
+    zv = ((x.var(0) / scale ** 2 - 1) / math.sqrt(2 / QS_DRAWS)).abs().max()
+    lo, hi = torch.tensor([-1.0, 2.0], device=dev), \
+        torch.tensor([1.0, 2.5], device=dev)
+    u, out["uniform_ms"] = _qs_ms(torch, lambda: D.Uniform(lo, hi).sample(
+        (QS_DRAWS,), generator=gen))
+    zu = ((u.mean(0) - (lo + hi) / 2) / ((hi - lo) / math.sqrt(
+        12 * QS_DRAWS))).abs().max()
+    inside = bool(((u >= lo) & (u < hi)).all())
+    logits = torch.tensor([[0.0, 1.0, -1.0, 2.0]], device=dev)
+    c, out["categorical_ms"] = _qs_ms(torch, lambda: D.Categorical(
+        logits).sample((QS_DRAWS,), generator=gen))
+    p = torch.softmax(logits, -1)[0]
+    freq = torch.bincount(c[:, 0], minlength=4).double() / QS_DRAWS
+    zc = ((freq - p) / (p * (1 - p) / QS_DRAWS).sqrt()).abs().max()
+    worst = float(max(z, zv, zu, zc))
+    out.update(z_normal_mean=float(z), z_normal_var=float(zv),
+               z_uniform_mean=float(zu), z_categorical=float(zc))
+    if worst > QS_SIGMAS or not inside:
+        fail(f"phase 24 (d): draws {worst:.2f} standard errors off (limit "
+             f"{QS_SIGMAS}), uniform inside its bounds: {inside}")
+    info, travel, layer, offs = _qs_tree(torch, 10)
+    x = torch.randint(0, 512, (512, 1), generator=torch.Generator()
+                      .manual_seed(SEED))
+    negs = [1, 3, 4, 8, 16, 16, 16, 32, 32]
+    (o, lab, msk), out["tdm_sampler_ms"] = _qs_ms(torch, lambda: T.tdm_sampler(
+        x.to(dev), travel.to(dev), layer.to(dev), negs, offs, seed=3))
+    o, lab, msk = o.cpu(), lab.cpu(), msk.cpu()
+    col = 0
+    for li, neg in enumerate(negs):
+        pos = travel[x[:, 0], li]
+        drawn = o[:, col + 1:col + 1 + neg]
+        lo_id, hi_id = offs[li] + 2, offs[li + 1] + 2
+        ok = (o[:, col] == pos).all() and (drawn != pos[:, None]).all() \
+            and ((drawn >= lo_id) & (drawn < hi_id)).all() and all(
+                len(set(r.tolist())) == neg for r in drawn[:16])
+        if not ok or not (lab[:, col] == 1).all() or not (msk == 1).all():
+            fail(f"phase 24 (d): tdm_sampler's layer {li} draws invalid")
+        col += 1 + neg
+    probs = torch.softmax(torch.randn(512, 100, generator=torch.Generator()
+                                      .manual_seed(SEED)), -1).to(dev)
+    ids = T.sampling_id(probs, seed=5)
+    shuf, perm, _ = T.shuffle_batch(probs, seed=5)
+    if not (ids >= 0).all() or not (ids < 100).all() or not torch.equal(
+            perm.sort().values, torch.arange(512, device=dev)) or \
+            not torch.equal(shuf, probs[perm]):
+        fail("phase 24 (d): sampling_id or shuffle_batch gave invalid ids")
+    return out
+
+
+def quant_seq_phase(torch):
+    """Phase 24: int8 ResNet-50 (a), 2:4 GPT-2-small (b), the BERT-base CRF
+    tagger (c), the op table (d)."""
+    import paddle_tpu_torch as T
+
+    res = dict(resnet50=quant_resnet_check(torch, T),
+               sparse_gpt2=sparse_gpt_check(torch, T),
+               crf_tagger=crf_tagger_check(torch, T))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        res["ops"] = quant_seq_op_rows(torch, T, pool)
+    res["samplers"] = quant_seq_samplers(torch, T)
+    worst = max(res["ops"], key=lambda r: r["excess"])
+    print(f"quant-seq (d): {len(res['ops'])} rows within TA_TOL (worst "
+          f"{worst['op']} {worst['excess']:.3g}), draws within "
+          f"{QS_SIGMAS} standard errors ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    for r in res["ops"]:
+        print(f"quant-seq (d): {r['op']}{' with gradients' if r['grad'] else ''}"
+              f": excess {r['excess']:.3g}, {r['ms']:.3f} ms", flush=True)
+    res["card"] = card_line()
+    return res
+
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -7480,7 +8488,9 @@ def main(argv) -> int:
     into chiprun_out/chip_smoke_tensor_api.json; ``--nn``: the build of
     K3/K4 and phase 22 alone, into chiprun_out/chip_smoke_nn.json (with
     four cards, 22 (e) runs four ranks over NCCL); ``--vision``: the build
-    of K3/K4 and phase 23 alone, into chiprun_out/chip_smoke_vision.json."""
+    of K3/K4 and phase 23 alone, into chiprun_out/chip_smoke_vision.json;
+    ``--quant-seq``: the build of K3/K4 and phase 24 alone, into
+    chiprun_out/chip_smoke_quant_seq.json."""
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -7493,12 +8503,14 @@ def main(argv) -> int:
     tensor_api_only = argv == ["--tensor-api"]
     nn_only = argv == ["--nn"]
     vision_only = argv == ["--vision"]
+    quant_seq_only = argv == ["--quant-seq"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
     acp_kid = argv[:1] == ["--acp-child"] and len(argv) == 4
     if argv and not (kernels_only or mesh_only or fleet_only or eager_only
                      or dist_only or hybrid_only or moe_ps_only
-                     or tensor_api_only or nn_only or vision_only or child
+                     or tensor_api_only or nn_only or vision_only
+                     or quant_seq_only or child
                      or fleet_kid or acp_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -7530,7 +8542,7 @@ def main(argv) -> int:
                             if kernels_only or mesh_only or fleet_only
                             else ["layer_norm"] if tensor_api_only
                             else ["flash_attention"] if nn_only
-                            or vision_only
+                            or vision_only or quant_seq_only
                             else None)
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
@@ -7630,6 +8642,18 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_vision.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if quant_seq_only:
+        t0 = time.perf_counter()
+        res = dict(card=card, quant_seq=quant_seq_phase(torch))
+        res["quant_seq"]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 24 quant-seq: {res['quant_seq']['phase_s']:.1f} s",
+              flush=True)
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_quant_seq.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -7737,7 +8761,11 @@ def main(argv) -> int:
     # steps and decode, the vision op table
     vision = timed("23 vision", vision_phase, torch)
 
-    # 24. report
+    # 24. quantization (QAT, PTQ, int8 ResNet-50), 2:4 GPT-2-small, the
+    # BERT-base CRF tagger, the op long tail
+    quant_seq = timed("24 quant-seq", quant_seq_phase, torch)
+
+    # 25. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -7804,7 +8832,11 @@ def main(argv) -> int:
                      nn_vit_encoder=nnp["vit"]["launches"][kern],
                      nn_transformer_train=nnp["transformer"][
                          "train_launches"][kern],
-                     vision_vit_b16=vision["vit_b16"]["launches"][kern])
+                     vision_vit_b16=vision["vit_b16"]["launches"][kern],
+                     quant_seq_sparse_gpt2=quant_seq["sparse_gpt2"][
+                         "launches"][kern],
+                     quant_seq_bert_crf_tagger=quant_seq["crf_tagger"][
+                         "launches"][kern])
         if kern == "fwd":
             paths.update(generate_concat=gen["concat"]["calls"]
                          * gen["concat"]["k3_launches_per_call"],
@@ -7848,7 +8880,8 @@ def main(argv) -> int:
                   telemetry=telemetry, serve_mesh=mesh, fleet=fleet,
                   train=train, train_layer_norm=train_ln, eager=eager,
                   dist=distp, hybrid=hybrid, moe_ps=moe_ps,
-                  tensor_api=tensor_api, nn=nnp, vision=vision)
+                  tensor_api=tensor_api, nn=nnp, vision=vision,
+                  quant_seq=quant_seq)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

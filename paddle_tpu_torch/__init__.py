@@ -12,7 +12,8 @@ trains it through the dygraph loop (``loss.backward(); opt.step()``),
 ``seed``, ``to_tensor``, ``grad``, ``no_grad``, ``save``, ``load``,
 ``Model``, ``summary``, places and dtypes, ``set_device``/``get_device``,
 ``vision`` (transforms, datasets, LeNet to ViT and YOLOv3, the detection
-ops),
+ops), ``metric``, ``distribution``, ``quantization`` (QAT, PTQ, int8
+execution), ``sparsity`` (2:4 ASP), ``text`` (datasets),
 and the functional tensor API (`ops`: ``paddle.concat``,
 ``paddle.matmul``, ``paddle.linalg.inv``, ...).  Tensor methods stay
 torch's: see `ops` for the names whose torch method means something
@@ -40,6 +41,7 @@ from .framework import ParamAttr, load, save
 from . import hapi
 from .hapi import Model, flops, summary
 from . import vision
+from . import distribution, quantization, sparsity, text
 import importlib as _importlib
 
 # `from .ops import *` binds nothing called `linalg`; the name is the
@@ -74,5 +76,6 @@ __all__ = ["default_device", "resolve_device", "seed", "to_tensor",
            "distributed", "incubate", "profiler", "DataParallel",
            "set_device", "get_device", "device_count", "ops", "linalg",
            "enable_static", "disable_static", "in_dynamic_mode",
-           "vision"] + ops.__all__
+           "vision", "distribution", "quantization", "sparsity",
+           "text"] + ops.__all__
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """The functional op library (counterpart: paddle_tpu/ops): creation,
-math, manipulation, logic, random, search, stat and linalg ops over
-``torch.Tensor``, exported at the package's top level as Paddle's
-``paddle.*``; the hand-written kernels live beside them
+math, manipulation, logic, random, search, stat and linalg ops, the
+sequence family, the CRF, control flow (`control_flow`; ``case``,
+``switch_case`` and ``while_loop`` here too), the industrial and misc
+long tail, over ``torch.Tensor``, exported at the package's top level as
+Paddle's ``paddle.*``; the hand-written kernels live beside them
 (`paged_attention`, `flash_attention`, `layer_norm`).
 
 **Tensor methods.** The port's tensor is ``torch.Tensor``, so its methods
@@ -36,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import creation, linalg, logic, manipulation, math, random, search
-from . import misc, stat
+from . import control_flow, crf, industrial, misc, sequence, stat
 from .creation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
@@ -45,11 +47,19 @@ from .random import *  # noqa: F401,F403
 from .search import *  # noqa: F401,F403
 from .stat import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 from .misc import *  # noqa: F401,F403
+from .crf import *  # noqa: F401,F403
+from .industrial import *  # noqa: F401,F403
+# control flow is a namespace, as in the JAX package: its `cond`
+# (branching) must not shadow linalg's `cond` (condition number)
+from .control_flow import case, switch_case, while_loop
 
 __all__ = (creation.__all__ + math.__all__ + manipulation.__all__
            + logic.__all__ + random.__all__ + search.__all__ + stat.__all__
-           + linalg.__all__ + misc.__all__)
+           + linalg.__all__ + sequence.__all__ + misc.__all__
+           + crf.__all__ + industrial.__all__
+           + ["case", "switch_case", "while_loop", "control_flow"])
 
 # Paddle tensor methods torch.Tensor lacks, each the function of its name
 _TENSOR_METHODS = (

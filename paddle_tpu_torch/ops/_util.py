@@ -91,3 +91,22 @@ def keep_dims(out, x, dims, keepdim):
     shape = [1 if d in dims else s for d, s in enumerate(x.shape)]
     lead = list(out.shape[:out.dim() - (x.dim() - len(dims))])
     return out.reshape(lead + shape)
+
+
+def div(a, n):
+    """``a / n`` correctly rounded on every device (``n`` a number): CUDA
+    divides by a host scalar as a multiply by its reciprocal, which moves
+    a quotient that is then rounded or floored (an integer bin edge, an
+    int8 level) off the CPU's and the JAX package's."""
+    return a / torch.tensor(n, dtype=a.dtype, device=a.device)
+
+
+def host(x):
+    """``x`` as a numpy array (a tensor read to the host, bfloat16 as
+    float32)."""
+    import numpy as np
+
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops._util import div as _div
+
 __all__ = [
     "iou_similarity", "box_clip", "box_coder", "prior_box", "yolo_box",
     "roi_align", "roi_pool", "nms", "multiclass_nms", "matrix_nms",
@@ -49,13 +51,6 @@ def _t(x, like=None):
         x = torch.from_numpy(np.array(a, dtype=np.float32 if a.dtype ==
                                       np.float64 else a.dtype))
     return x if like is None else x.to(like.device)
-
-
-def _div(a, n):
-    """``a / n`` correctly rounded on every device: CUDA divides by a
-    host scalar as a multiply by its reciprocal, which moves integer bin
-    edges (``ceil(7 * (15 / 7))``) off the CPU's and the JAX package's."""
-    return a / torch.tensor(n, dtype=a.dtype, device=a.device)
 
 
 def _topk(x, k):

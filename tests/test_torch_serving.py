@@ -329,9 +329,10 @@ bad = sorted(m for m in sys.modules
 # sanitizer, the fleet, the eager core and training, the data-
 # parallel training, profiler and auto-checkpoint modules, and the
 # hybrid-parallel ones, the functional tensor API with nn's
-# activations, losses and norms, the rest of nn with BERT, and
+# activations, losses and norms, the rest of nn with BERT,
 # vision (whose image decoders import PIL only when they run: the card's
-# machine has none)
+# machine has none), and quantization, sparsity, distribution, the
+# metrics, the text datasets and the op long tail
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -451,7 +452,17 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.vision.models.vgg",
                        "paddle_tpu_torch.vision.models.mobilenet",
                        "paddle_tpu_torch.vision.models.vit",
-                       "paddle_tpu_torch.vision.models.yolov3")
+                       "paddle_tpu_torch.vision.models.yolov3",
+                       "paddle_tpu_torch.quantization",
+                       "paddle_tpu_torch.quantization.int8",
+                       "paddle_tpu_torch.sparsity",
+                       "paddle_tpu_torch.distribution",
+                       "paddle_tpu_torch.text",
+                       "paddle_tpu_torch.text.datasets",
+                       "paddle_tpu_torch.ops.sequence",
+                       "paddle_tpu_torch.ops.crf",
+                       "paddle_tpu_torch.ops.control_flow",
+                       "paddle_tpu_torch.ops.industrial")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)
