@@ -16,7 +16,8 @@
 
 (``--durability-child`` is phase 13's own child process,
 ``--fleet-child`` phase 16's replica, ``--acp-child`` phase 18's
-auto-checkpoint job.)
+auto-checkpoint job, ``--hybrid-child`` the whole run's phase 19, which
+runs beside phase 20.)
 
 Phases, in order; any failure exits non-zero:
 
@@ -252,7 +253,9 @@ Phases, in order; any failure exits non-zero:
    SIGKILL after epoch 1 of ``train_epoch_range``, restarted from
    another seed and init, resumes at epoch 2 and ends with an unbroken
    child's parameters and losses, bit for bit;
-19. hybrid — GPT-2-small at full width, bench.py's bf16 recipe, ranks
+19. hybrid — (in the whole run, a child process of this script started
+   before phase 20 and read after it: the two run side by side)
+   GPT-2-small at full width, bench.py's bf16 recipe, ranks
    from ``paddle.distributed.spawn`` (gloo on one card, NCCL with a card
    a rank): (a) ``fleet`` with ``mp_degree=2``: the model's parallel
    layers (6 heads a rank), `HYBRID_STEPS` dygraph steps through
@@ -390,7 +393,16 @@ Phases, in order; any failure exits non-zero:
    equal), with the card's ms; the samplers' draws checked, the
    distributions' moments over `QS_DRAWS` draws within `QS_SIGMAS`
    standard errors;
-25. report — one JSON line of kernels, the card line, and the last line
+25. deployment (``--static``): f32, TF32 off, served by
+   ``inference.create_predictor`` (one CUDA graph a feed signature): (a)
+   ResNet-50 at [32, 3, 224, 224] as a ProgramDesc through ``fx_export``
+   (logits against eager, top-1 equal, ms a batch captured and op by
+   op); (b) ResNet-50 at batch 1 through ``jit.save`` (latency captured
+   and op by op); (c) ViT-B/16 at [8, 3, 224, 224] through ``jit.save``,
+   K3 12 launches a run through its custom op; (d) BERT-base at 16 x 128
+   as a ProgramDesc (sequence and pooled outputs against eager); each
+   part's export and load seconds, peak memory and op count;
+26. report — one JSON line of kernels, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The whole result also goes to chiprun_out/chip_smoke.json.  The script
@@ -5369,6 +5381,58 @@ def hybrid_phase(torch):
     return out
 
 
+def hybrid_child(argv) -> int:
+    """``--hybrid-child OUT``: phase 19 in a process of its own, started
+    by `HybridChild` so that it runs beside phase 20; writes phase 19's
+    result, with its seconds as ``phase_s``, to OUT as JSON."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = hybrid_phase(torch)
+    res["phase_s"] = time.perf_counter() - t0
+    Path(argv[0]).write_text(json.dumps(res))
+    return 0
+
+
+class HybridChild:
+    """Phase 19 under a child process of this script (`hybrid_child`),
+    its output kept in ``HYBRID_ROOT.parent/chip_smoke_hybrid.log``.  Its
+    ranks are processes of their own, bound by gloo on the host like
+    phase 20's, and neither phase reads the other's counts, files or
+    environment, so the two run side by side."""
+
+    TIMEOUT_S = 900
+
+    def __init__(self):
+        self.out = HYBRID_ROOT.parent / "chip_smoke_hybrid_child.json"
+        self.log = HYBRID_ROOT.parent / "chip_smoke_hybrid.log"
+        self.out.parent.mkdir(parents=True, exist_ok=True)
+        self.out.unlink(missing_ok=True)
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--hybrid-child", str(self.out)],
+                stdout=log, stderr=subprocess.STDOUT)
+
+    def result(self):
+        """Wait for the child, print its output, return its result."""
+        try:
+            rc = self.proc.wait(timeout=self.TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"phase 19's child ran past {self.TIMEOUT_S} s")
+        text = self.log.read_text()
+        print(text, end="" if text.endswith("\n") else "\n", flush=True)
+        if rc != 0 or not self.out.exists():
+            fail(f"phase 19's child exited {rc} (its output above)")
+        return json.loads(self.out.read_text())
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
 def hybrid_launches(hybrid, kern) -> dict:
     """Phase 19's launches of one K3/K4 wrapper, by part and rank."""
     i = list(FLASH_KERNELS).index(kern)
@@ -8477,6 +8541,309 @@ def quant_seq_phase(torch):
     return res
 
 
+
+# ---------------------------------------------------------------------------
+# phase 25: deployment — static programs, the exporter, jit.save and the
+# Predictor
+# ---------------------------------------------------------------------------
+# f32 with TF32 off, random weights from SEED, every model served through
+# `inference.create_predictor` on the card (one CUDA graph a feed
+# signature, captured at the first run):
+# (a) PaddleClas ResNet-50 (1000 classes) at [32, 3, 224, 224] exported by
+#     `static.save_inference_model(layer=...)` through `fx_export` (a
+#     reference ProgramDesc of core ops: no kernel launches); logits
+#     against the eager model's on the card and top-1 equal on all 32
+#     images; ms a batch captured and op by op (`switch_ir_optim(False)`),
+#     images/s;
+# (b) the same ResNet-50 at [1, 3, 224, 224] through `jit.save` (the
+#     torch.export archive): logits against eager, latency captured and
+#     eager;
+# (c) ViT-B/16 at [8, 3, 224, 224] (197 tokens) through `jit.save`: K3
+#     (the f32 SIMT kernel, head_dim 64) through its custom op, 12 launches
+#     a run by its counter (the first run eager, later ones replays);
+#     logits against eager;
+# (d) BERT-base (bert-base-uncased's widths) at 16 x 128, input_ids and
+#     token_type_ids int64, no mask, as a ProgramDesc: the sequence and
+#     pooled outputs against eager.
+# Each part prints its export and load seconds (load: parse and weights),
+# its peak memory and its program's op count.  ST_TOL: the programs run
+# the decomposed core-ATen form of the same f32 ops as the eager model
+# (TF32 off), in another order than the eager code's, so their outputs
+# differ by rounding; the ceiling 1e-4 (relative norm) is ten times under
+# the 1e-3 any part may use.
+ST_RESNET = dict(batch=32, timed=5)
+ST_RESNET_LAT = dict(batch=1, timed=20)
+ST_VIT = dict(batch=8, timed=5)
+ST_BERT = dict(batch=16, seq=128, timed=5)
+ST_TOL = 1e-4
+ST_DIR = Path("build") / "chip_smoke_static"
+
+
+def _st_ms(torch, fn, reps):
+    """Median ms of ``fn()`` between synchronizes, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _st_predictor(T, prefix, ir_optim=True):
+    """``(predictor, load seconds)`` on the card."""
+    cfg = T.inference.Config(prefix + ".pdmodel")
+    cfg.switch_ir_optim(ir_optim)
+    t0 = time.perf_counter()
+    pred = T.inference.create_predictor(cfg)
+    return pred, time.perf_counter() - t0
+
+
+def _st_program_ops(prefix):
+    import paddle_tpu_torch as T
+
+    prog, _, _ = T.static.load_inference_model(prefix)
+    return sum(len(b["ops"]) for b in prog.desc["blocks"])
+
+
+def _st_archive_ops(pred):
+    return sum(1 for n in pred._layer.layer._exported.graph.nodes
+               if n.op == "call_function")
+
+
+def _st_device_call(torch, pred, inputs):
+    """A call of the predictor's runner on device feeds (the host copies
+    of `run` left out): ``fn()`` for `_st_ms`."""
+    if pred._runner is not None:
+        return lambda: pred._runner(*inputs)
+    feeds = [t.cpu().numpy() for t in inputs]
+    return lambda: pred._layer(feeds)
+
+
+def static_resnet_check(torch, T):
+    """(a) ResNet-50 as a ProgramDesc at batch 32, and (b) through
+    jit.save at batch 1."""
+    cfg = ST_RESNET
+    T.seed(SEED)
+    net = T.vision.models.resnet50().eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(cfg["batch"], 3, 224, 224, generator=gen, device="cuda")
+    with torch.no_grad():
+        want = net(x)
+    prefix = str(ST_DIR / "resnet50")
+    t0 = time.perf_counter()
+    T.static.save_inference_model(prefix, layer=net, input_spec=[
+        T.static.InputSpec([cfg["batch"], 3, 224, 224], "float32",
+                           "image")])
+    export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred, load_s = _st_predictor(T, prefix)
+    reset_counts()
+    (out,) = pred.run([x.cpu().numpy()])
+    counts = read_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    got = torch.from_numpy(out)
+    err = _rel_norm(torch, got, want.cpu())
+    top1 = int((got.argmax(1) == want.cpu().argmax(1)).sum())
+    cap_ms = _st_ms(torch, _st_device_call(torch, pred, [x]), cfg["timed"])
+    e2e_ms = _st_ms(torch, lambda: pred.run([x.cpu().numpy()]),
+                    cfg["timed"])
+    peak = torch.cuda.max_memory_allocated()
+    graphs = pred.graph_count()
+    eager_pred, _ = _st_predictor(T, prefix, ir_optim=False)
+    eager_ms = _st_ms(torch, _st_device_call(torch, eager_pred, [x]),
+                      cfg["timed"])
+    n_ops = _st_program_ops(prefix)
+    if launched or graphs != 1 or not err <= ST_TOL or \
+            top1 != cfg["batch"]:
+        fail(f"phase 25 (a): ResNet-50's program launched {launched} "
+             f"(want none), {graphs} graphs (want 1), logits {err:.3g} off "
+             f"the eager model's (relative norm, limit {ST_TOL}), top-1 "
+             f"{top1}/{cfg['batch']}")
+    a = dict(export_s=export_s, load_s=load_s, ops=n_ops, rel_err=err,
+             k3_launches_a_run=counts["fwd"], launches=counts,
+             top1_equal=top1, captured_ms=cap_ms, eager_ms=eager_ms,
+             run_ms=e2e_ms, images_per_s=cfg["batch"] * 1e3 / cap_ms,
+             peak_gib=peak / 2 ** 30, graphs=graphs)
+    print(f"static (a): ResNet-50 ProgramDesc batch {cfg['batch']}: "
+          f"export {export_s:.1f} s, load {load_s:.1f} s, {n_ops} ops; "
+          f"logits {err:.2e} off eager, top-1 {top1}/{cfg['batch']}; "
+          f"captured {cap_ms:.2f} ms a batch ({a['images_per_s']:.1f} "
+          f"images/s), op by op {eager_ms:.2f} ms, Predictor.run with host "
+          f"copies {e2e_ms:.2f} ms; peak {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    del pred, eager_pred
+    torch.cuda.empty_cache()
+
+    cfg = ST_RESNET_LAT
+    x1 = x[:cfg["batch"]].contiguous()
+    with torch.no_grad():
+        want1 = net(x1)
+    prefix = str(ST_DIR / "resnet50_jit")
+    t0 = time.perf_counter()
+    T.jit.save(net, prefix, input_spec=[T.static.InputSpec(
+        [cfg["batch"], 3, 224, 224], "float32")])
+    export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred, load_s = _st_predictor(T, prefix)
+    (out,) = pred.run([x1.cpu().numpy()])
+    err = _rel_norm(torch, torch.from_numpy(out), want1.cpu())
+    cap_ms = _st_ms(torch, _st_device_call(torch, pred, [x1]),
+                    cfg["timed"])
+    peak = torch.cuda.max_memory_allocated()
+    eager_pred, _ = _st_predictor(T, prefix, ir_optim=False)
+    eager_ms = _st_ms(torch, _st_device_call(torch, eager_pred, [x1]),
+                      cfg["timed"])
+    if not err <= ST_TOL or pred.graph_count() != 1:
+        fail(f"phase 25 (b): ResNet-50 via jit.save at batch 1: logits "
+             f"{err:.3g} off eager (limit {ST_TOL}), "
+             f"{pred.graph_count()} graphs (want 1)")
+    b = dict(export_s=export_s, load_s=load_s, ops=_st_archive_ops(pred),
+             rel_err=err, captured_ms=cap_ms, eager_ms=eager_ms,
+             peak_gib=peak / 2 ** 30)
+    print(f"static (b): ResNet-50 jit.save batch 1: export {export_s:.1f} "
+          f"s, load {load_s:.1f} s, {b['ops']} graph ops; logits "
+          f"{err:.2e} off eager; latency captured {cap_ms:.2f} ms, op by "
+          f"op {eager_ms:.2f} ms; peak {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    del pred, eager_pred, net
+    torch.cuda.empty_cache()
+    return a, b
+
+
+def static_vit_check(torch, T):
+    """(c) ViT-B/16 through jit.save: K3 12 launches a run."""
+    cfg = ST_VIT
+    T.seed(SEED)
+    vit = T.vision.models.vit_b_16().eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(cfg["batch"], 3, 224, 224, generator=gen, device="cuda")
+    with torch.no_grad():
+        want = vit(x)
+    prefix = str(ST_DIR / "vit_b16")
+    t0 = time.perf_counter()
+    T.jit.save(vit, prefix, input_spec=[T.static.InputSpec(
+        [cfg["batch"], 3, 224, 224], "float32")])
+    export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred, load_s = _st_predictor(T, prefix)
+    runs = []
+    for _ in range(3):  # eager warm-up and capture, then two replays
+        reset_counts()
+        (out,) = pred.run([x.cpu().numpy()])
+        torch.cuda.synchronize()
+        runs.append(read_counts()["fwd"])
+    err = _rel_norm(torch, torch.from_numpy(out), want.cpu())
+    cap_ms = _st_ms(torch, _st_device_call(torch, pred, [x]), cfg["timed"])
+    peak = torch.cuda.max_memory_allocated()
+    k3_ops = sum(1 for n in pred._layer.layer._exported.graph.nodes
+                 if "flash_attention_fwd" in str(n.target))
+    if runs != [12, 12, 12] or k3_ops != 12 or not err <= ST_TOL or \
+            pred.graph_count() != 1:
+        fail(f"phase 25 (c): ViT-B/16 via jit.save: K3 launches {runs} "
+             f"a run (want 12 each), {k3_ops} K3 ops in the graph (want "
+             f"12), logits {err:.3g} off eager (limit {ST_TOL}), "
+             f"{pred.graph_count()} graphs")
+    res = dict(export_s=export_s, load_s=load_s, ops=_st_archive_ops(pred),
+               k3_launches_a_run=runs[-1], k3_runs=runs, rel_err=err,
+               captured_ms=cap_ms,
+               images_per_s=cfg["batch"] * 1e3 / cap_ms,
+               peak_gib=peak / 2 ** 30)
+    print(f"static (c): ViT-B/16 jit.save batch {cfg['batch']}: export "
+          f"{export_s:.1f} s, load {load_s:.1f} s, {res['ops']} graph ops "
+          f"({k3_ops} K3 custom ops); K3 launches a run {runs}; logits "
+          f"{err:.2e} off eager; captured {cap_ms:.2f} ms a batch; peak "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    del pred, vit
+    torch.cuda.empty_cache()
+    return res
+
+
+def static_bert_check(torch, T):
+    """(d) BERT-base as a ProgramDesc at 16 x 128."""
+    import paddle_tpu_torch.models.bert as TB
+
+    cfg = ST_BERT
+    T.seed(SEED)
+    bert = TB.BertModel(TB.BertConfig()).eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(1, 30522, (cfg["batch"], cfg["seq"]), generator=gen,
+                        device="cuda")
+    types = torch.randint(0, 2, (cfg["batch"], cfg["seq"]), generator=gen,
+                          device="cuda")
+    with torch.no_grad():
+        want = bert(ids, types)
+    prefix = str(ST_DIR / "bert_base")
+    t0 = time.perf_counter()
+    T.static.save_inference_model(prefix, layer=bert, input_spec=[
+        T.static.InputSpec([cfg["batch"], cfg["seq"]], "int64", "input_ids"),
+        T.static.InputSpec([cfg["batch"], cfg["seq"]], "int64",
+                           "token_type_ids")])
+    export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred, load_s = _st_predictor(T, prefix)
+    reset_counts()
+    outs = pred.run([ids.cpu().numpy(), types.cpu().numpy()])
+    counts = read_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    errs = [_rel_norm(torch, torch.from_numpy(o), w.cpu())
+            for o, w in zip(outs, want)]
+    cap_ms = _st_ms(torch, _st_device_call(torch, pred, [ids, types]),
+                    cfg["timed"])
+    peak = torch.cuda.max_memory_allocated()
+    n_ops = _st_program_ops(prefix)
+    if launched or len(outs) != 2 or not max(errs) <= ST_TOL or \
+            pred.graph_count() != 1:
+        fail(f"phase 25 (d): BERT-base's program launched {launched} "
+             f"(want none), {len(outs)} outputs, sequence/pooled "
+             f"{errs} off eager (limit {ST_TOL}), {pred.graph_count()} "
+             f"graphs")
+    res = dict(export_s=export_s, load_s=load_s, ops=n_ops,
+               k3_launches_a_run=counts["fwd"], launches=counts,
+               sequence_rel_err=errs[0], pooled_rel_err=errs[1],
+               captured_ms=cap_ms,
+               tokens_per_s=cfg["batch"] * cfg["seq"] * 1e3 / cap_ms,
+               peak_gib=peak / 2 ** 30)
+    print(f"static (d): BERT-base ProgramDesc {cfg['batch']} x "
+          f"{cfg['seq']}: export {export_s:.1f} s, load {load_s:.1f} s, "
+          f"{n_ops} ops; sequence {errs[0]:.2e}, pooled {errs[1]:.2e} off "
+          f"eager; captured {cap_ms:.2f} ms a batch "
+          f"({res['tokens_per_s']:.0f} tokens/s); peak "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    del pred, bert
+    torch.cuda.empty_cache()
+    return res
+
+
+def static_phase(torch):
+    """Phase 25: ResNet-50 as a ProgramDesc (a) and through jit.save (b),
+    ViT-B/16 on K3 through jit.save (c), BERT-base as a ProgramDesc (d),
+    each served by the Predictor."""
+    import paddle_tpu_torch as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.core import place as TPL
+
+    ST_DIR.mkdir(parents=True, exist_ok=True)
+    prev = TPL._EXPECTED_DEVICE[0]
+    T.set_device("gpu:0")
+    try:
+        a, b = static_resnet_check(torch, T)
+        res = dict(resnet50_program=a, resnet50_jit=b,
+                   vit_b16_jit=static_vit_check(torch, T),
+                   bert_base_program=static_bert_check(torch, T))
+    finally:
+        TPL._EXPECTED_DEVICE[0] = prev
+    res["card"] = card_line()
+    return res
+
 def main(argv) -> int:
     """No arguments: every phase.  ``--kernels``: the card, the build of
     K1/K2 and their kernel phase only, into chiprun_out/
@@ -8490,7 +8857,8 @@ def main(argv) -> int:
     four cards, 22 (e) runs four ranks over NCCL); ``--vision``: the build
     of K3/K4 and phase 23 alone, into chiprun_out/chip_smoke_vision.json;
     ``--quant-seq``: the build of K3/K4 and phase 24 alone, into
-    chiprun_out/chip_smoke_quant_seq.json."""
+    chiprun_out/chip_smoke_quant_seq.json; ``--static``: the build of
+    K3/K4 and phase 25 alone, into chiprun_out/chip_smoke_static.json."""
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -8504,14 +8872,16 @@ def main(argv) -> int:
     nn_only = argv == ["--nn"]
     vision_only = argv == ["--vision"]
     quant_seq_only = argv == ["--quant-seq"]
+    static_only = argv == ["--static"]
     child = argv[:1] == ["--durability-child"] and len(argv) == 3
     fleet_kid = argv[:1] == ["--fleet-child"] and len(argv) == 3
     acp_kid = argv[:1] == ["--acp-child"] and len(argv) == 4
+    hybrid_kid = argv[:1] == ["--hybrid-child"] and len(argv) == 2
     if argv and not (kernels_only or mesh_only or fleet_only or eager_only
                      or dist_only or hybrid_only or moe_ps_only
                      or tensor_api_only or nn_only or vision_only
-                     or quant_seq_only or child
-                     or fleet_kid or acp_kid):
+                     or quant_seq_only or static_only or child
+                     or fleet_kid or acp_kid or hybrid_kid):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -8530,6 +8900,8 @@ def main(argv) -> int:
         return fleet_child(argv[1:])
     if acp_kid:
         return acp_child(argv[1:])
+    if hybrid_kid:
+        return hybrid_child(argv[1:])
 
     # 1. card
     card = card_line()
@@ -8542,7 +8914,7 @@ def main(argv) -> int:
                             if kernels_only or mesh_only or fleet_only
                             else ["layer_norm"] if tensor_api_only
                             else ["flash_attention"] if nn_only
-                            or vision_only or quant_seq_only
+                            or vision_only or quant_seq_only or static_only
                             else None)
     build_s = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
@@ -8592,7 +8964,11 @@ def main(argv) -> int:
     if hybrid_only:
         res = dict(card=card)
         res["serve"], _ = serve_phase(torch)
+        t0 = time.perf_counter()
         res["hybrid"] = hybrid_phase(torch)
+        res["hybrid"]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 19 hybrid: {res['hybrid']['phase_s']:.1f} s",
+              flush=True)
         res["serve"]["tokens"] = None
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
@@ -8603,7 +8979,11 @@ def main(argv) -> int:
     if moe_ps_only:
         res = dict(card=card)
         res["serve"], _ = serve_phase(torch)
+        t0 = time.perf_counter()
         res["moe_ps"] = moe_ps_phase(torch)
+        res["moe_ps"]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 20 moe-ps: {res['moe_ps']['phase_s']:.1f} s",
+              flush=True)
         res["serve"]["tokens"] = None
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
@@ -8654,6 +9034,18 @@ def main(argv) -> int:
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_quant_seq.json").write_text(
+            json.dumps(res, indent=1))
+        print(card, flush=True)
+        return 0
+    if static_only:
+        t0 = time.perf_counter()
+        res = dict(card=card, static=static_phase(torch))
+        res["static"]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 25 static: {res['static']['phase_s']:.1f} s",
+              flush=True)
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_static.json").write_text(
             json.dumps(res, indent=1))
         print(card, flush=True)
         return 0
@@ -8743,11 +9135,20 @@ def main(argv) -> int:
     distp = timed("18 dist", dist_phase, torch)
 
     # 19. hybrid-parallel training: tensor, ZeRO, pipeline, sequence and
-    # the 4-axis GPT step
-    hybrid = timed("19 hybrid", hybrid_phase, torch)
-
+    # the 4-axis GPT step, in a child process (`HybridChild`) beside
     # 20. expert parallelism, the parameter server, the data feed
-    moe_ps = timed("20 moe-ps", moe_ps_phase, torch)
+    t0 = time.perf_counter()
+    kid = HybridChild()
+    try:
+        moe_ps = timed("20 moe-ps", moe_ps_phase, torch)
+        hybrid = kid.result()
+    finally:
+        kid.stop()
+    phase_s["19 hybrid"] = hybrid.pop("phase_s")
+    phase_s["19+20 side by side"] = time.perf_counter() - t0
+    print(f"phase 19 hybrid: {phase_s['19 hybrid']:.1f} s, in its child "
+          f"process beside phase 20; the two took "
+          f"{phase_s['19+20 side by side']:.1f} s", flush=True)
 
     # 21. the functional tensor API and nn's activations, losses and norms
     tensor_api = timed("21 tensor-api", tensor_api_phase, torch)
@@ -8765,7 +9166,11 @@ def main(argv) -> int:
     # BERT-base CRF tagger, the op long tail
     quant_seq = timed("24 quant-seq", quant_seq_phase, torch)
 
-    # 25. report
+    # 25. deployment: ResNet-50, ViT-B/16 and BERT-base served by the
+    # Predictor from a ProgramDesc and from jit.save
+    static = timed("25 static", static_phase, torch)
+
+    # 26. report
     kernels = []
     # each serving path's launches, counted from 0 over its own serve
     k1_paths = dict(serve=launches,
@@ -8842,7 +9247,13 @@ def main(argv) -> int:
                          * gen["concat"]["k3_launches_per_call"],
                          generate_prealloc=0,
                          nn_transformer_beam_decode=nnp["transformer"][
-                             "decode_launches"])
+                             "decode_launches"],
+                         static_vit_b16_predictor_run=static[
+                             "vit_b16_jit"]["k3_launches_a_run"],
+                         static_resnet50_program_run=static[
+                             "resnet50_program"]["k3_launches_a_run"],
+                         static_bert_base_program_run=static[
+                             "bert_base_program"]["k3_launches_a_run"])
         kernels.append(dict(
             name=f"flash_attention_{'bwd_' if kern != 'fwd' else ''}{kern}",
             route="cuda", source=FLASH_SOURCE, replaces=replaces,
@@ -8881,7 +9292,7 @@ def main(argv) -> int:
                   train=train, train_layer_norm=train_ln, eager=eager,
                   dist=distp, hybrid=hybrid, moe_ps=moe_ps,
                   tensor_api=tensor_api, nn=nnp, vision=vision,
-                  quant_seq=quant_seq)
+                  quant_seq=quant_seq, static=static)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

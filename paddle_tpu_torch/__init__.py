@@ -42,6 +42,7 @@ from . import hapi
 from .hapi import Model, flops, summary
 from . import vision
 from . import distribution, quantization, sparsity, text
+from . import inference, static
 import importlib as _importlib
 
 # `from .ops import *` binds nothing called `linalg`; the name is the

@@ -1,11 +1,12 @@
 """Flag registry (counterpart: paddle_tpu/core/flags.py).
 
-The names and defaults are paddle_tpu's.  Fifty-two flags work here.
-Two more keep their default only, because the code they switch on is
-not ported yet (or, for ``compile_cache_dir``, has no counterpart) —
-setting one of those to anything else raises NotImplementedError naming
-the slice or the reason.  Three keep their default because eager torch
-has nothing for them to switch (`_FIXED`): any other value raises
+The names and defaults are paddle_tpu's, all sixty of them.
+Fifty-three flags work here.  Two more keep their default only, because
+the code they switch on is not ported yet (or, for
+``compile_cache_dir``, has no counterpart) — setting one of those to
+anything else raises NotImplementedError naming the slice or the
+reason.  Five keep their default because eager torch on CUDA has
+nothing for them to switch (`_FIXED`): any other value raises
 ValueError with the reason.  As in paddle_tpu,
 a flag's value is checked where it is read: `DecodeEngine` raises
 ValueError on a ``kv_quant`` or ``serve_weights`` mode other than "off"
@@ -113,6 +114,10 @@ _PORTED = {
     "amp_dtype": "bfloat16",
     # verbosity of the paddle_tpu_torch logger: 0 warnings, 1 info, 2+ debug
     "log_level": 0,
+    # fallback capacity of TensorArrays written inside an interpreted
+    # `while` whose trip bound cannot be read from its Condition
+    # (static.interp; 0 = raise instead)
+    "interp_tensor_array_capacity": 0,
 }
 
 # flag -> (default, why eager torch has nothing for another value to switch)
@@ -124,6 +129,13 @@ _FIXED = {
     "use_rbg_rng": (True, "dropout and the initializers draw from "
                           "torch.Generator (core.framework); there is no "
                           "TPU RBG generator to choose"),
+    "allocator_strategy": ("pjrt", "device memory is torch's CUDA caching "
+                                   "allocator; there is no PJRT allocator "
+                                   "strategy to choose"),
+    "pallas_attention_min_seq": (512, "kernels K3/K4 take every length "
+                                      "flash_attention_fwd sends them; the "
+                                      "TPU's sequence crossover does not "
+                                      "carry over"),
 }
 
 # flag -> (default, the later slice that ports what it switches on)

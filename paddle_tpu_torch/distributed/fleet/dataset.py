@@ -13,8 +13,8 @@ yields ``{name: padded numpy array, name + ".lod": lengths}`` a batch
 (the final partial batch too); a slot whose variable is rank-1 collapses
 to ``[B]``, and `InMemoryDataset` pads every ragged slot to its widest
 instance so the shapes stay fixed over the epoch.  `DatasetFactory`
-makes either.  ``Executor.train_from_dataset`` belongs to the static
-graph (ROADMAP.md Queue 1, item 4).
+makes either.  ``Executor.train_from_dataset`` belongs to static
+training, slice 4b (ROADMAP.md Queue 1, item 4b).
 """
 from __future__ import annotations
 

@@ -8,8 +8,8 @@ loader with the callbacks, `evaluate` and `predict` run without grad.
 Batches go to the device of the network's parameters.
 ``amp_configs`` ("O1", or a dict with ``dtype``) runs the forward under
 `amp.auto_cast` and the loss outside it (the JAX package takes the
-argument and ignores it).  ``save(training=False)`` is export, which
-comes with a later slice (ROADMAP.md Queue 1, item 4).
+argument and ignores it).  ``save(training=False)`` exports the network
+for inference through `jit.save` (with the Model's ``inputs`` specs).
 """
 from __future__ import annotations
 
@@ -233,17 +233,19 @@ class Model:
     # -- persistence --------------------------------------------------------
     def save(self, path, training=True):
         """``path.pdparams`` (the network's ``state_dict``) and
-        ``path.pdopt`` (the optimizer's)."""
+        ``path.pdopt`` (the optimizer's); with ``training=False`` the
+        `jit.save` inference artifact (``path.pdmodel``/``.pdiparams``)
+        over the Model's ``inputs``."""
         from ..framework.io import save as fsave
 
-        if not training:
-            raise NotImplementedError(
-                "Model.save(training=False) exports an inference program "
-                "(jit.save), which lands with the export slice of "
-                "paddle_tpu_torch (ROADMAP.md Queue 1, item 4)")
-        fsave(self.network.state_dict(), path + ".pdparams")
-        if self._optimizer is not None:
-            fsave(self._optimizer.state_dict(), path + ".pdopt")
+        if training:
+            fsave(self.network.state_dict(), path + ".pdparams")
+            if self._optimizer is not None:
+                fsave(self._optimizer.state_dict(), path + ".pdopt")
+        else:
+            from .. import jit
+
+            jit.save(self.network, path, input_spec=self._inputs)
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
         from ..framework.io import load as fload

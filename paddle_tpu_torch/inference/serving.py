@@ -73,7 +73,6 @@ final LayerNorm and head.
 from __future__ import annotations
 
 import contextlib
-import gc
 import hashlib
 import os
 import heapq
@@ -90,12 +89,12 @@ import torch.nn.functional as F
 
 from .. import observability as _obs
 from ..analysis import sanitizer as _san
-from ..core import dispatch as _dispatch
 from ..core import flags as _flags
 from ..observability import costmodel as _costmodel
 from ..device import resolve_device
 from ..nn.decode import sample_logits
 from ..nn.functional.attention import _sdpa_reference
+from ..ops import capture as _capture
 from ..ops import paged_attention as pa
 from ..ops.layer_norm import layer_norm
 from ..profiler import DECODE_STAT_COUNTERS, RecordEvent, _decode_stat_zero
@@ -179,11 +178,6 @@ def disable_capture():
         _CAPTURE_OFF[0] -= 1
 
 
-# the kernel wrappers a serving step launches: each counts the launches a
-# capture records (`ops.paged_attention._PagedAttentionCuda.captured`)
-_LAUNCH_COUNTED = (pa.paged_attention_cuda, pa.paged_attention_cuda_q)
-
-
 class _GraphMemory:
     """What an engine's graphs share: one memory pool (they replay one
     at a time, in the order the engine calls them, on one stream) and
@@ -208,46 +202,18 @@ class _GraphMemory:
 
 
 class _Captured:
-    """One step signature's CUDA graph: its inputs' static device
-    buffer (every input at a 16-byte offset) with a pinned host twin, so
-    a call stages its inputs with one asynchronous copy, and its static
-    output.  ``launch_counts`` are the kernel launches the capture
-    recorded, added to each wrapper's ``launches`` on every replay."""
+    """One step signature's CUDA graph (`ops.capture.Graph`), its static
+    inputs (`ops.capture.StagedInputs`: one asynchronous copy stages a
+    call's host inputs) and its static output."""
 
     def __init__(self, host, device):
-        offs, total = [], 0
-        for a in host:
-            offs.append(total)
-            total += -(-a.nbytes // 16) * 16
-        self._pinned = torch.empty(max(total, 16), dtype=torch.uint8,
-                                   pin_memory=True)
-        self._buf = torch.empty(max(total, 16), dtype=torch.uint8,
-                                device=device)
-        self._host, self.inputs = [], []
-        for a, off in zip(host, offs):
-            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
-            self._host.append(self._pinned[off:off + a.nbytes].view(
-                dtype).view(a.shape).numpy())
-            self.inputs.append(self._buf[off:off + a.nbytes].view(
-                dtype).view(a.shape))
-        self._copied = torch.cuda.Event()
+        self.staged = _capture.StagedInputs.of(host, device)
+        self.inputs = self.staged.inputs
         self.graph = self.out = None
-        self.launch_counts = ()
-
-    def load(self, host):
-        """Stage ``host`` into the static inputs, on the current stream.
-        The pinned buffer is rewritten only once its last copy is done."""
-        self._copied.synchronize()
-        for dst, a in zip(self._host, host):
-            dst[...] = a
-        self._buf.copy_(self._pinned, non_blocking=True)
-        self._copied.record()
 
     def replay(self, host):
-        self.load(host)
+        self.staged.load(host)
         self.graph.replay()
-        for w, n in self.launch_counts:
-            w.launches += n
         return self.out
 
 
@@ -387,39 +353,20 @@ class _StepGraph:
         reserved = torch.cuda.memory_reserved(self._device)
         cur = torch.cuda.current_stream(self._device)
         cap = _Captured(host, self._device)
-        cap.load(host)
+        cap.staged.load(host)
         mem.stream.wait_stream(cur)
         with torch.cuda.stream(mem.stream):
             out = self._counted(host, lambda: self.fn(*cap.inputs))
-            before = [w.captured for w in _LAUNCH_COUNTED]
-            graph = torch.cuda.CUDAGraph()
-            if self._generator is not None:
-                graph.register_generator_state(self._generator)
-            # a graph the cyclic collector frees inside a capture destroys
-            # its executable there, which invalidates the capture: hold the
-            # collector off until the capture ends (an engine holds no
-            # cycle of its own, `_EngineRef`, but a caller's cycle can hold
-            # a dead engine and its graphs)
-            gc_on = gc.isenabled()
-            gc.disable()
-            # FLAGS_check_nan_inf / FLAGS_benchmark's mode syncs the host
-            # after an op: off the stack for the capture
-            with _dispatch.suspended():
-                graph.capture_begin(pool=mem.pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    cap.out = self.fn(*cap.inputs)
-                finally:
-                    graph.capture_end()
-                    if gc_on:
-                        gc.enable()
+            # a graph the cyclic collector frees inside a capture would
+            # invalidate it (`ops.capture.capture` holds the collector
+            # off): an engine holds no cycle of its own, `_EngineRef`, but
+            # a caller's cycle can hold a dead engine and its graphs
+            cap.graph, cap.out = _capture.capture(
+                lambda: self.fn(*cap.inputs), pool=mem.pool,
+                generator=self._generator)
         cur.wait_stream(mem.stream)
         if out is not None:
             out.record_stream(cur)
-        cap.graph = graph
-        cap.launch_counts = tuple(
-            (w, w.captured - b) for w, b in zip(_LAUNCH_COUNTED, before)
-            if w.captured > b)
         grown = max(torch.cuda.memory_reserved(self._device) - reserved, 0)
         mem.pool_bytes += grown
         _costmodel.note_temp_bytes(self.cost_sig, grown)

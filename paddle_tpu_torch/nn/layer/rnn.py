@@ -10,8 +10,10 @@ z) * g + z * h``.  `RNN` runs a cell over time in a Python loop,
 Two behaviours of the JAX package are kept: `RNN` and `BiRNN` ignore
 ``sequence_length`` (every step of every sequence runs), and
 `SimpleRNN`/`LSTM`/`GRU` pass no ``initial_states`` on (every layer
-starts from zeros).  Their export to a single ``rnn`` program op
-belongs to static export, which the port does not have yet.
+starts from zeros).  While `static.fx_export` traces a model into a
+ProgramDesc (`static.export_marker`'s program mode), `SimpleRNN`/`LSTM`/
+`GRU` bind the ``paddle_tpu_torch::rnn`` marker op instead of their time
+loop, and the exporter writes ONE reference ``rnn`` op.
 """
 from __future__ import annotations
 
@@ -215,6 +217,11 @@ class _RNNBase(Layer):
         ``sequence_length`` taken and not read, as in the JAX package);
         returns the last layer's outputs and the final states stacked
         ``[num_layers * num_directions, B, H]`` (LSTM: ``(h, c)``)."""
+        from ...static.export_marker import export_tracing
+
+        if (export_tracing() and initial_states is None
+                and sequence_length is None):
+            return self._export_forward(inputs)
         out = inputs
         final_h, final_c = [], []
         for i, rnn_l in enumerate(self._all_layers):
@@ -234,9 +241,34 @@ class _RNNBase(Layer):
         return out, h
 
     def _export_forward(self, inputs):
-        raise NotImplementedError(
-            "exporting an RNN as one `rnn` program op belongs to static "
-            "export (ROADMAP.md Queue 1 item 4), not yet in the port")
+        """Export-time lowering: bind the ``paddle_tpu_torch::rnn`` marker
+        so the exporter emits ONE unified `rnn` op
+        (`operators/rnn_op.cc`) instead of T copies of the cell.  Weight
+        order is the op's WeightList: (w_ih, w_hh) per (layer,
+        direction), then (b_ih, b_hh) per (layer, direction)."""
+        from ...static.export_marker import rnn_marker
+
+        nd = self.num_directions
+        cells = []
+        for lyr in self._all_layers:
+            if nd == 2:
+                cells += [lyr.rnn_fw.cell, lyr.rnn_bw.cell]
+            else:
+                cells.append(lyr.cell)
+        ws = [w for c in cells for w in (c.weight_ih, c.weight_hh)]
+        bs = [b for c in cells for b in (c.bias_ih, c.bias_hh)]
+        batch = inputs.shape[1] if self.time_major else inputs.shape[0]
+        h0 = inputs.new_zeros((self.num_layers * nd, batch,
+                               self.hidden_size))
+        outs = rnn_marker(inputs, h0, torch.zeros_like(h0), ws + bs,
+                          self.mode, self.hidden_size, self.num_layers,
+                          nd == 2, bool(self.time_major),
+                          float(self.dropout))
+        if self.mode == "LSTM":
+            out, h, c = outs
+            return out, (h, c)
+        out, h = outs
+        return out, h
 
 
 class SimpleRNN(_RNNBase):

@@ -4,8 +4,8 @@ package's concrete-predicate branch: the predicate is read and only the
 taken branch runs, as a Python ``if`` in dygraph.
 
 The JAX package's traced branch (``lax.cond``, ``lax.while_loop``,
-``lax.switch``) belongs to the static graph, which lands with
-paddle_tpu_torch's export slice (ROADMAP.md Queue 1, item 4).  A
+``lax.switch``) belongs to traced control flow, which lands with
+paddle_tpu_torch's slice 4b (ROADMAP.md Queue 1, item 4b).  A
 predicate that cannot be read raises with that reason: a CUDA tensor
 while a CUDA graph captures (reading it would sync the stream) is never
 taken as one branch.
@@ -25,8 +25,8 @@ def _readable(v):
         raise RuntimeError(
             "control flow on a CUDA tensor while a CUDA graph captures: "
             "the predicate cannot be read without a host sync, and the "
-            "traced form (both branches in the graph) lands with the "
-            "static graph (ROADMAP.md Queue 1, item 4)")
+            "traced form (both branches in the graph) lands with "
+            "slice 4b (ROADMAP.md Queue 1, item 4b)")
     return v
 
 

@@ -17,11 +17,20 @@ take raises; there is no fallback.
 The TPU's block-size rules (``pick_blocks``, the autotune cache) and its
 sequence thresholds are not carried over: the kernels take any length
 and mask the ragged tail themselves.
+
+Export (`static.export_marker`): under `jit.save`'s trace the forward
+binds the custom op ``paddle_tpu_torch::flash_attention_fwd``
+(`flash_attention_fwd_op`: K3 on CUDA tensors, counted as every launch
+is; the composed form on the CPU; a fake of the output shapes for the
+trace), since ``data_ptr()`` has no meaning on a traced tensor; under
+`fx_export`'s trace it takes the composed form, so a ProgramDesc holds
+reference op types only.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,7 +38,8 @@ from . import _build
 
 __all__ = ["flash_attention_fwd", "FlashAttention",
            "flash_attention_bwd_reference", "flash_attention_cuda_fwd",
-           "flash_attention_cuda_dkv", "flash_attention_cuda_dq"]
+           "flash_attention_cuda_dkv", "flash_attention_cuda_dq",
+           "flash_attention_fwd_op"]
 
 _MASK_VALUE = -1e30  # paddle_tpu's mask value
 
@@ -94,13 +104,17 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, is_causal, scale):
 class _FlashKernel:
     """ctypes wrapper of one kernel of ``csrc/flash_attention.cu``.
     ``launches`` counts the kernel launches this process made; it grows
-    by one per launch and nowhere else."""
+    by one per launch and nowhere else.  A call made while the stream is
+    being captured into a CUDA graph launches nothing: it adds one to
+    ``captured`` instead, and the graph adds its captured launches to
+    ``launches`` each time it replays (`ops.capture`)."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
     _HEAD_DIMS = (64, 128)
 
     def __init__(self, symbol: str, pointers: int):
         self.launches = 0
+        self.captured = 0
         self._symbol = symbol
         self._pointers = pointers
         self._fn = None
@@ -164,7 +178,10 @@ class _FlashKernel:
         if err != 0:
             raise RuntimeError(f"{self._symbol} kernel launch failed: "
                                f"cudaError {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 class _FlashFwdCuda(_FlashKernel):
@@ -239,13 +256,44 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, is_causal: bool,
+                           scale: Optional[float]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K3 as a `torch.library` op, for exported graphs: ``(out,
+    lse f32 [B*H, Sq])``; the composed form on CPU tensors."""
+    if q.device.type == "cpu":
+        out, lse = _composed_attention(q, k, v, None, is_causal, scale,
+                                       want_lse=True)
+        return out, lse.reshape(-1, q.shape[2])
+    return flash_attention_cuda_fwd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), is_causal, scale)
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, is_causal, scale):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((q.shape[0] * q.shape[1], q.shape[2]),
+                        dtype=torch.float32))
+
+
 def flash_attention_fwd(q, k, v, mask=None, is_causal=False, scale=None):
     """Attention of q over k, v, all ``[B, H, S, D]``; differentiable.
 
     Routes as the JAX package does on the TPU: a mask, or causal with
     ``seq_q != seq_k``, takes the composed form; everything else runs
     `FlashAttention` (kernels K3/K4 on CUDA, the plain versions on the
-    CPU)."""
+    CPU).  Under an export trace: `flash_attention_fwd_op` for
+    `jit.save`, the composed form for a ProgramDesc."""
     if mask is not None or (is_causal and q.shape[-2] != k.shape[-2]):
         return _composed_attention(q, k, v, mask, is_causal, scale)
+    from ..static.export_marker import export_mode
+
+    mode = export_mode()
+    if mode == "program":
+        return _composed_attention(q, k, v, None, is_causal, scale)
+    if mode == "archive":
+        return flash_attention_fwd_op(q, k, v, bool(is_causal), scale)[0]
     return FlashAttention.apply(q, k, v, is_causal, scale)

@@ -12,6 +12,11 @@ forward of a CUDA tensor runs kernel K5 (`csrc/layer_norm.cu`) through
 other call runs `layer_norm`, the `_fwd_xla` form, which is also K5's
 plain version.  The backward is composed either way, as in JAX.  JAX's
 ``d % 128 == 0`` condition is a TPU lane rule and is not carried over.
+
+Export (`static.export_marker`): under `jit.save`'s trace with the flag
+on, the forward binds ``paddle_tpu_torch::layer_norm``
+(`layer_norm_op`: K5 on CUDA tensors, `layer_norm` on the CPU); without
+the flag, and under `fx_export`'s trace, it is `layer_norm`.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ import torch
 from ..core import flags as _flags
 from . import _build
 
-__all__ = ["layer_norm", "layer_norm_cuda", "fused_layer_norm"]
+__all__ = ["layer_norm", "layer_norm_cuda", "fused_layer_norm",
+           "layer_norm_op"]
 
 
 def layer_norm(x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -38,7 +44,9 @@ def layer_norm(x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 class _LayerNormCuda:
     """ctypes wrapper of kernel K5.  ``launches`` counts the kernel
     launches this process made; it grows by one per launch and nowhere
-    else."""
+    else.  A call made while a CUDA graph captures adds one to
+    ``captured`` instead; the graph adds its captured launches to
+    ``launches`` at each replay (`ops.capture`)."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
     # 16-byte vectors a row may hold: 512 threads x 8 (csrc/layer_norm.cu)
@@ -46,6 +54,7 @@ class _LayerNormCuda:
 
     def __init__(self):
         self.launches = 0
+        self.captured = 0
         self._fn = None
 
     def _kernel(self):
@@ -98,7 +107,10 @@ class _LayerNormCuda:
         if err != 0:
             raise RuntimeError(f"layer_norm kernel launch failed: "
                                f"cudaError {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         return y
 
 
@@ -130,8 +142,32 @@ class _FusedLayerNorm(torch.autograd.Function):
         return (dx * rstd).to(x2d.dtype), dw, db, None
 
 
+@torch.library.custom_op("paddle_tpu_torch::layer_norm", mutates_args=())
+def layer_norm_op(x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Kernel K5 as a `torch.library` op, for exported graphs;
+    `layer_norm` on CPU tensors."""
+    if x2d.device.type == "cpu":
+        return layer_norm(x2d, w, b, eps)
+    return layer_norm_cuda(x2d.contiguous(), w, b, eps)
+
+
+@layer_norm_op.register_fake
+def _layer_norm_fake(x2d, w, b, eps):
+    return torch.empty_like(x2d, memory_format=torch.contiguous_format)
+
+
 def fused_layer_norm(x2d, w, b, eps=1e-5):
     """Differentiable LayerNorm.  x2d: [rows, d]; w/b: [d].  Kernel K5
     runs the forward of a CUDA tensor when ``FLAGS_use_pallas_layernorm``
-    is on, `layer_norm` otherwise."""
+    is on, `layer_norm` otherwise.  Under an export trace:
+    `layer_norm_op` for `jit.save` with the flag on, `layer_norm`
+    otherwise."""
+    from ..static.export_marker import export_mode
+
+    mode = export_mode()
+    if mode is not None:
+        if mode == "archive" and _flags.flag("use_pallas_layernorm"):
+            return layer_norm_op(x2d, w, b, float(eps))
+        return layer_norm(x2d, w, b, eps)
     return _FusedLayerNorm.apply(x2d, w, b, eps)

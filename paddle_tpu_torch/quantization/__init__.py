@@ -198,10 +198,10 @@ class ImperativeQuantAware:
         return model
 
     def save_quantized_model(self, model, path, input_spec=None):
-        raise NotImplementedError(
-            "save_quantized_model exports an inference program (jit.save), "
-            "which lands with the export slice of paddle_tpu_torch "
-            "(ROADMAP.md Queue 1, item 4)")
+        """The quantized model as a `jit.save` inference artifact."""
+        from .. import jit
+
+        jit.save(model, path, input_spec=input_spec)
 
 
 class ImperativePTQ:

@@ -83,12 +83,14 @@ def _round_up(n, m):
 
 def padded_int_mm(a, b):
     """``a @ b`` of int8 [M, K] and [K, N] as s32 through
-    ``torch._int_mm``: M is padded to more than 16 and K, N to multiples
-    of 8 with zeros, which leave every sum exact."""
+    ``torch._int_mm``: M is padded to more than 16 and every dim to a
+    multiple of 16 with zeros, which leave every sum exact (cuBLASLt
+    refuses an int8 product whose leading dims are multiples of 8 only:
+    LeNet's 120 x 84 layer, K 120 and N 88)."""
     m, k = a.shape
     n = b.shape[1]
-    mp, kp, np_ = _round_up(max(m, 17), 8), _round_up(k, 8), \
-        _round_up(n, 8)
+    mp, kp, np_ = _round_up(max(m, 17), 16), _round_up(k, 16), \
+        _round_up(n, 16)
     if (mp, kp) != (m, k):
         a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
     if (kp, np_) != (k, n):

@@ -196,7 +196,8 @@ def test_model_save_load_and_callbacks(tmp_path):
     """``Model.save`` writes ``.pdparams``/``.pdopt`` that JAX's
     ``Model.load`` reads; the port's ``load`` restores network and
     optimizer (the next fit step equals the saved model's);
-    ``save(training=False)`` names its slice; `ModelCheckpoint`,
+    ``save(training=False)`` exports through ``jit.save``, which without
+    the Model's ``inputs`` raises as the JAX package's does; `ModelCheckpoint`,
     `VisualDL` (JSONL) and `EarlyStopping` work in ``fit``."""
     _, tm = _models(seed=5)
     tokens, labels = _data(4)
@@ -213,8 +214,11 @@ def test_model_save_load_and_callbacks(tmp_path):
     assert (tmp_path / "ck" / "final.pdparams").exists()
     assert (tmp_path / "ck" / "epoch_0.pdparams").exists()
     model.save(str(tmp_path / "m"))
-    with pytest.raises(NotImplementedError, match="export slice"):
+    with pytest.raises(ValueError, match="input_spec"):
         model.save(str(tmp_path / "x"), training=False)
+    with pytest.raises(ValueError, match="input_spec"):
+        paddle.Model(_models(seed=5)[0]).save(str(tmp_path / "jx"),
+                                              training=False)
     jm, _ = _models(seed=6)
     jmodel = paddle.Model(jm)
     jmodel.prepare(JO.AdamW(1e-3, parameters=jm.parameters()),

@@ -332,7 +332,8 @@ bad = sorted(m for m in sys.modules
 # activations, losses and norms, the rest of nn with BERT,
 # vision (whose image decoders import PIL only when they run: the card's
 # machine has none), and quantization, sparsity, distribution, the
-# metrics, the text datasets and the op long tail
+# metrics, the text datasets and the op long tail, and the static
+# graph, its exporter, jit and the inference API
 missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.inference.speculative",
                        "paddle_tpu_torch.inference.frontend",
@@ -462,7 +463,20 @@ missing = [m for m in ("paddle_tpu_torch.inference.serving",
                        "paddle_tpu_torch.ops.sequence",
                        "paddle_tpu_torch.ops.crf",
                        "paddle_tpu_torch.ops.control_flow",
-                       "paddle_tpu_torch.ops.industrial")
+                       "paddle_tpu_torch.ops.industrial",
+                       "paddle_tpu_torch.static",
+                       "paddle_tpu_torch.static.input_spec",
+                       "paddle_tpu_torch.static.proto",
+                       "paddle_tpu_torch.static.op_version",
+                       "paddle_tpu_torch.static.program",
+                       "paddle_tpu_torch.static.interp",
+                       "paddle_tpu_torch.static.op_bridge",
+                       "paddle_tpu_torch.static.nn",
+                       "paddle_tpu_torch.static.fx_export",
+                       "paddle_tpu_torch.static.export_marker",
+                       "paddle_tpu_torch.ops.capture",
+                       "paddle_tpu_torch.jit",
+                       "paddle_tpu_torch.inference")
            if m not in sys.modules]
 print(len(sys.modules), bad, missing)
 sys.exit(1 if bad or missing else 0)
